@@ -24,7 +24,31 @@
    moves more rows against the plain path than twice those that the plain
    path moves between the card and the CPU (f32 summation order alone),
    plus 4.
-4. Prints one ``{"kernels": [...]}`` line, the card's name and power
+4. Holds the trainable SGB op's kernels against their plain versions at
+   B=128, L=8000, F=512: kernel A (forward with argmax) to the tolerance
+   above, its offsets equal to the plain version's wherever the plain
+   window maximum beats its runner-up by more than 1e-3 of its magnitude;
+   kernel B (backward) per output on kernel A's own outputs, its f32
+   sums (dkernel, dbias) also to relative L2 1e-5, and bitwise equal
+   over two runs. Times both as in 2 (kernel B's yardstick: the
+   backward of cuDNN conv + max-pool + leaky in bf16, timed alone), and
+   requires one forward + backward of the op to stay below the 1.05 GB
+   of one (128, 8000, 512) bf16 plane of device memory.
+5. Trains: ``train.make_fused_train_step`` (bf16 forward, f32 masters,
+   AdamW with the cosine schedule) on the same architecture (weights from
+   the next seed) at B=128, L=8000 over seeded noise frames with two GT
+   echoes per row. First the gradients of one step through the kernels
+   against the same step through the plain versions on the card
+   (relative L2 per parameter <= 2e-2; the plain path in bf16 against
+   f32 printed beside it), then
+   one warm-up step and 4 timed steps on 4 other batches: both kernels
+   launch on every step, every loss is finite, and the warm-up batch's
+   loss is lower after the steps. Prints ms per step (median), training
+   waveforms per second, peak memory and device time by kernel over the
+   4 batches trained on again under the profiler. Last, a witness: the
+   same 5 steps from the serving weights, through the kernels and through
+   the plain versions, with the warm-up batch's loss before and after.
+6. Prints one ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero. It exits non-zero
@@ -43,11 +67,17 @@ import torch
 import torch.nn.functional as F
 
 from stofnet_tpu_torch.data.synthetic import gate_batch
-from stofnet_tpu_torch.models import StofNet, stofnet_apply_reference
+from stofnet_tpu_torch.models import (
+    StofNet, stofnet_apply_fused, stofnet_apply_reference,
+)
 from stofnet_tpu_torch.ops.kernels import _build, conv_stack, sgb
 from stofnet_tpu_torch.ops.kernels import reset_launch_counts
+from stofnet_tpu_torch.ops.conv import conv1d_same
 from stofnet_tpu_torch.ops.peaks import mask2coords
 from stofnet_tpu_torch.serve import make_pipeline
+from stofnet_tpu_torch.train import (
+    LossConfig, fused_loss, make_fused_train_step, make_optimizer,
+)
 
 B, L, UP = 128, 8000, 4
 DECODE = dict(window_size=20, threshold=None, upsample_factor=UP,
@@ -59,7 +89,14 @@ N_BATCHES = 4
 AGREE_MIN = 0.99  # decoded-coord agreement rule of bench.py
 ROW_NOISE = 4  # rows of counting noise allowed beside the summation witness
 PEAK_BF16 = 989e12  # FLOP/s, H100 SXM dense bf16 (data sheet)
+PEAK_F32 = 67e12  # FLOP/s, H100 SXM f32 on the CUDA cores (data sheet)
 PEAK_HBM = 3.35e12  # B/s, H100 SXM HBM3 (data sheet)
+MARGIN = 1e-3  # offsets compared where max - runner-up > MARGIN * |max|
+PLANE_BYTES = B * L * 512 * 2  # one (128, 8000, 512) bf16 pre-pool plane
+GRAD_TOL = 2e-2  # relative L2 of each gradient leaf, kernels vs plain
+SUM_TOL = 1e-5  # relative L2 of kernel B's f32 sums (dkernel, dbias)
+OPT = dict(lr=5e-4, weight_decay=1e-8, epochs=80, steps_per_epoch=100)
+N_STEPS = 4  # timed training steps, after one warm-up step
 
 
 def log(msg: str) -> None:
@@ -91,8 +128,11 @@ def time_ms(fn, args_list, iters: int = TIMED) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_HBM * 1e3
+def bound(nbytes: float, bf16: float = 0.0, f32: float = 0.0):
+    """Least time in ms for ``nbytes`` moved and ``bf16`` + ``f32`` FLOP,
+    each type at its peak, and which of the two sets it."""
+    t_ops = (bf16 / PEAK_BF16 + f32 / PEAK_F32) * 1e3
+    t_bytes = nbytes / PEAK_HBM * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -141,8 +181,8 @@ def kernel_sgb(dev, rng, state) -> dict:
     library_ms = time_ms(lambda x: F.leaky_relu(F.max_pool1d(
         F.conv1d(x, wc, b, padding=2), sgb.POOL), 0.01), hc)
     f = w.shape[2]
-    t, by = bound(2.0 * B * L * f * w.shape[0] * w.shape[1],
-                  nbytes(h, w, b) + B * (L // sgb.POOL) * f * 2)
+    t, by = bound(nbytes(h, w, b) + B * (L // sgb.POOL) * f * 2,
+                  bf16=2.0 * B * L * f * w.shape[0] * w.shape[1])
     return dict(name="sgb_contract_pool", route="cuda",
                 source="stofnet_tpu_torch/csrc/sgb_contract_pool.cu",
                 replaces="stofnet_tpu/ops/pallas/sgb_kernel.py:189",
@@ -188,8 +228,8 @@ def kernel_stack(dev, rng, state) -> dict:
     weights = [state[f"conv{i}.{p}"] for i in range(2, 13)
                for p in ("weight", "bias")]
     weights += [state["conv_last.weight"], state["conv_last.bias"]]
-    t, by = bound(2.0 * B * L * (11 * 7 * 64 * 64 + 3 * 64 * r),
-                  nbytes(h0, *weights) + B * L * r * 4)
+    t, by = bound(nbytes(h0, *weights) + B * L * r * 4,
+                  bf16=2.0 * B * L * (11 * 7 * 64 * 64 + 3 * 64 * r))
     return dict(name="conv_stack_fused", route="cuda",
                 source="stofnet_tpu_torch/csrc/conv_stack.cu",
                 replaces="stofnet_tpu/ops/pallas/conv_stack_kernel.py:137",
@@ -264,7 +304,7 @@ def main_path(dev, state, rng):
             f"the kernel path moves {moved} rows against the plain path, "
             f"more than twice the {base} that f32 summation order alone "
             f"moves (plain path on the CPU) plus {ROW_NOISE}")
-    prof = profile_batches(pipe, batches)
+    prof = profile_runs(lambda x: pipe(x).cpu(), batches)
     prof["idle_share_derived"] = 1.0 - prof["device_busy_ms"] / ms
     log(f"profile: {json.dumps(prof)}")
     return out
@@ -311,31 +351,270 @@ def witness(dev, state, batches, got, plain) -> dict:
     return out
 
 
-def profile_batches(pipe, batches) -> dict:
-    """Device time by kernel over the timed batches, served once more under
-    the profiler: where a batch's time goes. Its wall time is the
-    profiler's, so the idle share is derived against the unprofiled
-    median."""
+def profile_runs(run_one, items) -> dict:
+    """Device time by kernel over ``run_one(x)`` for each of ``items``
+    (each run ends in a copy to the host), under the profiler: where a
+    batch's or a step's time goes. Its wall time is the profiler's, so the
+    idle share is derived against the unprofiled median."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for x in batches:
-            pipe(x).cpu()
-        wall_us = (time.perf_counter() - t0) * 1e6 / len(batches)
+        for x in items:
+            run_one(x)
+        wall_us = (time.perf_counter() - t0) * 1e6 / len(items)
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name: dict = {}
     for e in kern:  # names cut to 60 characters; sum what they merge
         name = e.key[:60]
         by_name[name] = (by_name.get(name, 0.0)
-                         + e.self_device_time_total / len(batches))
+                         + e.self_device_time_total / len(items))
     busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(batches=len(batches), profiled_wall_ms=wall_us / 1e3,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(runs=len(items), profiled_wall_ms=wall_us / 1e3,
                 device_busy_ms=busy_us / 1e3,
                 top_ms={k: v / 1e3 for k, v in top})
+
+
+def kernels_trainable(dev, rng, state):
+    """Kernels A and B of the trainable SGB op at the main path's shapes:
+    the f32 master weights of the contract conv, bf16 features."""
+    h = torch.from_numpy(rng.standard_normal((B, L, 64), np.float32)).to(
+        dev, torch.bfloat16)
+    w = state["semi_global_block.contract_conv.weight"].permute(
+        2, 1, 0).contiguous()  # (5, 64, 512) f32
+    b = state["semi_global_block.contract_conv.bias"]
+    f = w.shape[2]
+    wt, bias = sgb.sgb_weights(w, b, torch.bfloat16)  # as the op does
+    pooled, off = sgb.sgb_contract_pool_argmax(h, wt, bias)
+    ref_pooled, ref_off = sgb.sgb_contract_pool_argmax_reference(h, w, b)
+    err_a = check_close("sgb_contract_pool_argmax", pooled, ref_pooled)
+    y = conv1d_same(h.float(), w.to(h.dtype).float(), b.to(h.dtype).float())
+    top = y.reshape(B, L // sgb.POOL, sgb.POOL, f).topk(2, dim=2).values
+    del y
+    clear = (top[:, :, 0] - top[:, :, 1]) > MARGIN * top[:, :, 0].abs()
+    differ = off != ref_off
+    offsets = dict(mismatch_rate=float(differ.float().mean()),
+                   clear_share=float(clear.float().mean()),
+                   mismatch_clear=int((differ & clear).sum()))
+    log(f"sgb_contract_pool_argmax offsets: {json.dumps(offsets)}")
+    if offsets["mismatch_clear"]:
+        raise AssertionError("kernel A's offsets differ from the plain "
+                             "version's where the window maximum is clear")
+
+    g = torch.from_numpy(rng.standard_normal(pooled.shape, np.float32)).to(
+        dev, torch.bfloat16)
+    got = sgb.sgb_contract_pool_bwd(h, w, g, pooled, off)
+    again = sgb.sgb_contract_pool_bwd(h, w, g, pooled, off)
+    ref = sgb.sgb_contract_pool_bwd_reference(h, w, g, pooled, off)
+    err_b = 0.0
+    for name, x, y2, z in zip(("dh", "dkernel", "dbias"), got, again, ref):
+        err_b = max(err_b, check_close(f"sgb_contract_pool_bwd {name}", x, z))
+        if not torch.equal(x, y2):
+            raise AssertionError(f"sgb_contract_pool_bwd {name}: two runs on "
+                                 "the same inputs differ")
+        if name != "dh":  # f32 sums of exact products: order alone differs
+            rel = rel_l2(x, z)
+            log(f"sgb_contract_pool_bwd {name}: relative L2 {rel:.3g}")
+            if not rel <= SUM_TOL:
+                raise AssertionError(f"sgb_contract_pool_bwd {name}: relative "
+                                     f"L2 {rel} > {SUM_TOL}")
+    log("sgb_contract_pool_bwd: two runs bitwise equal")
+    peak = trainable_peak_bytes(h, w, b, g)
+    log(f"trainable op forward + backward: peak {peak / 1e6:.1f} MB above "
+        f"the inputs (one bf16 pre-pool plane: {PLANE_BYTES / 1e6:.1f} MB)")
+    if peak >= PLANE_BYTES:
+        raise AssertionError(f"the trainable op took {peak} bytes, not less "
+                             f"than one (B, L, 512) bf16 plane")
+
+    hs = variants(h)
+    fwd = [sgb.sgb_contract_pool_argmax(x, wt, bias) for x in hs]
+    gs = variants(g)
+    ms_a = time_ms(lambda x: sgb.sgb_contract_pool_argmax(x, wt, bias),
+                   [(x,) for x in hs])
+    plain_a = time_ms(
+        lambda x: sgb.sgb_contract_pool_argmax_reference(x, w, b),
+        [(x,) for x in hs])
+    # yardstick: cuDNN conv + pool with indices + leaky, bf16, channels-first
+    hc = [(x.transpose(1, 2).contiguous(),) for x in hs]
+    wc, bc = w.permute(2, 1, 0).to(torch.bfloat16), b.to(torch.bfloat16)
+
+    def library_a(x):
+        y, idx = F.max_pool1d(F.conv1d(x, wc, bc, padding=2), sgb.POOL,
+                              return_indices=True)
+        return F.leaky_relu(y, 0.01), idx
+    lib_a = time_ms(library_a, hc)
+    t_a, by_a = bound(nbytes(h, wt, bias, pooled, off),
+                      bf16=2.0 * B * L * f * w.shape[0] * w.shape[1])
+
+    bwd_args = [(x, gi, p, o) for x, gi, (p, o) in zip(hs, gs, fwd)]
+    ms_b = time_ms(lambda x, gi, p, o: sgb.sgb_contract_pool_bwd(
+        x, w, gi, p, o), bwd_args)
+    plain_b = time_ms(lambda x, gi, p, o: sgb.sgb_contract_pool_bwd_reference(
+        x, w, gi, p, o), bwd_args)
+    # yardstick: the backward alone of cuDNN conv + max-pool + leaky in bf16
+    graphs = []
+    for x, gi in zip(hs[:2], gs[:2]):
+        xc = x.transpose(1, 2).contiguous().requires_grad_(True)
+        wl = wc.detach().clone().requires_grad_(True)
+        bl = bc.detach().clone().requires_grad_(True)
+        out = F.leaky_relu(F.max_pool1d(F.conv1d(xc, wl, bl, padding=2),
+                                        sgb.POOL), 0.01)
+        graphs.append((out, (xc, wl, bl), gi.transpose(1, 2).contiguous()))
+    lib_b = time_ms(lambda out, inputs, gc: torch.autograd.grad(
+        out, inputs, gc, retain_graph=True), graphs)
+    del graphs
+    # work this run's offsets need: taps that land inside [0, L)
+    pos = (off.long() - sgb.PAD
+           + torch.arange(L // sgb.POOL, device=dev)[:, None] * sgb.POOL)
+    taps = sum(int(((pos + t >= 0) & (pos + t < L)).sum())
+               for t in range(sgb.KSIZE))
+    # dkernel: bf16 x bf16 products summed in f32, the bf16 tensor-core
+    # type; dh: f32 g_pre x f32 w, and dbias, on the f32 CUDA cores
+    t_b, by_b = bound(nbytes(h, w, g, pooled, off, *got),
+                      bf16=2.0 * taps * 64,
+                      f32=2.0 * taps * 64 + 2.0 * pooled.numel())
+    a = dict(name="sgb_contract_pool_argmax", route="cuda",
+             source="stofnet_tpu_torch/csrc/sgb_contract_pool.cu",
+             replaces="stofnet_tpu/ops/pallas/sgb_kernel.py:209",
+             max_abs_err=err_a, ms=ms_a, plain_ms=plain_a, bound_ms=t_a,
+             bound_by=by_a, library_ms=lib_a)
+    bk = dict(name="sgb_contract_pool_bwd", route="cuda",
+              source="stofnet_tpu_torch/csrc/sgb_contract_pool_bwd.cu",
+              replaces="stofnet_tpu/ops/pallas/sgb_kernel.py:244",
+              max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=t_b,
+              bound_by=by_b, library_ms=lib_b)
+    return a, bk
+
+
+def trainable_peak_bytes(h, w, b, g) -> int:
+    """Peak device memory of one forward + backward of the trainable op,
+    above what was allocated before it (its inputs)."""
+    hg, wg, bg = (t.detach().clone().requires_grad_(True) for t in (h, w, b))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sgb.sgb_contract_pool_trainable(hg, wg, bg).backward(g)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def train_batches(rng, n: int, dev):
+    """``n`` seeded noise frames (B, 1, L), max-normalized per waveform, and
+    the GT of two echoes per row at samples 2000.25 and 5500.5, in
+    upsampled units (B, 1, 2): the training bench's recipe."""
+    frames = []
+    for _ in range(n):
+        x = rng.standard_normal((B, 1, L)).astype(np.float32)
+        x /= np.abs(x).max(axis=-1, keepdims=True)
+        frames.append(torch.from_numpy(x).to(dev))
+    gt = np.round(np.array([2000.25, 5500.5]) * UP).astype(np.int32)
+    return frames, torch.from_numpy(np.tile(gt, (B, 1, 1))).to(dev)
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def trainer(dev, seed: int, cfg, forward=stofnet_apply_fused):
+    """StofNet's f32 masters drawn from ``seed`` and the fused train step
+    over them with ``forward``: (params, step)."""
+    model = StofNet(generator=torch.Generator().manual_seed(seed),
+                    device=dev)
+    params = dict(model.named_parameters())
+    opt, sched = make_optimizer(params.values(), **OPT)
+    return params, make_fused_train_step(params, opt, sched, cfg,
+                                         forward=forward)
+
+
+def train_path(dev) -> dict:
+    """The fused train step: a gradient witness, one warm-up step, then the
+    timed steps with their launch counts, then the seed witness. The
+    weights are drawn from seed SEED + 1 (see :func:`seed_witness`)."""
+    cfg = LossConfig(upsample_factor=UP, max_echoes=8)
+    params, step = trainer(dev, SEED + 1, cfg)
+    frames, gt = train_batches(np.random.default_rng(SEED + 1),
+                               1 + N_STEPS, dev)
+
+    t0 = time.perf_counter()
+    grads = {}
+    for name, forward, dt in (
+            ("kernel", stofnet_apply_fused, torch.bfloat16),
+            ("plain", stofnet_apply_reference, torch.bfloat16),
+            ("plain_f32", stofnet_apply_reference, None)):
+        loss = fused_loss(params, frames[0], gt, cfg, dt, forward)
+        grads[name] = torch.autograd.grad(loss, list(params.values()))
+    kernel_vs_plain = {k: rel_l2(a, b) for k, a, b in zip(
+        params, grads["kernel"], grads["plain"])}
+    bf16_vs_f32 = {k: rel_l2(a, b) for k, a, b in zip(
+        params, grads["plain"], grads["plain_f32"])}
+    del grads
+    log(f"gradients, relative L2 per leaf, kernel path vs plain path: "
+        f"{json.dumps(kernel_vs_plain)}")
+    log(f"gradients, relative L2 per leaf, plain bf16 vs plain f32: "
+        f"{json.dumps(bf16_vs_f32)}")
+    log(f"gradient witness: {time.perf_counter() - t0:.1f} s")
+    bad = {k: v for k, v in kernel_vs_plain.items() if not v <= GRAD_TOL}
+    if bad:
+        raise AssertionError(f"gradients beyond relative L2 {GRAD_TOL} of "
+                             f"the plain path's (or not finite): {bad}")
+
+    loss0 = float(step(frames[0], gt))  # cuDNN's algorithm choice, not timed
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for x in frames[1:1 + N_STEPS]:
+        before = (sgb.argmax_launches, sgb.bwd_launches)
+        t0 = time.perf_counter()
+        losses.append(float(step(x, gt)))  # the copy waits for the card
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = (sgb.argmax_launches, sgb.bwd_launches)
+        if not all(a > b for a, b in zip(after, before)):
+            raise AssertionError(f"a trainable kernel did not launch on this "
+                                 f"step: (A, B) {before} -> {after}")
+    launches = {"sgb_contract_pool_argmax": sgb.argmax_launches,
+                "sgb_contract_pool_bwd": sgb.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        loss_after = float(fused_loss(params, frames[0], gt, cfg))
+    ms = float(np.median(step_ms))
+    out = dict(loss_warmup=loss0, losses=losses, loss_warmup_after=loss_after,
+               ms_per_step=ms, step_ms=step_ms,
+               train_waveforms_per_s=B / ms * 1e3, peak_memory_gb=peak / 1e9,
+               launches=launches)
+    log(f"train path: {json.dumps(out)}")
+    if not all(np.isfinite(losses + [loss0, loss_after])):
+        raise AssertionError(f"a loss is not finite: {out}")
+    if not loss_after < loss0:
+        raise AssertionError(f"the warm-up batch's loss did not fall: "
+                             f"{loss0} -> {loss_after}")
+    prof = profile_runs(lambda x: float(step(x, gt)), frames[1:])
+    prof["idle_share_derived"] = 1.0 - prof["device_busy_ms"] / ms
+    log(f"train profile: {json.dumps(prof)}")
+    log(f"seed witness: {json.dumps(seed_witness(dev, cfg, frames, gt))}")
+    return out
+
+
+def seed_witness(dev, cfg, frames, gt) -> dict:
+    """The same 5 steps from the serving weights (seed SEED), through the
+    kernels and through their plain versions: each step's loss, and the
+    warm-up batch's loss after the steps. These weights start within
+    about 0.011 of the loss of an all-zero heatmap, and AdamW's first step
+    moves every weight by lr; where both paths end above their start, the
+    step itself raises the loss, not the kernels, and the train path's
+    weights come from the next seed for that reason. Printed, not held."""
+    out = {}
+    for name, forward in (("kernel", stofnet_apply_fused),
+                          ("plain", stofnet_apply_reference)):
+        params, step = trainer(dev, SEED, cfg, forward)
+        losses = [float(step(x, gt)) for x in frames]
+        with torch.no_grad():
+            after = float(fused_loss(params, frames[0], gt, cfg,
+                                     forward=forward))
+        out[name] = dict(losses=losses, loss_warmup_after=after)
+    return out
 
 
 def main() -> int:
@@ -348,7 +627,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["sgb_contract_pool", "conv_stack"])
+    logs = _build.build_all(["sgb_contract_pool", "conv_stack",
+                             "sgb_contract_pool_bwd"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -359,18 +639,20 @@ def main() -> int:
     state = StofNet(generator=torch.Generator().manual_seed(SEED),
                     device=dev).state_dict()
     rng = np.random.default_rng(SEED)
-    kernels = [kernel_sgb(dev, rng, state), kernel_stack(dev, rng, state)]
+    kernels = [kernel_sgb(dev, rng, state), kernel_stack(dev, rng, state),
+               *kernels_trainable(dev, rng, state)]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} ms "
             f"by {k['bound_by']})")
 
-    run = main_path(dev, state, rng)
+    launches = main_path(dev, state, rng)["launches"]
+    launches.update(train_path(dev)["launches"])
     for k in kernels:
-        k["launches"] = run["launches"][k["name"]]
+        k["launches"] = launches[k["name"]]
         if k["launches"] < N_BATCHES:
             raise AssertionError(f"{k['name']} launched {k['launches']} "
-                                 f"times in {N_BATCHES} batches")
+                                 f"times in {N_BATCHES} batches or steps")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

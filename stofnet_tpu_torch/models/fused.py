@@ -1,4 +1,4 @@
-"""StofNet inference forward through the fused kernels (replaces
+"""StofNet forward through the fused kernels (replaces
 ``stofnet_tpu/models/fused.py:stofnet_apply_fused``).
 
 The same function as ``StofNet(...)(x)``, computed over a state dict, with
@@ -8,6 +8,13 @@ device memory) and conv2..conv_last in ``ops/kernels/conv_stack.py``. On a
 CUDA tensor both run as CUDA kernels; on a CPU tensor as their plain
 versions. conv1, the expand conv, the upsample, the shuffle and the decode
 stay plain PyTorch.
+
+``trainable=True`` is the training forward: the contract path goes through
+``sgb_contract_pool_trainable`` (kernel A forward, kernel B backward) and
+the conv stack runs as plain convs, which autograd differentiates (the
+stack kernel has no backward in either package). The state may then hold
+f32 ``nn.Parameter`` masters: every weight is cast to ``dtype`` inside the
+differentiated function, so the gradients come back in f32.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ from stofnet_tpu_torch.ops.kernels.conv_stack import (
     NB, conv_stack_fused_prepared, conv_stack_fused_reference, stack_weights,
 )
 from stofnet_tpu_torch.ops.kernels.sgb import (
-    sgb_contract_pool_prepared, sgb_contract_pool_reference, sgb_weights,
+    sgb_contract_pool_prepared, sgb_contract_pool_reference,
+    sgb_contract_pool_trainable, sgb_weights,
 )
 from stofnet_tpu_torch.ops.shuffle import sample_shuffle
 
@@ -37,6 +45,7 @@ def stofnet_apply_fused(
     semi_global_scale: int = 80,
     dtype: Optional[torch.dtype] = torch.bfloat16,
     fused_stack: bool = True,
+    trainable: bool = False,
 ) -> torch.Tensor:
     """StofNet forward, (B, 1, L) -> (B, 1, L*r) f32, in the channels-last
     (B, L, C) layout of the JAX function.
@@ -44,10 +53,12 @@ def stofnet_apply_fused(
     ``state`` holds the reference torch names and layouts, on ``x``'s
     device. ``dtype=None`` computes in f32 (the CPU only: the CUDA kernels
     take bfloat16). ``fused_stack=False``, or a ``num_blocks`` other than
-    13, runs the conv stack as separate plain convs.
+    13, runs the conv stack as separate plain convs. ``trainable=True`` is
+    differentiable in ``state`` and ``x`` (module docstring) and implies
+    ``fused_stack=False``.
     """
     return fused_forward(state, upsample_factor, num_blocks,
-                         semi_global_scale, dtype, fused_stack)(x)
+                         semi_global_scale, dtype, fused_stack, trainable)(x)
 
 
 def fused_forward(
@@ -57,10 +68,21 @@ def fused_forward(
     semi_global_scale: int = 80,
     dtype: Optional[torch.dtype] = torch.bfloat16,
     fused_stack: bool = True,
+    trainable: bool = False,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """:func:`stofnet_apply_fused` as a callable of ``x`` that lays the
     kernels' weights out once (``sgb_weights``, ``stack_weights``), on the
-    state's device: the forward a server closes over."""
+    state's device: the forward a server closes over. With ``trainable``
+    nothing is laid out ahead: the weights change every step."""
+    if trainable:
+        def sgb_train(h):
+            return sgb_contract_pool_trainable(h, *_kernel_and_bias(
+                state, CONTRACT))
+
+        def forward_train(x: torch.Tensor) -> torch.Tensor:
+            return _apply(state, x, sgb_train, None, upsample_factor,
+                          num_blocks, semi_global_scale, dtype)
+        return forward_train
     dt = torch.float32 if dtype is None else dtype
     sgb = stack = None
     if semi_global_scale != 1:
@@ -88,20 +110,25 @@ def stofnet_apply_reference(
     semi_global_scale: int = 80,
     dtype: Optional[torch.dtype] = torch.bfloat16,
     fused_stack: bool = True,
+    trainable: bool = False,
 ) -> torch.Tensor:
     """:func:`stofnet_apply_fused` with the kernels' plain versions on any
     device: the same function with the same rounding points, so the two
     differ only by the order of f32 sums. The plain path the card's
-    kernel path is held against."""
+    kernel path is held against; ``trainable`` runs the plain versions of
+    kernels A and B."""
     def sgb(h):
+        if trainable:
+            return sgb_contract_pool_trainable(
+                h, *_kernel_and_bias(state, CONTRACT), plain=True)
         return sgb_contract_pool_reference(h, *_kernel_and_bias(
             state, CONTRACT))
 
     def stack(h):
         return conv_stack_fused_reference(h, state)
     return _apply(state, x, sgb, stack if fused_stack and num_blocks == NB
-                  else None, upsample_factor, num_blocks, semi_global_scale,
-                  dtype)
+                  and not trainable else None, upsample_factor, num_blocks,
+                  semi_global_scale, dtype)
 
 
 def _kernel_and_bias(state, name):

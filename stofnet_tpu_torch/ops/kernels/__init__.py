@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for Hopper (replaces ``stofnet_tpu/ops/pallas``).
 
-Each kernel module holds the wrapper, its plain PyTorch version, a launch
-counter (``launches``) and the layout of its weights that a pipeline
-builds once (``sgb_weights``, ``stack_weights``) for the wrapper's
-``*_prepared`` form. A wrapper given a CPU tensor runs the plain
+Each kernel module holds the wrapper, its plain PyTorch version, one
+launch counter per kernel (named in its ``COUNTERS``) and the layout of
+its weights that a pipeline builds once (``sgb_weights``,
+``stack_weights``) for the wrapper's ``*_prepared`` form. A wrapper given a CPU tensor runs the plain
 version; given a CUDA tensor it launches the kernel or raises.
 """
 
@@ -14,4 +14,5 @@ KERNEL_MODULES = (sgb, conv_stack)
 
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES:
-        mod.launches = 0
+        for name in mod.COUNTERS:
+            setattr(mod, name, 0)

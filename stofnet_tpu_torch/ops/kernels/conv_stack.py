@@ -28,6 +28,7 @@ MAX_OUT = 8  # conv_last outputs the kernel computes (one n8 tile)
 RESIDUAL_LAYERS = frozenset(range(3, NB - 1, 2))
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+COUNTERS = ("launches",)
 
 _P = ctypes.c_void_p
 _SIGNATURE = {"conv_stack_launch": [

@@ -1,18 +1,28 @@
 """Fused SemiGlobalBlock contract path: conv1d(k5, 64->F) + 80x max-pool +
-leaky (replaces ``stofnet_tpu/ops/pallas/sgb_kernel.py:sgb_contract_pool``).
+leaky (replaces ``stofnet_tpu/ops/pallas/sgb_kernel.py:sgb_contract_pool``
+and ``sgb_contract_pool_trainable``).
 
-``sgb_contract_pool`` launches the CUDA kernel ``csrc/sgb_contract_pool.cu``
-on a CUDA tensor and runs ``sgb_contract_pool_reference`` on a CPU tensor.
-A server lays the weights out once (``sgb_weights``) and calls
-``sgb_contract_pool_prepared`` per batch.
-The kernel never allocates the (B, L, F) pre-pool tensor: only the pooled
-(B, L/80, F) rows reach device memory. Its design and its bound are in the
-source's header.
+Serving: ``sgb_contract_pool`` launches the CUDA kernel
+``csrc/sgb_contract_pool.cu`` on a CUDA tensor and runs
+``sgb_contract_pool_reference`` on a CPU tensor. A server lays the weights
+out once (``sgb_weights``) and calls ``sgb_contract_pool_prepared`` per
+batch.
+
+Training: ``sgb_contract_pool_trainable`` is differentiable. Its forward
+(``sgb_contract_pool_argmax``, the same kernel's argmax entry point) also
+returns the int32 offset (0..79) of each window's first maximal element of
+the biased f32 conv output, as the JAX kernel's ``with_argmax``; its
+backward (``sgb_contract_pool_bwd``, ``csrc/sgb_contract_pool_bwd.cu``)
+routes the cotangents through those offsets. It saves (h, pooled, offsets)
+and the weights. Neither pass allocates the (B, L, F) pre-pool tensor: only
+the pooled (B, L/80, F) rows and their offsets reach device memory. The
+kernels' designs and bounds are in the sources' headers.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,15 +32,31 @@ from stofnet_tpu_torch.ops.kernels import _build
 
 POOL = 80
 KSIZE = 5
+PAD = KSIZE // 2
 CHANNELS = 64
 N_TILE = 128  # output channels per CTA (csrc/sgb_contract_pool.cu)
+BWD_F_TILE = 64  # output channels per CTA of the dkernel pass (bwd source)
+BWD_GROUPS = 128  # window groups of the dkernel pass (its partial sums)
+PLAIN_CHUNK = 8  # channels per pass of the plain backward, as JAX's scan
 
-launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+# kernel launches since the last reset (chip_smoke.py reads them): the
+# serving kernel, kernel A (forward with argmax), kernel B (backward)
+launches = 0
+argmax_launches = 0
+bwd_launches = 0
+COUNTERS = ("launches", "argmax_launches", "bwd_launches")
 
 _P = ctypes.c_void_p
-_SIGNATURE = {"sgb_contract_pool_launch": [
-    _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_int, _P]}
+_I = ctypes.c_int
+_SIGNATURE = {
+    "sgb_contract_pool_launch": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
+                                 _I, _P],
+    "sgb_contract_pool_argmax_launch": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                        ctypes.c_float, _I, _P],
+}
+_BWD_SIGNATURE = {"sgb_contract_pool_bwd_launch": [
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    ctypes.c_float, _I, _P]}
 
 
 def sgb_contract_pool_reference(h: torch.Tensor, w: torch.Tensor,
@@ -43,6 +69,60 @@ def sgb_contract_pool_reference(h: torch.Tensor, w: torch.Tensor,
     y = conv1d_same(h.float(), w.to(dt).float(), b.to(dt).float())
     y = F.max_pool1d(y.transpose(1, 2), POOL)  # (B, F, L/80)
     return F.leaky_relu(y, negative_slope).transpose(1, 2).to(dt)
+
+
+def sgb_contract_pool_argmax_reference(
+        h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+        negative_slope: float = 0.01) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel A: (pooled, offsets). The offsets are those
+    of the first maximal element of each window of ``conv(h, w) + b`` in
+    f32 (bias included, as the JAX kernel's ``y``), window-relative
+    (0..79); pooled is leaky of that maximum, rounded to ``h.dtype``."""
+    dt = h.dtype
+    y = conv1d_same(h.float(), w.to(dt).float(), b.to(dt).float())
+    bsz, length, f = y.shape
+    m, off = y.reshape(bsz, length // POOL, POOL, f).max(dim=2)
+    return (torch.where(m >= 0, m, negative_slope * m).to(dt),
+            off.to(torch.int32))
+
+
+def sgb_contract_pool_bwd_reference(
+        h: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+        pooled: torch.Tensor, off: torch.Tensor,
+        negative_slope: float = 0.01
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel B, JAX's chunked formulation
+    (``sgb_kernel.py:_trainable_bwd``): (dh, dkernel, dbias).
+
+    ``g_pre = where(pooled >= 0, g, slope * g)`` in f32; ``dbias`` sums it;
+    ``dkernel[t, c, f]`` sums ``bf16(g_pre) * h`` over the selected positions
+    shifted by tap t (the cotangent rounded to ``h.dtype``, f32 sums);
+    ``dh`` sums ``g_pre * w`` with f32 factors (``w`` the f32 master
+    weight) and rounds once to ``h.dtype``. Channels go 8 at a time
+    through a dense (B, L, 5, 8) f32 plane, never (B, L, F)."""
+    bsz, length, c = h.shape
+    k, _, f = w.shape
+    rows = length // POOL
+    g_pre = torch.where(pooled >= 0, g.float(), negative_slope * g.float())
+    dbias = g_pre.sum(dim=(0, 1))
+    pos = off.long() + (torch.arange(rows, device=h.device) * POOL)[:, None]
+    hf = h.float().reshape(bsz * length, c)
+    wf = w.float()
+    dh = torch.zeros((bsz * length, c), dtype=torch.float32, device=h.device)
+    dkernel = torch.empty((k, c, f), dtype=torch.float32, device=h.device)
+    for s in range(0, f, PLAIN_CHUNK):
+        fc = min(PLAIN_CHUNK, f - s)
+        dyc = torch.zeros((bsz, length + 2 * PAD, fc), dtype=torch.float32,
+                          device=h.device)
+        dyc.scatter_(1, pos[:, :, s:s + fc] + PAD, g_pre[:, :, s:s + fc])
+        # taps[b, q, t, f] = dy[b, q - t + 2, f]: h[q] feeds y at q - t + 2
+        taps = torch.stack([dyc[:, 2 * PAD - t: 2 * PAD - t + length]
+                            for t in range(k)], dim=2)
+        taps = taps.reshape(bsz * length, k * fc)
+        dkernel[:, :, s:s + fc] = (taps.to(h.dtype).float().T @ hf).reshape(
+            k, fc, c).transpose(1, 2)
+        dh += taps @ wf[:, :, s:s + fc].permute(0, 2, 1).reshape(k * fc, c)
+    return dh.reshape(bsz, length, c).to(h.dtype), dkernel, dbias
 
 
 def sgb_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
@@ -72,6 +152,32 @@ def sgb_contract_pool(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return sgb_contract_pool_prepared(h, wt, bias, negative_slope)
 
 
+def _check_kernel_inputs(what, h, wt, bias):
+    """Shapes of every input; types and devices for the CUDA kernel."""
+    bsz, length, c = h.shape
+    f = wt.shape[0]
+    if wt.shape != (f, KSIZE * c) or bias.shape != (f,) or length % POOL:
+        raise ValueError(f"{what}: h {tuple(h.shape)}, weights "
+                         f"{tuple(wt.shape)}, bias {tuple(bias.shape)}: needs "
+                         f"weights (F, 5 * C), bias (F,) and L % 80 == 0")
+    if h.device.type == "cpu":
+        return
+    if (h.device.type != "cuda" or h.dtype != torch.bfloat16
+            or wt.dtype != torch.bfloat16 or bias.dtype != torch.float32
+            or not wt.device == bias.device == h.device):
+        raise TypeError(f"{what}: the CUDA kernel takes bfloat16 "
+                        f"on a CUDA device, got {h.dtype} on {h.device} "
+                        f"with weights {wt.dtype} on {wt.device}")
+    if c != CHANNELS or f % N_TILE:
+        raise ValueError(f"{what}: the CUDA kernel takes C == 64 "
+                         f"and F % 128 == 0, got C={c}, F={f}")
+
+
+def _plain_weights(wt, bias):
+    f, kc = wt.shape
+    return wt.reshape(f, KSIZE, kc // KSIZE).permute(1, 2, 0), bias
+
+
 def sgb_contract_pool_prepared(h: torch.Tensor, wt: torch.Tensor,
                                bias: torch.Tensor,
                                negative_slope: float = 0.01) -> torch.Tensor:
@@ -79,24 +185,12 @@ def sgb_contract_pool_prepared(h: torch.Tensor, wt: torch.Tensor,
     (:func:`sgb_weights`): the CUDA kernel on a CUDA tensor, the plain
     version on a CPU tensor."""
     global launches
-    bsz, length, c = h.shape
-    f = wt.shape[0]
-    if wt.shape != (f, KSIZE * c) or bias.shape != (f,) or length % POOL:
-        raise ValueError(f"sgb_contract_pool: h {tuple(h.shape)}, weights "
-                         f"{tuple(wt.shape)}, bias {tuple(bias.shape)}: needs "
-                         f"weights (F, 5 * C), bias (F,) and L % 80 == 0")
+    _check_kernel_inputs("sgb_contract_pool", h, wt, bias)
     if h.device.type == "cpu":
-        w = wt.reshape(f, KSIZE, c).permute(1, 2, 0)
-        return sgb_contract_pool_reference(h, w, bias, negative_slope)
-    if (h.device.type != "cuda" or h.dtype != torch.bfloat16
-            or wt.dtype != torch.bfloat16 or bias.dtype != torch.float32
-            or not wt.device == bias.device == h.device):
-        raise TypeError("sgb_contract_pool: the CUDA kernel takes bfloat16 "
-                        f"on a CUDA device, got {h.dtype} on {h.device} "
-                        f"with weights {wt.dtype} on {wt.device}")
-    if c != CHANNELS or f % N_TILE:
-        raise ValueError(f"sgb_contract_pool: the CUDA kernel takes C == 64 "
-                         f"and F % 128 == 0, got C={c}, F={f}")
+        return sgb_contract_pool_reference(h, *_plain_weights(wt, bias),
+                                           negative_slope)
+    bsz, length, _ = h.shape
+    f = wt.shape[0]
     h, wt, bias = h.contiguous(), wt.contiguous(), bias.contiguous()
     out = torch.empty((bsz, length // POOL, f), dtype=torch.bfloat16,
                       device=h.device)
@@ -108,3 +202,132 @@ def sgb_contract_pool_prepared(h: torch.Tensor, wt: torch.Tensor,
     _build.check(lib, err, "sgb_contract_pool")
     launches += 1
     return out
+
+
+def sgb_contract_pool_argmax(h: torch.Tensor, wt: torch.Tensor,
+                             bias: torch.Tensor, negative_slope: float = 0.01
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A on weights in the kernel's layout (:func:`sgb_weights`):
+    (pooled (B, L/80, F) in ``h.dtype``, int32 offsets (B, L/80, F)). The
+    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    global argmax_launches
+    _check_kernel_inputs("sgb_contract_pool_argmax", h, wt, bias)
+    if h.device.type == "cpu":
+        return sgb_contract_pool_argmax_reference(
+            h, *_plain_weights(wt, bias), negative_slope)
+    bsz, length, _ = h.shape
+    f = wt.shape[0]
+    h, wt, bias = h.contiguous(), wt.contiguous(), bias.contiguous()
+    out = torch.empty((bsz, length // POOL, f), dtype=torch.bfloat16,
+                      device=h.device)
+    off = torch.empty((bsz, length // POOL, f), dtype=torch.int32,
+                      device=h.device)
+    lib = _build.load("sgb_contract_pool", _SIGNATURE)
+    err = lib.sgb_contract_pool_argmax_launch(
+        h.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        off.data_ptr(), bsz, length, f, float(negative_slope),
+        h.device.index or 0, torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(lib, err, "sgb_contract_pool_argmax")
+    argmax_launches += 1
+    return out, off
+
+
+def sgb_contract_pool_bwd(h: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                          pooled: torch.Tensor, off: torch.Tensor,
+                          negative_slope: float = 0.01
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel B: (dh in ``h.dtype``, dkernel (5, C, F) f32, dbias (F,) f32)
+    from the cotangent ``g`` of the pooled output, the pooled output and
+    kernel A's offsets; ``w`` (5, C, F) is the f32 master weight. The CUDA
+    kernel on a CUDA tensor, :func:`sgb_contract_pool_bwd_reference` on a
+    CPU tensor. The kernel sums in a fixed order: two calls on the same
+    inputs give the same bits."""
+    global bwd_launches
+    bsz, length, c = h.shape
+    k, _, f = w.shape
+    rows = length // POOL
+    if (w.shape != (KSIZE, c, f) or length % POOL
+            or not g.shape == pooled.shape == off.shape == (bsz, rows, f)):
+        raise ValueError(f"sgb_contract_pool_bwd: h {tuple(h.shape)}, w "
+                         f"{tuple(w.shape)}, g {tuple(g.shape)}, pooled "
+                         f"{tuple(pooled.shape)}, off {tuple(off.shape)}")
+    if h.device.type == "cpu":
+        return sgb_contract_pool_bwd_reference(h, w, g, pooled, off,
+                                               negative_slope)
+    if (h.device.type != "cuda" or h.dtype != torch.bfloat16
+            or g.dtype != torch.bfloat16 or pooled.dtype != torch.bfloat16
+            or off.dtype != torch.int32 or w.dtype != torch.float32
+            or not h.device == w.device == g.device == pooled.device
+            == off.device):
+        raise TypeError("sgb_contract_pool_bwd: the CUDA kernel takes h, g "
+                        "and pooled in bfloat16, int32 offsets and an f32 "
+                        f"weight on one CUDA device, got h {h.dtype} on "
+                        f"{h.device}, g {g.dtype}, pooled {pooled.dtype}, "
+                        f"off {off.dtype}, w {w.dtype} on {w.device}")
+    if c != CHANNELS or f % BWD_F_TILE:
+        raise ValueError(f"sgb_contract_pool_bwd: the CUDA kernel takes "
+                         f"C == 64 and F % 64 == 0, got C={c}, F={f}")
+    h, g, pooled, off = (t.contiguous() for t in (h, g, pooled, off))
+    # [f][t][c]: the dh pass reads one tap's 64 channels of a selected
+    # channel as one coalesced row
+    w_ftc = w.permute(2, 0, 1).contiguous()
+    groups = min(BWD_GROUPS, bsz * rows)
+    dh = torch.empty_like(h)
+    dkernel = torch.empty((k, c, f), dtype=torch.float32, device=h.device)
+    dbias = torch.empty((f,), dtype=torch.float32, device=h.device)
+    part_w = torch.empty((groups, k, c, f), dtype=torch.float32,
+                         device=h.device)
+    part_b = torch.empty((groups, f), dtype=torch.float32, device=h.device)
+    lib = _build.load("sgb_contract_pool_bwd", _BWD_SIGNATURE)
+    err = lib.sgb_contract_pool_bwd_launch(
+        h.data_ptr(), w_ftc.data_ptr(), g.data_ptr(), pooled.data_ptr(),
+        off.data_ptr(), dh.data_ptr(), dkernel.data_ptr(), dbias.data_ptr(),
+        part_w.data_ptr(), part_b.data_ptr(), bsz, length, f, groups,
+        float(negative_slope), h.device.index or 0,
+        torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(lib, err, "sgb_contract_pool_bwd")
+    bwd_launches += 1
+    return dh, dkernel, dbias
+
+
+class _Trainable(torch.autograd.Function):
+    """Custom gradient of the fused contract path (``sgb_kernel.py``'s
+    ``custom_vjp``): kernel A forward, kernel B backward, or their plain
+    versions when ``plain``."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, negative_slope, plain):
+        if plain:
+            pooled, off = sgb_contract_pool_argmax_reference(
+                h, w, b, negative_slope)
+        else:
+            wt, bias = sgb_weights(w, b, h.dtype)
+            pooled, off = sgb_contract_pool_argmax(h, wt, bias,
+                                                   negative_slope)
+        ctx.save_for_backward(h, w, pooled, off)
+        ctx.slope, ctx.plain, ctx.bias_dtype = negative_slope, plain, b.dtype
+        ctx.mark_non_differentiable(off)
+        return pooled, off
+
+    @staticmethod
+    def backward(ctx, g, _g_off):
+        h, w, pooled, off = ctx.saved_tensors
+        bwd = (sgb_contract_pool_bwd_reference if ctx.plain
+               else sgb_contract_pool_bwd)
+        dh, dkernel, dbias = bwd(h, w, g.to(pooled.dtype), pooled, off,
+                                 ctx.slope)
+        return (dh, dkernel.to(w.dtype), dbias.to(ctx.bias_dtype), None,
+                None)
+
+
+def sgb_contract_pool_trainable(h: torch.Tensor, w: torch.Tensor,
+                                b: torch.Tensor, negative_slope: float = 0.01,
+                                plain: bool = False) -> torch.Tensor:
+    """Differentiable :func:`sgb_contract_pool`: h (B, L, 64), w (5, 64, F)
+    and b (F,), the weights in their master type (f32); returns
+    (B, L/80, F) in ``h.dtype``. Gradients: dh in ``h.dtype``, dw and db in
+    the weights' types. ``plain=True`` runs kernel A's and B's plain
+    versions on any device (the card's plain path); otherwise a CUDA
+    tensor launches the kernels and a CPU tensor runs the plain
+    versions."""
+    return _Trainable.apply(h, w, b, negative_slope, plain)[0]

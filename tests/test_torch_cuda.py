@@ -8,6 +8,11 @@ one. The file imports no JAX, so it also runs on a machine that has none:
 Tolerance: max|kernel - plain| <= 2e-2 * max|plain|. The plain versions
 round at the kernel's points and run in f32 with TF32 off, so the two
 differ by the order of f32 sums and the bf16 roundings that order flips.
+Kernel A's offsets must equal the plain version's wherever the plain
+window maximum beats its runner-up by more than 1e-3 of its magnitude (a
+closer pair may swap under another order of f32 sums); kernel B is held
+against its plain version on kernel A's own outputs, per output, and must
+give the same bits twice.
 """
 
 import numpy as np
@@ -17,11 +22,16 @@ import torch
 from stofnet_tpu_torch.models import (
     StofNet, stofnet_apply_fused, stofnet_apply_reference,
 )
+from stofnet_tpu_torch.ops.conv import conv1d_same
 from stofnet_tpu_torch.ops.kernels import conv_stack, sgb
 from stofnet_tpu_torch.serve import make_pipeline
+from stofnet_tpu_torch.train import (
+    LossConfig, make_fused_train_step, make_optimizer,
+)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
+MARGIN = 1e-3  # offsets are compared where max - runner-up > MARGIN * |max|
 
 
 @pytest.fixture()
@@ -74,6 +84,65 @@ def test_conv_stack_kernel_matches_plain(cuda, batch, length, up):
     assert conv_stack.launches == before + 1
     assert got.dtype == torch.float32
     _close(got, conv_stack.conv_stack_fused_reference(h0, state))
+
+
+def _clear_windows(h, w, b):
+    """Windows whose plain maximum beats the runner-up by > MARGIN * |max|."""
+    y = conv1d_same(h.float(), w.to(h.dtype).float(), b.to(h.dtype).float())
+    bsz, length, f = y.shape
+    top = y.reshape(bsz, length // 80, 80, f).topk(2, dim=2).values
+    return (top[:, :, 0] - top[:, :, 1]) > MARGIN * top[:, :, 0].abs()
+
+
+@pytest.mark.parametrize("batch,length,f", [(3, 80, 512), (2, 800, 512),
+                                            (1, 2000, 128), (5, 8000, 512)])
+def test_sgb_trainable_kernels_match_plain(cuda, batch, length, f):
+    """Kernel A (pooled, offsets) and kernel B (dh, dkernel, dbias): one
+    window per sequence, both sequence ends and the seams of dh."""
+    rng = np.random.default_rng(length + 1)
+    h = _bf16(rng, (batch, length, 64), cuda)
+    w = torch.from_numpy((rng.standard_normal((5, 64, f)) * 0.05).astype(
+        np.float32)).to(cuda)
+    b = torch.from_numpy((rng.standard_normal(f) * 0.1).astype(
+        np.float32)).to(cuda)
+    wt, bias = sgb.sgb_weights(w, b, torch.bfloat16)
+    before = (sgb.argmax_launches, sgb.bwd_launches)
+    pooled, off = sgb.sgb_contract_pool_argmax(h, wt, bias)
+    ref_pooled, ref_off = sgb.sgb_contract_pool_argmax_reference(h, w, b)
+    _close(pooled, ref_pooled)
+    clear = _clear_windows(h, w, b)
+    assert bool((off == ref_off)[clear].all())
+    assert int(off.min()) >= 0 and int(off.max()) < 80
+
+    g = _bf16(rng, pooled.shape, cuda)
+    got = sgb.sgb_contract_pool_bwd(h, w, g, pooled, off)
+    again = sgb.sgb_contract_pool_bwd(h, w, g, pooled, off)
+    ref = sgb.sgb_contract_pool_bwd_reference(h, w, g, pooled, off)
+    assert (sgb.argmax_launches, sgb.bwd_launches) == (before[0] + 1,
+                                                       before[1] + 2)
+    for x, y, z in zip(got, again, ref):
+        _close(x, z)
+        assert torch.equal(x, y)
+
+
+def test_fused_train_step_on_the_card(cuda):
+    """Two fused train steps at L=1600: both trainable kernels launch on
+    each, the loss is finite."""
+    rng = np.random.default_rng(4)
+    model = StofNet(device=cuda, generator=torch.Generator().manual_seed(5))
+    params = dict(model.named_parameters())
+    cfg = LossConfig(upsample_factor=4, max_echoes=8)
+    opt, sched = make_optimizer(params.values(), steps_per_epoch=100)
+    step = make_fused_train_step(params, opt, sched, cfg)
+    x = rng.standard_normal((2, 1, 1600)).astype(np.float32)
+    x /= np.abs(x).max(-1, keepdims=True)
+    gt = torch.tensor([[[1600, 4400]]] * 2, dtype=torch.int32, device=cuda)
+    for _ in range(2):
+        before = (sgb.argmax_launches, sgb.bwd_launches)
+        loss = step(torch.from_numpy(x).to(cuda), gt)
+        assert (sgb.argmax_launches, sgb.bwd_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+        assert bool(torch.isfinite(loss))
 
 
 def test_kernels_refuse_float32_on_the_card(cuda):

@@ -131,6 +131,9 @@ def test_port_imports_no_jax():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "stofnet_tpu_torch").rglob("*.py"))
+    assert {"stofnet_tpu_torch.train.steps", "stofnet_tpu_torch.train.loss",
+            "stofnet_tpu_torch.train.checkpoint",
+            "stofnet_tpu_torch.ops.gaussian"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m.removesuffix('.__init__'))\n"
