@@ -3,28 +3,42 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from ``stofnet_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel) and prints the build time and the card.
+1. Builds the five CUDA sources of ``stofnet_tpu_torch/csrc`` (one
+   ``nvcc`` per source, in parallel), prints the build time and the card,
+   and runs the canary (o = 2 x on (8, 128) f32) before any other kernel:
+   it must equal ``x * 2`` bit for bit, so a failure there names the
+   toolchain or the CUDA runtime, not a kernel.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (B=128, L=8000, bf16 inputs from a seeded numpy
-   generator; plain versions in f32 with TF32 off), with
-   max|kernel - plain| <= 2e-2 * max|plain|, and times the kernel, the
+   shapes its path gives it (B=128, L=8000; the tile SGB kernel at
+   L_TILE=2000, the serving length the streamed one refuses; bf16 inputs
+   from a seeded numpy generator; plain versions in f32 with TF32 off),
+   with max|kernel - plain| <= 2e-2 * max|plain|, and times the kernel, the
    plain version and one PyTorch yardstick the port never calls (CUDA
-   events, a different input each launch, median of 20).
-3. Serves 4 fresh batches of 128 echo-bearing waveforms through
-   ``serve.make_pipeline`` with a seeded random-init StofNet
-   (different-armadillo architecture, x4), after one warm-up batch, and
-   checks that both kernels launched on every batch and that >= 0.99 of
-   the coords lie within 1 sample of the plain path's (the same forward
-   through the plain versions). Prints the agreement over coord slots and
-   over rows with a detection, ms per batch (median of the 4), witnesses
-   of where decoded positions move (the plain path on the CPU, the StofNet
-   module in bf16 and in f32), and device time by kernel over the 4
-   batches served again under the profiler. Fails when the kernel path
-   moves more rows against the plain path than twice those that the plain
-   path moves between the card and the CPU (f32 summation order alone),
-   plus 4.
-4. Holds the trainable SGB op's kernels against their plain versions at
+   events, a different input each launch, median of 20). The streamed SGB
+   kernel is also held at L=800 over 3 seeds, and must give the tile
+   kernel's bits on the same inputs there and at L=8000, where the tile
+   kernel is timed beside it.
+3. The probe: ``stofnet_tpu_torch.scripts.dma_probe``'s sweep on the
+   card, every point held to its total (rtol 1e-3 of the PyTorch sum), to
+   each element of the plain version (64 f32 epsilons of the sum of its
+   terms' magnitudes) and to the same bits twice; prints its
+   ``manual_dma_bandwidth`` line.
+4. Serves through ``serve.make_pipeline`` with a seeded random-init
+   StofNet (different-armadillo architecture, x4) at two lengths, each
+   over one warm-up batch and 4 fresh batches of 128 echo-bearing
+   waveforms: at L=8000 the streamed SGB kernel and the conv stack must
+   launch once on every batch, at L_TILE=2000 (L % 800 != 0) the tile SGB
+   kernel and the conv stack, and no other kernel. At each length >= 0.99
+   of the coords must lie within 1 sample of the plain path's (the same
+   forward through the plain versions). Prints the agreement over coord
+   slots and over rows with a detection, ms per batch (median of the 4),
+   witnesses of where decoded positions move (the plain path on the CPU,
+   the StofNet module in bf16 and in f32), and device time by kernel over
+   the 4 batches served again under the profiler. Fails when the kernel
+   path moves more rows against the plain path than twice those that the
+   plain path moves between the card and the CPU (f32 summation order
+   alone), plus 4.
+5. Holds the trainable SGB op's kernels against their plain versions at
    B=128, L=8000, F=512: kernel A (forward with argmax) to the tolerance
    above, its offsets equal to the plain version's wherever the plain
    window maximum beats its runner-up by more than 1e-3 of its magnitude;
@@ -34,7 +48,20 @@
    backward of cuDNN conv + max-pool + leaky in bf16, timed alone), and
    requires one forward + backward of the op to stay below the 1.05 GB
    of one (128, 8000, 512) bf16 plane of device memory.
-5. Trains: ``train.make_fused_train_step`` (bf16 forward, f32 masters,
+6. The bench's paths (``bench_paths.py``) over a gate batch and 4 fresh
+   batches: ``try_fused_pipeline`` (the streamed SGB kernel, the conv stack
+   as plain convs) must pass its gate against the plain path on the card
+   (``stofnet_apply_reference(fused_stack=False)``),
+   launch the streamed kernel on every batch and neither the tile SGB nor
+   the conv-stack kernel, agree with the plain path on >= 0.99 of the coord
+   slots, and move no more rows against it than twice those the plain path
+   moves between the card and the CPU, plus 4; its agreement with the f32
+   ``StofNet`` module (the bench's own gate) is printed. Then
+   ``try_packed_pipeline`` (plain PyTorch, no kernel) gated on and held to
+   >= 0.99 of the bf16 ``StofNet`` module's coord slots. Each path prints
+   ms per batch (median of the 4), waveforms/s and device time by kernel
+   under the profiler.
+7. Trains: ``train.make_fused_train_step`` (bf16 forward, f32 masters,
    AdamW with the cosine schedule) on the same architecture (weights from
    the next seed) at B=128, L=8000 over seeded noise frames with two GT
    echoes per row. First the gradients of one step through the kernels
@@ -48,8 +75,11 @@
    4 batches trained on again under the profiler. Last, a witness: the
    same 5 steps from the serving weights, through the kernels and through
    the plain versions, with the warm-up batch's loss before and after.
-6. Prints one ``{"kernels": [...]}`` line, the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+8. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+   launches of its paths: the serving, bench, training and probe runs,
+   each counted from 0, summed over the paths that launch it), the card's
+   name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero. It exits non-zero
 without a CUDA device too.
@@ -66,27 +96,37 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stofnet_tpu_torch.bench_paths import (
+    AGREE_MIN, coord_agreement, make_xla_pipeline, try_fused_pipeline,
+    try_packed_pipeline,
+)
 from stofnet_tpu_torch.data.synthetic import gate_batch
 from stofnet_tpu_torch.models import (
     StofNet, stofnet_apply_fused, stofnet_apply_reference,
 )
-from stofnet_tpu_torch.ops.kernels import _build, conv_stack, sgb
-from stofnet_tpu_torch.ops.kernels import reset_launch_counts
+from stofnet_tpu_torch.ops.kernels import (
+    KERNEL_MODULES, SOURCES, _build, conv_stack, dma_probe,
+    reset_launch_counts, sgb, sgb_dma,
+)
+from stofnet_tpu_torch.ops.kernels._timing import time_ms
 from stofnet_tpu_torch.ops.conv import conv1d_same
 from stofnet_tpu_torch.ops.peaks import mask2coords
+from stofnet_tpu_torch.scripts import dma_probe as probe_script
 from stofnet_tpu_torch.serve import make_pipeline
 from stofnet_tpu_torch.train import (
     LossConfig, fused_loss, make_fused_train_step, make_optimizer,
 )
 
 B, L, UP = 128, 8000, 4
+L_TILE = 2000  # a serving length dma_supported refuses: the tile SGB kernel
+# the kernels each served batch launches, by length and counter
+SERVE = {L: {"sgb_dma.launches": 1, "conv_stack.launches": 1},
+         L_TILE: {"sgb.launches": 1, "conv_stack.launches": 1}}
 DECODE = dict(window_size=20, threshold=None, upsample_factor=UP,
               max_echoes=8)
 SEED = 0
 TOL = 2e-2  # max|kernel - plain| <= TOL * max|plain|: bf16 outputs
-TIMED = 20
 N_BATCHES = 4
-AGREE_MIN = 0.99  # decoded-coord agreement rule of bench.py
 ROW_NOISE = 4  # rows of counting noise allowed beside the summation witness
 PEAK_BF16 = 989e12  # FLOP/s, H100 SXM dense bf16 (data sheet)
 PEAK_F32 = 67e12  # FLOP/s, H100 SXM f32 on the CUDA cores (data sheet)
@@ -97,6 +137,7 @@ GRAD_TOL = 2e-2  # relative L2 of each gradient leaf, kernels vs plain
 SUM_TOL = 1e-5  # relative L2 of kernel B's f32 sums (dkernel, dbias)
 OPT = dict(lr=5e-4, weight_decay=1e-8, epochs=80, steps_per_epoch=100)
 N_STEPS = 4  # timed training steps, after one warm-up step
+DMA_SEEDS = 3  # seeds of the streamed SGB kernel's check at L=800
 
 
 def log(msg: str) -> None:
@@ -108,24 +149,6 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, args_list, iters: int = TIMED) -> float:
-    """Median CUDA-event time of ``fn``, cycling through ``args_list`` so
-    each launch reads another input than the one before."""
-    for args in args_list[:2]:  # warm-up
-        fn(*args)
-    torch.cuda.synchronize()
-    events = []
-    for i in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args_list[i % len(args_list)])
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
 def bound(nbytes: float, bf16: float = 0.0, f32: float = 0.0):
@@ -141,8 +164,10 @@ def nbytes(*tensors) -> int:
 
 
 def variants(t: torch.Tensor, n: int = 4):
-    """``n`` distinct copies of a batch (rolled along the batch axis), each
-    larger than the 50 MB L2 cache at the main path's shapes."""
+    """``n`` distinct copies of a batch (rolled along the batch axis): a
+    launch cycling through them finds its input evicted from the 50 MB L2
+    cache by the three others read since (each at least 33 MB at the
+    paths' shapes)."""
     return [torch.roll(t, i, dims=0).contiguous() for i in range(n)]
 
 
@@ -158,13 +183,38 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
-def kernel_sgb(dev, rng, state) -> dict:
-    """SGB contract+pool at the main path's shapes and types."""
-    h = torch.from_numpy(rng.standard_normal((B, L, 64), np.float32)).to(
-        dev, torch.bfloat16)
+def contract_bf16(state):
+    """The contract conv's kernel (5, 64, 512) and bias in bf16."""
     w = state["semi_global_block.contract_conv.weight"].permute(2, 1, 0)
-    w = w.to(torch.bfloat16).contiguous()  # (5, 64, 512)
     b = state["semi_global_block.contract_conv.bias"].to(torch.bfloat16)
+    return w.to(torch.bfloat16).contiguous(), b
+
+
+def sgb_yardstick_ms(hs, w, b) -> float:
+    """The SGB kernels' yardstick: cuDNN conv + pool + leaky in bf16 on
+    channels-first copies of the inputs."""
+    wc = w.permute(2, 1, 0).contiguous()
+    return time_ms(lambda x: F.leaky_relu(F.max_pool1d(
+        F.conv1d(x, wc, b, padding=2), sgb.POOL), 0.01),
+        [(x.transpose(1, 2).contiguous(),) for x in hs])
+
+
+def sgb_bound(h, w, b):
+    """The SGB contract+pool's bound: its inputs and pooled output moved
+    once, the direct conv's bf16 operations."""
+    bsz, length, _ = h.shape
+    f = w.shape[2]
+    return bound(nbytes(h, w, b) + bsz * (length // sgb.POOL) * f * 2,
+                 bf16=2.0 * bsz * length * f * w.shape[0] * w.shape[1])
+
+
+def kernel_sgb(dev, rng, state) -> dict:
+    """The tile SGB kernel at the shapes the main path gives it: B=128 at
+    L_TILE, the serving length the streamed kernel does not take."""
+    h = torch.from_numpy(rng.standard_normal((B, L_TILE, 64),
+                                             np.float32)).to(
+        dev, torch.bfloat16)
+    w, b = contract_bf16(state)
     wt, bias = sgb.sgb_weights(w, b, torch.bfloat16)  # as make_pipeline does
     err = check_close("sgb_contract_pool",
                       sgb.sgb_contract_pool_prepared(h, wt, bias),
@@ -175,19 +225,12 @@ def kernel_sgb(dev, rng, state) -> dict:
                  [(x,) for x in hs])
     plain_ms = time_ms(lambda x: sgb.sgb_contract_pool_reference(x, w, b),
                        [(x,) for x in hs])
-    # yardstick: cuDNN conv + pool + leaky in bf16 on channels-first copies
-    hc = [(x.transpose(1, 2).contiguous(),) for x in hs]
-    wc = w.permute(2, 1, 0).contiguous()
-    library_ms = time_ms(lambda x: F.leaky_relu(F.max_pool1d(
-        F.conv1d(x, wc, b, padding=2), sgb.POOL), 0.01), hc)
-    f = w.shape[2]
-    t, by = bound(nbytes(h, w, b) + B * (L // sgb.POOL) * f * 2,
-                  bf16=2.0 * B * L * f * w.shape[0] * w.shape[1])
+    t, by = sgb_bound(h, w, b)
     return dict(name="sgb_contract_pool", route="cuda",
                 source="stofnet_tpu_torch/csrc/sgb_contract_pool.cu",
                 replaces="stofnet_tpu/ops/pallas/sgb_kernel.py:189",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t,
-                bound_by=by, library_ms=library_ms)
+                bound_by=by, library_ms=sgb_yardstick_ms(hs, w, b))
 
 
 def kernel_stack(dev, rng, state) -> dict:
@@ -237,9 +280,100 @@ def kernel_stack(dev, rng, state) -> dict:
                 bound_by=by, library_ms=library_ms)
 
 
-def slot_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
-    """Fraction of the coord slots within 1 sample (bench.py's rule)."""
-    return float((a - b).abs().le(1.0).float().mean())
+def canary(dev, rng) -> dict:
+    """The canary, right after the build and before any other kernel: 2 x
+    must equal x * 2 bit for bit. Its time is the launch's host work."""
+    x = torch.from_numpy(rng.standard_normal((8, 128), np.float32)).to(dev)
+    got = dma_probe.canary(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, x * 2):
+        raise AssertionError("canary: the kernel's 2 x differs from x * 2 "
+                             "(toolchain or CUDA runtime)")
+    log("canary: 2 x equals x * 2 bit for bit")
+    xs = [(x + i,) for i in range(4)]
+    t, by = bound(2 * nbytes(x))
+    return dict(name="canary", route="cuda",
+                source="stofnet_tpu_torch/csrc/dma_probe.cu",
+                replaces="scripts/dma_probe.py:145", max_abs_err=0.0,
+                ms=time_ms(dma_probe.canary, xs),
+                plain_ms=time_ms(dma_probe.canary_reference, xs),
+                bound_ms=t, bound_by=by,
+                library_ms=time_ms(lambda v: torch.mul(v, 2), xs))
+
+
+def same_bits(name: str, streamed: torch.Tensor, h, wt, bias) -> None:
+    """The streamed kernel's output must equal the tile kernel's on the
+    same inputs bit for bit: one mainloop and epilogue (sgb_window.cuh),
+    fed by another copy."""
+    tile = sgb.sgb_contract_pool_prepared(h, wt, bias)
+    if not torch.equal(streamed, tile):
+        raise AssertionError(f"{name}: the streamed and the tile SGB kernels "
+                             f"differ in {int((streamed != tile).sum())} "
+                             f"elements on the same inputs")
+    log(f"{name}: the tile kernel's bits")
+
+
+def kernel_sgb_dma(dev, rng, state) -> dict:
+    """The streamed SGB kernel at the main path's shapes and types, then at
+    L=800 (one ring's worth of windows and a little more) over DMA_SEEDS
+    seeds, each also against the tile kernel's bits; the tile kernel timed
+    beside it on the same inputs."""
+    w, b = contract_bf16(state)
+    wt, bias = sgb.sgb_weights(w, b, torch.bfloat16)  # as fused_forward does
+    for seed in range(DMA_SEEDS):
+        h8 = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (B, 800, 64), np.float32)).to(dev, torch.bfloat16)
+        name = f"sgb_contract_pool_dma L=800 seed {seed}"
+        got = sgb_dma.sgb_contract_pool_dma_prepared(h8, wt, bias)
+        check_close(name, got, sgb_dma.sgb_contract_pool_dma_reference(
+            h8, w, b))
+        same_bits(name, got, h8, wt, bias)
+    h = torch.from_numpy(rng.standard_normal((B, L, 64), np.float32)).to(
+        dev, torch.bfloat16)
+    got = sgb_dma.sgb_contract_pool_dma_prepared(h, wt, bias)
+    err = check_close("sgb_contract_pool_dma", got,
+                      sgb_dma.sgb_contract_pool_dma_reference(h, w, b))
+    same_bits("sgb_contract_pool_dma", got, h, wt, bias)
+
+    hs = variants(h)
+    ms = time_ms(lambda x: sgb_dma.sgb_contract_pool_dma_prepared(
+        x, wt, bias), [(x,) for x in hs])
+    tile_ms = time_ms(lambda x: sgb.sgb_contract_pool_prepared(x, wt, bias),
+                      [(x,) for x in hs])
+    plain_ms = time_ms(lambda x: sgb_dma.sgb_contract_pool_dma_reference(
+        x, w, b), [(x,) for x in hs])
+    log(f"sgb_contract_pool_dma: {ms:.4f} ms; the tile kernel on the same "
+        f"inputs: {tile_ms:.4f} ms")
+    t, by = sgb_bound(h, w, b)
+    return dict(name="sgb_contract_pool_dma", route="cuda",
+                source="stofnet_tpu_torch/csrc/sgb_contract_pool_dma.cu",
+                replaces="stofnet_tpu/ops/pallas/sgb_dma_kernel.py:158",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t,
+                bound_by=by, library_ms=sgb_yardstick_ms(hs, w, b))
+
+
+def probe_path():
+    """The probe entry point's logic on the card, every point checked
+    (``scripts/dma_probe.run``, strict): its kernels line row from the
+    fastest point, and the launches of this run."""
+    reset_launch_counts()
+    res = probe_script.run(strict=True)
+    launches = {"stream_probe": dma_probe.probe_launches,
+                "canary": dma_probe.canary_launches}
+    print(json.dumps(res["line"]), flush=True)
+    best = res["best"]
+    log(f"probe: best point {best}, {res['ms'][best]:.4f} ms; launches "
+        f"{json.dumps(launches)}")
+    x_bytes = probe_script.N_ROWS * dma_probe.WIDTH * 2
+    t, by = bound(x_bytes + dma_probe.GROUP * dma_probe.WIDTH * 4,
+                  f32=probe_script.N_ROWS * dma_probe.WIDTH)
+    row = dict(name="stream_probe", route="cuda",
+               source="stofnet_tpu_torch/csrc/dma_probe.cu",
+               replaces="scripts/dma_probe.py:37",
+               max_abs_err=res["max_abs_err"][best], ms=res["ms"][best],
+               plain_ms=res["plain_ms"], bound_ms=t, bound_by=by,
+               library_ms=res["library_ms"])
+    return row, launches
 
 
 def row_agreement(a: torch.Tensor, b: torch.Tensor):
@@ -250,64 +384,187 @@ def row_agreement(a: torch.Tensor, b: torch.Tensor):
     return float(ok[has].float().mean()), int((has & ~ok).sum())
 
 
-def main_path(dev, state, rng):
-    """make_pipeline over 4 fresh gate batches after one warm-up batch;
-    launch counts per batch."""
+def counts() -> dict:
+    """Every launch counter of the kernel modules, as ``module.counter``."""
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{c}": getattr(mod, c)
+            for mod in KERNEL_MODULES for c in mod.COUNTERS}
+
+
+def serve_timed(name, run, batches, per_batch):
+    """``run(x)`` over the batches, each timed on the host clock (numpy
+    frame in, coords on the host out); on each batch every launch counter
+    must rise by its ``per_batch`` launches (0 where absent). Returns the
+    coords and the ms of each batch."""
+    coords, batch_ms = [], []
+    for x in batches:
+        before = counts()
+        t0 = time.perf_counter()
+        coords.append(run(x))  # the copy to the host waits for the card
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        rose = {k: v - before[k] for k, v in counts().items()}
+        wrong = {k: v for k, v in rose.items() if v != per_batch.get(k, 0)}
+        if wrong:
+            raise AssertionError(f"{name}: launches on one batch {wrong}, "
+                                 f"not {per_batch}")
+    got = torch.cat(coords)
+    if got.shape != (len(batches) * B, DECODE["max_echoes"]) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: bad coords {tuple(got.shape)}")
+    return got, batch_ms
+
+
+def main_path(dev, state, rng) -> dict:
+    """make_pipeline at each length of SERVE over one warm-up batch and
+    N_BATCHES fresh gate batches, each batch launching the kernels SERVE
+    names for its length and no other; then, per length, the agreement
+    with the plain path, the witnesses and the profile. Returns the
+    launches of the served batches by kernel."""
     pipe = make_pipeline(state, {"upsample_factor": UP}, device=dev,
                          window_size=DECODE["window_size"],
                          threshold=DECODE["threshold"],
                          max_echoes=DECODE["max_echoes"])
-    pipe(gate_batch(B, L, rng)).cpu()  # cuDNN's algorithm choice, not timed
-    batches = [gate_batch(B, L, rng) for _ in range(N_BATCHES)]
-    coords, batch_ms = [], []
+
+    def run(x):
+        return pipe(x).cpu()
+
+    batches = {}
+    for length in SERVE:
+        run(gate_batch(B, length, rng))  # cuDNN's algorithm choice, not timed
+        batches[length] = [gate_batch(B, length, rng)
+                           for _ in range(N_BATCHES)]
     reset_launch_counts()
-    for x in batches:
-        before = (sgb.launches, conv_stack.launches)
-        t0 = time.perf_counter()
-        c = pipe(x).cpu()  # the copy to the host waits for the card
-        batch_ms.append((time.perf_counter() - t0) * 1e3)
-        after = (sgb.launches, conv_stack.launches)
-        if not all(a > b for a, b in zip(after, before)):
-            raise AssertionError(f"a kernel did not launch on this batch: "
-                                 f"(sgb, conv_stack) {before} -> {after}")
-        coords.append(c)
-    launches = {"sgb_contract_pool": sgb.launches,
-                "conv_stack_fused": conv_stack.launches}
+    served = {length: serve_timed(f"main path L={length}", run,
+                                  batches[length], per_batch)
+              for length, per_batch in SERVE.items()}
+    c = counts()
+    launches = {"sgb_contract_pool_dma": c["sgb_dma.launches"],
+                "sgb_contract_pool": c["sgb.launches"],
+                "conv_stack_fused": c["conv_stack.launches"]}
+    log(f"main path launches: {json.dumps(launches)}")
 
     params = {k: v.to(dev) for k, v in state.items()}
+    for length, (got, batch_ms) in served.items():
+        name = f"main path L={length}"
+        with torch.inference_mode():
+            plain = torch.cat([mask2coords(stofnet_apply_reference(
+                params, torch.from_numpy(x).to(dev)), **DECODE).cpu()
+                for x in batches[length]])
+        if bool((got < 0).any() or (got > length).any()):
+            raise AssertionError(f"{name}: coords outside [0, {length}]")
+        agree = coord_agreement(got, plain)
+        rows, moved = row_agreement(got, plain)
+        ms = float(np.median(batch_ms))
+        out = dict(coord_agreement=agree, row_agreement=rows,
+                   rows_moved=moved, rows=int(got.shape[0]),
+                   detections_per_row=float((got != 0).sum(1).float().mean()),
+                   ms_per_batch=ms, batch_ms=batch_ms,
+                   waveforms_per_s=B / ms * 1e3)
+        log(f"{name}: {json.dumps(out)}")
+        if agree < AGREE_MIN:
+            raise AssertionError(f"{name}: coord agreement {agree} < "
+                                 f"{AGREE_MIN}")
+        wit = witness(dev, state, batches[length], got, plain)
+        log(f"{name} witness: {json.dumps(wit)}")
+        base = wit["plain~plain_cpu"]["moved"]
+        if moved > 2 * base + ROW_NOISE:
+            raise AssertionError(
+                f"{name}: the kernel path moves {moved} rows against the "
+                f"plain path, more than twice the {base} that f32 summation "
+                f"order alone moves (plain path on the CPU) plus {ROW_NOISE}")
+        prof = profile_runs(run, batches[length])
+        prof["idle_share_derived"] = 1.0 - prof["device_busy_ms"] / ms
+        log(f"{name} profile: {json.dumps(prof)}")
+    return launches
+
+
+def bench_paths(dev, state, rng) -> dict:
+    """The bench's fused and packed paths over a gate batch (their warm-up)
+    and N_BATCHES fresh batches; launch counts of the fused path."""
+    ov = {"upsample_factor": UP}
+    xg = torch.from_numpy(gate_batch(B, L, rng)).to(dev)
+    batches = [gate_batch(B, L, rng) for _ in range(N_BATCHES)]
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+
+    def plain(st, x):  # the fused path's plain versions
+        return mask2coords(stofnet_apply_reference(
+            st, x, fused_stack=False), **DECODE)
+
+    m16 = make_xla_pipeline(ov, torch.bfloat16, dev)
+    m32 = make_xla_pipeline(ov, None, dev)
+    t0 = time.perf_counter()
     with torch.inference_mode():
-        plain = torch.cat([mask2coords(stofnet_apply_reference(
-            params, torch.from_numpy(x).to(dev)), **DECODE).cpu()
-            for x in batches])
-    got = torch.cat(coords)
-    if got.shape != (N_BATCHES * B, DECODE["max_echoes"]) or not bool(
-            torch.isfinite(got).all()):
-        raise AssertionError(f"bad coords: shape {tuple(got.shape)}")
-    if bool((got < 0).any() or (got > L).any()):
-        raise AssertionError("coords outside [0, L]")
-    agree = slot_agreement(got, plain)
-    rows, moved = row_agreement(got, plain)
-    ms = float(np.median(batch_ms))
+        ref_gate = plain(state, xg).cpu()
+        ref, ref_cpu, c16, c32 = [], [], [], []
+        for x in batches:
+            xd = torch.from_numpy(x).to(dev)
+            ref.append(plain(state, xd).cpu())
+            ref_cpu.append(plain(cpu_state, torch.from_numpy(x)))
+            c16.append(m16(state, xd).cpu())
+            c32.append(m32(state, xd).cpu())
+        c16_gate = m16(state, xg).cpu()
+    ref, ref_cpu = torch.cat(ref), torch.cat(ref_cpu)
+    c16, c32 = torch.cat(c16), torch.cat(c32)
+    log(f"bench paths: references {time.perf_counter() - t0:.1f} s")
+
+    fused = try_fused_pipeline(state, ov, xg, ref_gate)
+    if fused is None:
+        raise AssertionError("try_fused_pipeline: the gate refused the fused "
+                             "path against the plain path")
+    reset_launch_counts()
+    got, ms, launches = serve_bench_path("fused", fused, dev, state, batches,
+                                         {"sgb_dma.launches": 1})
+    agree = coord_agreement(got, ref)
+    rows, moved = row_agreement(got, ref)
+    base = row_agreement(ref, ref_cpu)[1]
     out = dict(coord_agreement=agree, row_agreement=rows, rows_moved=moved,
-               rows=int(got.shape[0]),
-               detections_per_row=float((got != 0).sum(1).float().mean()),
-               ms_per_batch=ms, batch_ms=batch_ms,
-               waveforms_per_s=B / ms * 1e3, launches=launches)
-    log(f"main path: {json.dumps(out)}")
+               plain_rows_moved_card_vs_cpu=base,
+               module_f32=dict(slots=coord_agreement(got, c32),
+                               moved=row_agreement(got, c32)[1]),
+               ms_per_batch=ms, waveforms_per_s=B / ms * 1e3,
+               launches={"sgb_contract_pool_dma": launches[
+                   "sgb_dma.launches"]})
+    log(f"fused path: {json.dumps(out)}")
     if agree < AGREE_MIN:
-        raise AssertionError(f"coord agreement {agree} < {AGREE_MIN}")
-    wit = witness(dev, state, batches, got, plain)
-    log(f"witness: {json.dumps(wit)}")
-    base = wit["plain~plain_cpu"]["moved"]
+        raise AssertionError(f"fused path: coord agreement {agree} < "
+                             f"{AGREE_MIN}")
     if moved > 2 * base + ROW_NOISE:
         raise AssertionError(
-            f"the kernel path moves {moved} rows against the plain path, "
-            f"more than twice the {base} that f32 summation order alone "
-            f"moves (plain path on the CPU) plus {ROW_NOISE}")
-    prof = profile_runs(lambda x: pipe(x).cpu(), batches)
-    prof["idle_share_derived"] = 1.0 - prof["device_busy_ms"] / ms
-    log(f"profile: {json.dumps(prof)}")
+            f"fused path: moves {moved} rows against the plain path, more "
+            f"than twice the {base} that f32 summation order alone moves "
+            f"(plain path on the CPU) plus {ROW_NOISE}")
+
+    packed = try_packed_pipeline(state, ov, xg, c16_gate)
+    if packed is None:
+        raise AssertionError("try_packed_pipeline: the gate refused the "
+                             "packed path against the bf16 module")
+    got, ms, _ = serve_bench_path("packed", packed, dev, state, batches, {})
+    agree = coord_agreement(got, c16)
+    out_p = dict(coord_agreement_module_bf16=agree,
+                 rows_moved_module_bf16=row_agreement(got, c16)[1],
+                 module_f32=dict(slots=coord_agreement(got, c32),
+                                 moved=row_agreement(got, c32)[1]),
+                 ms_per_batch=ms, waveforms_per_s=B / ms * 1e3)
+    log(f"packed path: {json.dumps(out_p)}")
+    if agree < AGREE_MIN:
+        raise AssertionError(f"packed path: coord agreement {agree} with the "
+                             f"bf16 module < {AGREE_MIN}")
     return out
+
+
+def serve_bench_path(name, pipe, dev, state, batches, per_batch):
+    """``pipe(state, x)`` over the batches as :func:`serve_timed` serves
+    them. Returns (coords, median ms, the launch counters after the
+    batches); then device time by kernel under the profiler."""
+    def run(x):
+        return pipe(state, torch.from_numpy(x).to(dev)).cpu()
+
+    got, batch_ms = serve_timed(f"{name} path", run, batches, per_batch)
+    launches = counts()
+    ms = float(np.median(batch_ms))
+    prof = profile_runs(run, batches)
+    prof["idle_share_derived"] = 1.0 - prof["device_busy_ms"] / ms
+    log(f"{name} path profile: {json.dumps(prof)}")
+    return got, ms, launches
 
 
 def witness(dev, state, batches, got, plain) -> dict:
@@ -346,7 +603,7 @@ def witness(dev, state, batches, got, plain) -> dict:
     out = {}
     for name, (a, b) in pairs.items():
         rows, moved = row_agreement(a, b)
-        out[name] = dict(rows=rows, moved=moved, slots=slot_agreement(a, b))
+        out[name] = dict(rows=rows, moved=moved, slots=coord_agreement(a, b))
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -627,32 +884,39 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["sgb_contract_pool", "conv_stack",
-                             "sgb_contract_pool_bwd"])
+    logs = _build.build_all(SOURCES)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     log(f"card: {card()}")
+    rng_new = np.random.default_rng(SEED + 2)  # this slice's phases
+    first = canary(dev, rng_new)
 
     state = StofNet(generator=torch.Generator().manual_seed(SEED),
                     device=dev).state_dict()
     rng = np.random.default_rng(SEED)
     kernels = [kernel_sgb(dev, rng, state), kernel_stack(dev, rng, state),
-               *kernels_trainable(dev, rng, state)]
+               *kernels_trainable(dev, rng, state),
+               kernel_sgb_dma(dev, rng_new, state)]
+    probe_row, probe_launches = probe_path()
+    kernels += [probe_row, first]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} ms "
             f"by {k['bound_by']})")
 
-    launches = main_path(dev, state, rng)["launches"]
-    launches.update(train_path(dev)["launches"])
+    paths = [probe_launches, main_path(dev, state, rng),
+             bench_paths(dev, state, rng_new)["launches"],
+             train_path(dev)["launches"]]
+    least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] < N_BATCHES:
+        k["launches"] = sum(p.get(k["name"], 0) for p in paths)
+        need = least.get(k["name"], N_BATCHES)
+        if k["launches"] < need:
             raise AssertionError(f"{k['name']} launched {k['launches']} "
-                                 f"times in {N_BATCHES} batches or steps")
+                                 f"times on its paths, fewer than {need}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,5 +1,6 @@
 // Helpers shared by the kernels of this directory: the bf16 tensor-core
-// product and the error string of the plain C interface.
+// product, the cp.async copies of the ring kernels and the error string of
+// the plain C interface.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +24,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // two consecutive bf16 values as one 32-bit register (lower index low)
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// one 16-byte cp.async.cg copy from device to shared memory; src_bytes 0
+// reads nothing and writes 16 zero bytes (the zero fill of a padded row)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+
+// close this thread's copies issued since the last commit into one group
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 extern "C" const char* kernel_error_string(int err) {

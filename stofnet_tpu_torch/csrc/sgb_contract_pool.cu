@@ -21,7 +21,9 @@
 // row groups of the accumulator fragment. leaky is applied to the pooled value
 // (exact: leaky is monotone). Rows of 72 bf16 (input) and 328 bf16 (weights)
 // keep the fragment loads free of bank conflicts. No cp.async, TMA or wgmma
-// yet: this is the simple first version.
+// yet: this is the simple first version. The mainloop and the pooled epilogue
+// live in sgb_window.cuh, shared with the streamed kernel
+// (sgb_contract_pool_dma.cu), which feeds them through a cp.async ring.
 //
 // Kernel A, the forward of the trainable op (replaces _run(with_argmax=True)
 // of sgb_kernel.py, reached from sgb_contract_pool_trainable's _trainable_fwd):
@@ -34,26 +36,13 @@
 // are candidates, never the halo rows. Its bound is the serving kernel's
 // (operations), plus 26 MB of offsets written at B=128, L=8000, F=512.
 
-#include "common.cuh"
+#include "sgb_window.cuh"
 
 namespace {
 
-constexpr int C = 64;                  // input channels
-constexpr int K = 5;                   // taps
-constexpr int PAD = K / 2;             // SAME padding of a k5 conv
-constexpr int POOL = 80;               // pool window = semi_global_scale
-constexpr int KC = K * C;              // GEMM depth, 320
-constexpr int N_TILE = 128;            // output channels per CTA
-constexpr int WINDOWS = 2;             // pool windows per tile, one per warp row
-constexpr int ROWS = POOL + 2 * PAD;   // input rows per window, 84
-constexpr int IN_STRIDE = C + 8;       // bf16 per shared input row
-constexpr int W_STRIDE = KC + 8;       // bf16 per shared weight row
-constexpr int THREADS = 256;           // 8 warps: 2 windows x 4 channel slices
-constexpr int M_TILES = POOL / 16;     // m16 tiles per window, 5
-constexpr int N_SUB = 4;               // n8 tiles per warp, 32 channels
+using namespace sgb;
 
-constexpr int SMEM_W = N_TILE * W_STRIDE * 2;              // 83,968 B
-constexpr int SMEM_IN = WINDOWS * ROWS * IN_STRIDE * 2;    // 24,192 B
+constexpr int SMEM_IN = SMEM_TILE;                         // 24,192 B
 constexpr int SMEM = SMEM_W + SMEM_IN;                     // 108,160 B
 
 template <bool ARGMAX>
@@ -118,61 +107,14 @@ sgb_contract_pool_kernel(const __nv_bfloat16* __restrict__ h,   // (B, L, 64)
       }
     }
 
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-#pragma unroll
-      for (int c0 = 0; c0 < C; c0 += 16) {
-        const int k0 = t * C + c0;
-        uint32_t b[N_SUB][2];
-#pragma unroll
-        for (int j = 0; j < N_SUB; ++j) {
-          const __nv_bfloat16* bp = wb + (j * 8 + g) * W_STRIDE + k0 + 2 * tq;
-          b[j][0] = ld32(bp);
-          b[j][1] = ld32(bp + 8);
-        }
-#pragma unroll
-        for (int i = 0; i < M_TILES; ++i) {
-          // output row m reads input row m + t (row 0 is position -2)
-          const __nv_bfloat16* ap = xw + (i * 16 + g + t) * IN_STRIDE + c0 + 2 * tq;
-          const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * IN_STRIDE), ld32(ap + 8),
-                                 ld32(ap + 8 * IN_STRIDE + 8)};
-#pragma unroll
-          for (int j = 0; j < N_SUB; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
-        }
-      }
-    }
+    window_mma(acc, xw, wb, g, tq);
 
     if constexpr (!ARGMAX) {
-      // window max: registers over rows g and g+8 of each m tile, then the
-      // eight row groups (lane bits 2..4) by shuffle
       float mx[N_SUB][2];
-#pragma unroll
-      for (int j = 0; j < N_SUB; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float m = fmaxf(acc[0][j][e], acc[0][j][e + 2]);
-#pragma unroll
-          for (int i = 1; i < M_TILES; ++i)
-            m = fmaxf(m, fmaxf(acc[i][j][e], acc[i][j][e + 2]));
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
-          mx[j][e] = m;
-        }
-
+      window_max(acc, mx);
       const long long gw = tile * WINDOWS + wm;
-      if (g == 0 && gw < total_windows) {
-#pragma unroll
-        for (int j = 0; j < N_SUB; ++j) {
-          const int n = n0 + wn * 32 + j * 8 + 2 * tq;
-          float v0 = mx[j][0] + bias[n];
-          float v1 = mx[j][1] + bias[n + 1];
-          v0 = v0 >= 0.f ? v0 : slope * v0;  // leaky after the pool (exact)
-          v1 = v1 >= 0.f ? v1 : slope * v1;
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)gw * F + n) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
+      if (gw < total_windows)
+        store_pooled(out + (size_t)gw * F, bias, mx, n0 + wn * 32, g, tq, slope);
     } else {
       // (value, row) pairs: first maximal row of the window, ties to the
       // lower; each column pair is written as soon as it is reduced

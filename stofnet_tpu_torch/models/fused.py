@@ -1,13 +1,13 @@
 """StofNet forward through the fused kernels (replaces
-``stofnet_tpu/models/fused.py:stofnet_apply_fused``).
+``stofnet_tpu/models/fused.py:stofnet_apply_fused`` and
+``stofnet_apply_packed``).
 
 The same function as ``StofNet(...)(x)``, computed over a state dict, with
-the SemiGlobalBlock's contract conv + 80x max-pool in
-``ops/kernels/sgb.py`` (the (B, L, 512) pre-pool tensor never reaches
-device memory) and conv2..conv_last in ``ops/kernels/conv_stack.py``. On a
-CUDA tensor both run as CUDA kernels; on a CPU tensor as their plain
-versions. conv1, the expand conv, the upsample, the shuffle and the decode
-stay plain PyTorch.
+the SemiGlobalBlock's contract conv + 80x max-pool in one SGB kernel
+(the (B, L, 512) pre-pool tensor never reaches device memory) and
+conv2..conv_last in ``ops/kernels/conv_stack.py``. On a CUDA tensor both
+run as CUDA kernels; on a CPU tensor as their plain versions. conv1, the
+expand conv, the upsample, the shuffle and the decode stay plain PyTorch.
 
 ``trainable=True`` is the training forward: the contract path goes through
 ``sgb_contract_pool_trainable`` (kernel A forward, kernel B backward) and
@@ -15,6 +15,17 @@ the conv stack runs as plain convs, which autograd differentiates (the
 stack kernel has no backward in either package). The state may then hold
 f32 ``nn.Parameter`` masters: every weight is cast to ``dtype`` inside the
 differentiated function, so the gradients come back in f32.
+
+The SGB kernel is the streamed one (``ops/kernels/sgb_dma.py``) where
+``dma_supported`` takes the shape and the tile kernel
+(``ops/kernels/sgb.py``) elsewhere, chosen by shape before any launch: the
+two give the same bits where both run, and the streamed one is the faster
+on the card (PERF.md).
+``sgb_impl="tile"`` runs the tile kernel at every shape: the JAX function's
+default, kept for parity with it.
+
+``stofnet_apply_packed`` is the position-packed forward (plain PyTorch,
+``ops/packed_conv.py``): the same math, no kernel.
 """
 
 from __future__ import annotations
@@ -32,9 +43,16 @@ from stofnet_tpu_torch.ops.kernels.sgb import (
     sgb_contract_pool_prepared, sgb_contract_pool_reference,
     sgb_contract_pool_trainable, sgb_weights,
 )
+from stofnet_tpu_torch.ops.kernels.sgb_dma import (
+    dma_supported, sgb_contract_pool_dma_prepared,
+)
+from stofnet_tpu_torch.ops.packed_conv import (
+    conv1d_blocked, conv1d_same_packed,
+)
 from stofnet_tpu_torch.ops.shuffle import sample_shuffle
 
 CONTRACT = "semi_global_block.contract_conv"
+SGB_IMPLS = ("tile", "dma")
 
 
 def stofnet_apply_fused(
@@ -46,6 +64,7 @@ def stofnet_apply_fused(
     dtype: Optional[torch.dtype] = torch.bfloat16,
     fused_stack: bool = True,
     trainable: bool = False,
+    sgb_impl: str = "dma",
 ) -> torch.Tensor:
     """StofNet forward, (B, 1, L) -> (B, 1, L*r) f32, in the channels-last
     (B, L, C) layout of the JAX function.
@@ -55,10 +74,14 @@ def stofnet_apply_fused(
     take bfloat16). ``fused_stack=False``, or a ``num_blocks`` other than
     13, runs the conv stack as separate plain convs. ``trainable=True`` is
     differentiable in ``state`` and ``x`` (module docstring) and implies
-    ``fused_stack=False``.
+    ``fused_stack=False``. ``sgb_impl`` picks the contract path's kernel:
+    ``"dma"`` the streamed kernel where ``dma_supported`` takes (L, 64) and
+    the tile kernel elsewhere, ``"tile"`` the tile kernel at every shape;
+    ``trainable`` comes first.
     """
     return fused_forward(state, upsample_factor, num_blocks,
-                         semi_global_scale, dtype, fused_stack, trainable)(x)
+                         semi_global_scale, dtype, fused_stack, trainable,
+                         sgb_impl)(x)
 
 
 def fused_forward(
@@ -69,11 +92,16 @@ def fused_forward(
     dtype: Optional[torch.dtype] = torch.bfloat16,
     fused_stack: bool = True,
     trainable: bool = False,
+    sgb_impl: str = "dma",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """:func:`stofnet_apply_fused` as a callable of ``x`` that lays the
     kernels' weights out once (``sgb_weights``, ``stack_weights``), on the
     state's device: the forward a server closes over. With ``trainable``
-    nothing is laid out ahead: the weights change every step."""
+    nothing is laid out ahead: the weights change every step. Both SGB
+    kernels take the one layout, and ``sgb_impl="dma"`` picks between them
+    by the shape of each call's features, before any launch, so one
+    pipeline serves every length."""
+    _check_sgb_impl(sgb_impl)
     if trainable:
         def sgb_train(h):
             return sgb_contract_pool_trainable(h, *_kernel_and_bias(
@@ -89,6 +117,8 @@ def fused_forward(
         wt, bias = sgb_weights(*_kernel_and_bias(state, CONTRACT), dt)
 
         def sgb(h):
+            if sgb_impl == "dma" and dma_supported(h.shape[1], h.shape[2]):
+                return sgb_contract_pool_dma_prepared(h, wt, bias)
             return sgb_contract_pool_prepared(h, wt, bias)
     if fused_stack and num_blocks == NB:
         wts = stack_weights(state, dt)
@@ -111,12 +141,16 @@ def stofnet_apply_reference(
     dtype: Optional[torch.dtype] = torch.bfloat16,
     fused_stack: bool = True,
     trainable: bool = False,
+    sgb_impl: str = "dma",
 ) -> torch.Tensor:
     """:func:`stofnet_apply_fused` with the kernels' plain versions on any
     device: the same function with the same rounding points, so the two
     differ only by the order of f32 sums. The plain path the card's
     kernel path is held against; ``trainable`` runs the plain versions of
-    kernels A and B."""
+    kernels A and B. Both SGB kernels have the one plain version, so
+    ``sgb_impl`` is only checked."""
+    _check_sgb_impl(sgb_impl)
+
     def sgb(h):
         if trainable:
             return sgb_contract_pool_trainable(
@@ -129,6 +163,75 @@ def stofnet_apply_reference(
     return _apply(state, x, sgb, stack if fused_stack and num_blocks == NB
                   and not trainable else None, upsample_factor, num_blocks,
                   semi_global_scale, dtype)
+
+
+def stofnet_apply_packed(
+    state: Mapping[str, torch.Tensor],
+    x: torch.Tensor,
+    upsample_factor: int = 4,
+    num_blocks: int = 13,
+    semi_global_scale: int = 80,
+    dtype: Optional[torch.dtype] = torch.bfloat16,
+    pack: int = 2,
+) -> torch.Tensor:
+    """StofNet forward with position-packed convs, (B, 1, L) -> (B, 1, L*r)
+    f32: the same math as ``StofNet(...)(x)`` with each conv rounding where
+    flax does (inputs, weights and bias in ``dtype``, the conv output and
+    the bias add each rounded). conv1 packs ``pack`` positions; the SGB's
+    convs stay plain (contract conv, leaky, 80x max-pool, expand conv);
+    conv2..conv12 enter the blocked (B, L/P, P * 64) domain once and chain
+    in it (P = ``pack`` where it divides L, else 1); conv_last packs the
+    largest of 32, 16, 8, 4, 2 that divides L."""
+    def cast(h, name):  # flax's casts: input, kernel and bias in dtype
+        kernel, bias = _kernel_and_bias(state, name)
+        if dtype is not None:
+            h, kernel, bias = h.to(dtype), kernel.to(dtype), bias.to(dtype)
+        return h, kernel, bias
+
+    def conv(h, name, pk):
+        return conv1d_same_packed(*cast(h, name), pack=pk)
+
+    h = x.transpose(1, 2)
+    if dtype is not None:
+        h = h.to(dtype)
+    length = h.shape[1]
+    h = F.relu(conv(h, "conv1", pack))
+
+    if semi_global_scale != 1:
+        s = F.leaky_relu(conv(h, CONTRACT, 1), 0.01)
+        s = F.max_pool1d(s.transpose(1, 2), semi_global_scale).transpose(1, 2)
+        s = F.leaky_relu(conv(s, "semi_global_block.expand_conv", 1), 0.01)
+        s = torch.repeat_interleave(s, semi_global_scale, dim=1)
+        pad = max(0, length - s.shape[1])
+        h = h + F.pad(s, (0, 0, pad // 2, pad // 2))
+
+    # the blocked domain, entered once (a block of 1 is the plain conv)
+    pk = pack if pack > 1 and length % pack == 0 else 1
+    nf = h.shape[-1]
+    h = h.reshape(h.shape[0], length // pk, pk * nf)
+
+    def conv_blocked(hb, name):
+        return conv1d_blocked(*cast(hb, name), pk)
+
+    residual_layers = set(range(3, num_blocks - 1, 2))
+    res = res1 = h
+    for i in range(2, num_blocks - 1):
+        y = conv_blocked(h, f"conv{i}")
+        if i in residual_layers:
+            h = res = res + y
+        else:
+            h = F.leaky_relu(y, 0.01)
+    h = res1 + conv_blocked(h, f"conv{num_blocks - 1}")
+    h = h.reshape(h.shape[0], length, nf)
+
+    pk_last = next((c for c in (32, 16, 8, 4, 2) if length % c == 0), 1)
+    h = conv(h, "conv_last", pk_last)
+    return sample_shuffle(h.transpose(1, 2), upsample_factor).to(torch.float32)
+
+
+def _check_sgb_impl(sgb_impl):
+    if sgb_impl not in SGB_IMPLS:
+        raise ValueError(f"sgb_impl={sgb_impl!r}, not one of {SGB_IMPLS}")
 
 
 def _kernel_and_bias(state, name):

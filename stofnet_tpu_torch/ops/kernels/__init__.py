@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for Hopper (replaces ``stofnet_tpu/ops/pallas``).
+"""Hand-written CUDA kernels for Hopper (replaces ``stofnet_tpu/ops/pallas``
+and the two kernels of ``scripts/dma_probe.py``).
 
 Each kernel module holds the wrapper, its plain PyTorch version, one
 launch counter per kernel (named in its ``COUNTERS``) and the layout of
@@ -7,9 +8,12 @@ its weights that a pipeline builds once (``sgb_weights``,
 version; given a CUDA tensor it launches the kernel or raises.
 """
 
-from stofnet_tpu_torch.ops.kernels import conv_stack, sgb
+from stofnet_tpu_torch.ops.kernels import conv_stack, dma_probe, sgb, sgb_dma
 
-KERNEL_MODULES = (sgb, conv_stack)
+KERNEL_MODULES = (sgb, conv_stack, sgb_dma, dma_probe)
+# the CUDA sources under csrc/ (chip_smoke.py builds them all at once)
+SOURCES = ("sgb_contract_pool", "conv_stack", "sgb_contract_pool_bwd",
+           "sgb_contract_pool_dma", "dma_probe")
 
 
 def reset_launch_counts() -> None:

@@ -12,7 +12,10 @@ Kernel A's offsets must equal the plain version's wherever the plain
 window maximum beats its runner-up by more than 1e-3 of its magnitude (a
 closer pair may swap under another order of f32 sums); kernel B is held
 against its plain version on kernel A's own outputs, per output, and must
-give the same bits twice.
+give the same bits twice. The streamed SGB kernel must give the tile
+kernel's bits. The probe is held to its total (rtol 1e-3 of the f64 sum),
+each element to 64 f32 epsilons of the sum of its terms' magnitudes, and
+the same bits twice; the canary to ``x * 2`` exactly.
 """
 
 import numpy as np
@@ -23,7 +26,8 @@ from stofnet_tpu_torch.models import (
     StofNet, stofnet_apply_fused, stofnet_apply_reference,
 )
 from stofnet_tpu_torch.ops.conv import conv1d_same
-from stofnet_tpu_torch.ops.kernels import conv_stack, sgb
+from stofnet_tpu_torch.ops.kernels import conv_stack, dma_probe, sgb, sgb_dma
+from stofnet_tpu_torch.scripts.dma_probe import ELEM_TOL
 from stofnet_tpu_torch.serve import make_pipeline
 from stofnet_tpu_torch.train import (
     LossConfig, make_fused_train_step, make_optimizer,
@@ -159,8 +163,71 @@ def test_fused_forward_and_pipeline_on_the_card(cuda):
     x = torch.from_numpy(rng.standard_normal((2, 1, 1600)).astype(
         np.float32)).to(cuda)
     _close(stofnet_apply_fused(state, x), stofnet_apply_reference(state, x))
-    counts = (sgb.launches, conv_stack.launches)
+    counts = (sgb_dma.launches, sgb.launches, conv_stack.launches)
     coords = make_pipeline(state, {}, max_echoes=8, device=cuda)(x)
     assert coords.shape == (2, 8) and coords.is_cuda
-    assert (sgb.launches, conv_stack.launches) == (counts[0] + 1,
-                                                   counts[1] + 1)
+    # L=1600 is a length dma_supported takes: the streamed SGB kernel
+    assert (sgb_dma.launches, sgb.launches, conv_stack.launches) == (
+        counts[0] + 1, counts[1], counts[2] + 1)
+
+
+def test_canary_on_the_card(cuda):
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 128)).astype(np.float32)).to(cuda)
+    before = dma_probe.canary_launches
+    got = dma_probe.canary(x)
+    torch.cuda.synchronize()
+    assert dma_probe.canary_launches == before + 1
+    assert torch.equal(got, x * 2)
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("length", [800, 8000])
+def test_sgb_dma_kernel_matches_plain(cuda, length, seed):
+    """The streamed kernel: L=800 is one ring's worth of windows and a
+    little more (5 stages of 2 windows through 3 slots), L=8000 many
+    turns of the ring; both sequence ends take the zero fill."""
+    rng = np.random.default_rng(100 + seed)
+    h = _bf16(rng, (4, length, 64), cuda)
+    w = _bf16(rng, (5, 64, 512), cuda, 0.05)
+    b = _bf16(rng, (512,), cuda, 0.1)
+    before = sgb_dma.launches
+    got = sgb_dma.sgb_contract_pool_dma(h, w, b)
+    assert sgb_dma.launches == before + 1
+    _close(got, sgb_dma.sgb_contract_pool_dma_reference(h, w, b))
+    assert torch.equal(got, sgb.sgb_contract_pool(h, w, b))  # one mainloop
+
+
+@pytest.mark.parametrize("length,impl,dma", [(8000, "dma", True),
+                                             (2000, "dma", False),
+                                             (8000, "tile", False)])
+def test_sgb_impl_dispatch_by_launch_count(cuda, length, impl, dma):
+    """``sgb_impl="dma"`` (the default): the streamed kernel where
+    L % 800 == 0, the tile kernel elsewhere (as the JAX function falls
+    back), decided by shape; ``"tile"``: the tile kernel at every shape."""
+    state = StofNet(device=cuda,
+                    generator=torch.Generator().manual_seed(2)).state_dict()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 1, length)).astype(np.float32)).to(cuda)
+    before = (sgb_dma.launches, sgb.launches, conv_stack.launches)
+    got = stofnet_apply_fused(state, x, fused_stack=False, sgb_impl=impl)
+    after = (sgb_dma.launches, sgb.launches, conv_stack.launches)
+    assert after == (before[0] + dma, before[1] + (not dma), before[2])
+    _close(got, stofnet_apply_reference(state, x, fused_stack=False))
+
+
+@pytest.mark.parametrize("chunk_rows,n_buffers", [(64, 2), (128, 4)])
+def test_probe_on_the_card(cuda, chunk_rows, n_buffers):
+    """Two sweep points: total, per-element rule and the same bits twice."""
+    x = _bf16(np.random.default_rng(5), (256_000, 128), cuda)
+    before = dma_probe.probe_launches
+    got = dma_probe.stream_probe(x, chunk_rows, n_buffers)
+    again = dma_probe.stream_probe(x, chunk_rows, n_buffers)
+    plain = dma_probe.stream_probe_reference(x, chunk_rows)
+    torch.cuda.synchronize()
+    assert dma_probe.probe_launches == before + 2
+    assert torch.equal(got, again)
+    total = float(x.double().sum())
+    assert np.isclose(float(got.double().sum()), total, rtol=1e-3)
+    mag = torch.sum(x.abs().view(-1, 8, 128), dim=0, dtype=torch.float32)
+    assert bool(((got - plain).abs() <= ELEM_TOL * mag).all())

@@ -1,0 +1,104 @@
+"""The streamed SGB kernel's module (``ops/kernels/sgb_dma.py``) and the
+``sgb_impl`` dispatch of the fused forward, against the JAX package's
+manual-DMA kernel in interpret mode, on the CPU. The CUDA kernel itself is
+held against its plain version on the card in tests/test_torch_cuda.py and
+chip_smoke.py."""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from stofnet_tpu.models import StofNet as JaxStofNet
+from stofnet_tpu.models.fused import stofnet_apply_fused as jax_fused
+from stofnet_tpu.ops.pallas.sgb_dma_kernel import (
+    dma_supported as jax_dma_supported,
+    sgb_contract_pool_dma as jax_sgb_dma,
+)
+from stofnet_tpu_torch.models import stofnet_apply_fused
+from stofnet_tpu_torch.models.torch_import import params_to_state_dict
+from stofnet_tpu_torch.ops.kernels import sgb_dma
+
+
+def _inputs(rng, length):
+    """As tests/test_pallas_kernels.py:test_sgb_dma_kernel_matches_xla."""
+    h = rng.standard_normal((2, length, 64)).astype(np.float32)
+    w = (rng.standard_normal((5, 64, 512)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(512) * 0.1).astype(np.float32)
+    return h, w, b
+
+
+@pytest.mark.parametrize("length", [800, 2400])
+def test_sgb_dma_plain_matches_pallas(rng, length):
+    """f32: the same function up to the order of f32 sums (rtol and atol
+    1e-4, the JAX kernel's own test tolerance)."""
+    h, w, b = _inputs(rng, length)
+    got = sgb_dma.sgb_contract_pool_dma(
+        *map(torch.from_numpy, (h, w, b))).numpy()
+    ref = np.asarray(jax_sgb_dma(*map(jnp.asarray, (h, w, b)),
+                                 interpret=True))
+    assert got.shape == ref.shape == (2, length // 80, 512)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("length", [800, 2400])
+def test_sgb_dma_plain_matches_pallas_bf16(rng, length):
+    """bf16 inputs: both round weights and bias to bf16, sum in f32 and
+    round the pooled output once, so they differ by at most one bf16 step
+    (2^-8 relative) of max|ref| where the f32 sums straddle a rounding
+    boundary."""
+    h, w, b = _inputs(rng, length)
+    got = sgb_dma.sgb_contract_pool_dma(
+        torch.from_numpy(h).to(torch.bfloat16), *map(torch.from_numpy, (w, b)))
+    ref = jax_sgb_dma(jnp.asarray(h, jnp.bfloat16), jnp.asarray(w),
+                      jnp.asarray(b), interpret=True)
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    got = got.float().numpy()
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 2.0 ** -8 * np.abs(ref).max()
+
+
+def test_dma_supported_matches_jax():
+    for length in (0, 80, 640, 720, 800, 1600, 2000, 2400, 7200, 8000, 8800):
+        for channels in (1, 32, 64, 128):
+            assert (sgb_dma.dma_supported(length, channels)
+                    == jax_dma_supported(length, channels)), (length, channels)
+
+
+def test_sgb_dma_wrapper_refuses_without_fallback(rng):
+    """A shape dma_supported refuses raises ValueError (not the tile
+    kernel); a tensor off the CPU that the CUDA kernel does not take
+    raises TypeError (not the plain version)."""
+    h, w, b = (torch.from_numpy(a) for a in _inputs(rng, 800))
+    with pytest.raises(ValueError, match="L % 800"):
+        sgb_dma.sgb_contract_pool_dma(h[:, :640], w, b)
+    with pytest.raises(TypeError, match="CUDA"):
+        sgb_dma.sgb_contract_pool_dma(h.to("meta"), w, b)
+
+
+@pytest.mark.parametrize("length", [800, 2000])
+def test_fused_forward_sgb_dma_matches_jax(rng, length):
+    """``sgb_impl="dma"`` with the plain conv stack, as the bench runs it:
+    at L=800 both frameworks take the DMA route, at L=2000 (L % 800 != 0)
+    both fall back to the tile kernel. f32 on the CPU, at
+    test_torch_model.py's tolerance."""
+    variables = JaxStofNet().init(jax.random.key(0),
+                                  jnp.zeros((1, 1, length)))
+    state = {k: torch.tensor(v)
+             for k, v in params_to_state_dict(variables).items()}
+    x = rng.standard_normal((2, 1, length)).astype(np.float32)
+    ref = np.asarray(jax_fused(variables, jnp.asarray(x), dtype=None,
+                               interpret=True, fused_stack=False,
+                               sgb_impl="dma"))
+    got = stofnet_apply_fused(state, torch.from_numpy(x), dtype=None,
+                              fused_stack=False, sgb_impl="dma").numpy()
+    assert got.shape == ref.shape == (2, 1, 4 * length)
+    np.testing.assert_allclose(got, ref, rtol=2e-3,
+                               atol=2e-4 * np.abs(ref).max())
+
+
+def test_sgb_impl_unknown_raises():
+    with pytest.raises(ValueError, match="sgb_impl"):
+        stofnet_apply_fused({}, torch.zeros((1, 1, 800)), sgb_impl="tpu")
