@@ -17,7 +17,13 @@
    events, a different input each launch, median of 20). The streamed SGB
    kernel is also held at L=800 over 3 seeds, and must give the tile
    kernel's bits on the same inputs there and at L=8000, where the tile
-   kernel is timed beside it.
+   kernel is timed beside it. The conv stack is also held bit for bit to
+   its plain version at L and L_TILE with weights that only shift, to
+   either side (exact small integers, so a tile whose halo is a row short
+   differs), and prints its tile count and its achieved TFLOP/s on the
+   positions it keeps and on the rows it computes (halos included); the
+   build prints every ptxas line that names ``wgmma`` (a serialized
+   ``wgmma`` runs far below its rate).
 3. The probe: ``stofnet_tpu_torch.scripts.dma_probe``'s sweep on the
    card, every point held to its total (rtol 1e-3 of the PyTorch sum), to
    each element of the plain version (64 f32 epsilons of the sum of its
@@ -233,6 +239,25 @@ def kernel_sgb(dev, rng, state) -> dict:
                 bound_by=by, library_ms=sgb_yardstick_ms(hs, w, b))
 
 
+def shift_state(up: int, side: str, dev) -> dict:
+    """Conv-stack weights that only shift to one side: every layer's output
+    is its input at one outermost tap (identity there, zeros elsewhere,
+    zero biases), so output p sums inputs up to 34 rows away along paths
+    of weight 1."""
+    tap_mid, tap_last = (0, 0) if side == "left" else (6, 2)
+    state = {}
+    for i in range(2, 13):
+        w = torch.zeros(64, 64, 7, device=dev)
+        w[:, :, tap_mid] = torch.eye(64, device=dev)
+        state[f"conv{i}.weight"] = w
+        state[f"conv{i}.bias"] = torch.zeros(64, device=dev)
+    w = torch.zeros(up, 64, 3, device=dev)
+    w[:, :up, tap_last] = torch.eye(up, device=dev)
+    state["conv_last.weight"] = w
+    state["conv_last.bias"] = torch.zeros(up, device=dev)
+    return state
+
+
 def kernel_stack(dev, rng, state) -> dict:
     """Fused conv stack at the main path's shapes and types."""
     h0 = torch.from_numpy(rng.standard_normal((B, L, 64), np.float32)).to(
@@ -241,6 +266,24 @@ def kernel_stack(dev, rng, state) -> dict:
     err = check_close("conv_stack_fused",
                       conv_stack.conv_stack_fused_prepared(h0, wts),
                       conv_stack.conv_stack_fused_reference(h0, state))
+    # the halo and seams: with shift weights and inputs in {1, 2, 3} every
+    # value is an integer under 256, exact in bf16 and in any order of f32
+    # sums, and a path to a row outside a tile's halo is missed exactly
+    for length in (L, L_TILE):
+        x = torch.from_numpy(rng.integers(1, 4, (B, length, 64)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        for side in ("left", "right"):
+            shift = shift_state(UP, side, dev)
+            got = conv_stack.conv_stack_fused(x, shift)
+            ref = conv_stack.conv_stack_fused_reference(x, shift)
+            torch.cuda.synchronize()
+            if not (0 < ref.max().item() < 256 and torch.equal(got, ref)):
+                raise AssertionError(
+                    f"conv_stack_fused: shift weights ({side}) at L={length}"
+                    f": {(got != ref).sum().item()} outputs differ from the "
+                    "plain version")
+    log(f"conv_stack_fused: shift weights, both sides, L={L} and "
+        f"L={L_TILE}: the plain version's bits")
 
     hs = variants(h0)
     ms = time_ms(lambda x: conv_stack.conv_stack_fused_prepared(x, wts),
@@ -271,8 +314,15 @@ def kernel_stack(dev, rng, state) -> dict:
     weights = [state[f"conv{i}.{p}"] for i in range(2, 13)
                for p in ("weight", "bias")]
     weights += [state["conv_last.weight"], state["conv_last.bias"]]
-    t, by = bound(nbytes(h0, *weights) + B * L * r * 4,
-                  bf16=2.0 * B * L * (11 * 7 * 64 * 64 + 3 * 64 * r))
+    useful = 2.0 * B * L * (11 * 7 * 64 * 64 + 3 * 64 * r)
+    t, by = bound(nbytes(h0, *weights) + B * L * r * 4, bf16=useful)
+    tiles = B * len(conv_stack.tile_plan(L)[0])
+    computed = 2.0 * tiles * conv_stack.ROWS * (
+        11 * 7 * 64 * 64 + 3 * 64 * conv_stack.MAX_OUT)
+    log(f"conv_stack_fused: {tiles} tiles of {conv_stack.ROWS} rows; "
+        f"{useful / ms / 1e9:.1f} TFLOP/s on the kept positions, "
+        f"{computed / ms / 1e9:.1f} on the computed rows "
+        f"({B * L / (tiles * conv_stack.ROWS):.3f} of them kept)")
     return dict(name="conv_stack_fused", route="cuda",
                 source="stofnet_tpu_torch/csrc/conv_stack.cu",
                 replaces="stofnet_tpu/ops/pallas/conv_stack_kernel.py:137",
@@ -888,7 +938,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma")):
                 log(f"  {name}: {line.strip()}")
     log(f"card: {card()}")
     rng_new = np.random.default_rng(SEED + 2)  # this slice's phases

@@ -6,13 +6,18 @@ CUDA tensor and runs ``conv_stack_fused_reference`` on a CPU tensor. A
 server lays the weights out once (``stack_weights``) and calls
 ``conv_stack_fused_prepared`` per batch. The
 kernel keeps every intermediate activation on the chip; its design and its
-bound are in the source's header.
+bound are in the source's header. Two pieces of that design live here in
+plain Python, where the CPU tests reach them: the tile plan
+(:func:`tile_plan`, which the wrapper hands the kernel as
+:func:`launch_plan`) and the weights' shared-memory image
+(:func:`stack_weights`, undone by :func:`mid_plain`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, NamedTuple
+import functools
+from typing import List, Mapping, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,20 +31,65 @@ KMID = 7
 KLAST = 3
 MAX_OUT = 8  # conv_last outputs the kernel computes (one n8 tile)
 RESIDUAL_LAYERS = frozenset(range(3, NB - 1, 2))
+ROWS = 512  # rows of a kernel tile
+HALO = (NB - 2) * (KMID // 2) + KLAST // 2  # receptive half-width, 34
+KEEP_EDGE = ROWS - HALO  # positions kept by a tile at a sequence end, 478
+KEEP_MID = ROWS - 2 * HALO  # positions kept by any other tile, 444
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 COUNTERS = ("launches",)
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURE = {"conv_stack_launch": [
-    _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, _P]}
+    _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
+
+
+def tile_plan(length: int) -> Tuple[List[int], List[Tuple[int, int]]]:
+    """The kernel's tiles over one waveform of ``length`` positions: the
+    first position of each tile's ROWS rows, and the range [lo, hi) of
+    positions it writes. Edge tiles are anchored on the sequence ends, whose
+    zero padding is the stack's own, so they keep KEEP_EDGE positions;
+    every other tile keeps KEEP_MID, HALO from either edge. The kept ranges
+    are disjoint and cover [0, length). A waveform of at most ROWS
+    positions is one tile, its rows past the end held at zero."""
+    if length <= ROWS:
+        return [0], [(0, length)]
+    mid = max(0, -(-(length - 2 * KEEP_EDGE) // KEEP_MID))
+    starts, kept = [0], [(0, KEEP_EDGE)]
+    for j in range(mid):
+        lo = KEEP_EDGE + j * KEEP_MID
+        starts.append(lo - HALO)
+        kept.append((lo, lo + KEEP_MID))
+    starts.append(length - ROWS)
+    kept.append((KEEP_EDGE + mid * KEEP_MID, length))
+    return starts, kept
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(length: int, device: torch.device) -> torch.Tensor:
+    """:func:`tile_plan` as the kernel takes it: one int32 row (start, lo,
+    hi) per tile of a waveform, on ``device``; built once per length."""
+    starts, kept = tile_plan(length)
+    return torch.tensor([(s, lo, hi) for s, (lo, hi) in zip(starts, kept)],
+                        dtype=torch.int32, device=device)
+
+
+def _swizzle() -> torch.Tensor:
+    """Where element (n, k) of a 64 x 64 tap block lies in its flat
+    shared-memory image: rows of 64 values (128 bytes in bf16), the 16-byte
+    chunk j of row n moved to chunk j ^ (n % 8), the 128-byte swizzle
+    ``wgmma`` reads."""
+    n = torch.arange(CHANNELS)[:, None]
+    k = torch.arange(CHANNELS)[None, :]
+    return (n * CHANNELS + ((k // 8) ^ (n % 8)) * 8 + k % 8).reshape(-1)
 
 
 class StackWeights(NamedTuple):
     """conv2..conv12 and conv_last in the kernel's layout, built once per
     model by :func:`stack_weights`."""
-    mid: torch.Tensor  # (11, C, 7 C) as [layer][n][t * C + c], compute type
+    mid: torch.Tensor  # (11, 7, C * C): tap block [layer][t] of w[n][c],
+    # swizzled (_swizzle), compute type; mid_plain undoes it
     mid_bias: torch.Tensor  # (11, C) f32, rounded to the compute type
     last: torch.Tensor  # (max(r, 8), 3 C) as [n][t * C + c], rows >= r zero
     last_bias: torch.Tensor  # (max(r, 8),) f32, rounded; zero from r on
@@ -63,19 +113,37 @@ def stack_weights(state: Mapping[str, torch.Tensor], dtype: torch.dtype,
     r = state["conv_last.weight"].shape[0]
     rows = max(r, MAX_OUT)
     mid = torch.stack([lay(f"conv{i}", KMID) for i in range(2, NB)])
+    n_mid, c = mid.shape[0], CHANNELS
+    if mid.shape[1:] != (c, KMID * c):
+        raise ValueError(f"conv_stack: the stack takes {c} channels, got "
+                         f"conv2..conv12 of {tuple(mid.shape[1:])}")
+    blocks = mid.reshape(n_mid, c, KMID, c).permute(0, 2, 1, 3)
+    image = torch.empty((n_mid, KMID, c * c), dtype=dtype, device=mid.device)
+    image[:, :, _swizzle().to(mid.device)] = blocks.reshape(
+        n_mid, KMID, c * c)
     last, blast = lay("conv_last", KLAST), bias("conv_last")
     last = torch.cat([last, last.new_zeros((rows - r, last.shape[1]))])
     blast = torch.cat([blast, blast.new_zeros(rows - r)])
     return StackWeights(
-        mid.contiguous(),
+        image,
         torch.stack([bias(f"conv{i}") for i in range(2, NB)]).contiguous(),
         last.contiguous(), blast.contiguous(), r)
+
+
+def mid_plain(wts: StackWeights) -> torch.Tensor:
+    """conv2..conv12 as (11, C, 7 C) [layer][n][t * C + c]: the swizzled
+    tap blocks of ``wts.mid`` read back in order."""
+    n_mid, k, c = wts.mid.shape[0], KMID, CHANNELS
+    blocks = wts.mid[:, :, _swizzle().to(wts.mid.device)].reshape(
+        n_mid, k, c, c)
+    return blocks.permute(0, 2, 1, 3).reshape(n_mid, c, k * c)
 
 
 def _plain(h0: torch.Tensor, wts: StackWeights) -> torch.Tensor:
     """The stack as a loop of f32 convs on the kernel's layout, each
     layer's output rounded to ``h0.dtype``, conv_last returned in f32."""
     dt, c = h0.dtype, h0.shape[2]
+    mid = mid_plain(wts)
 
     def conv(x, w, b, k):  # [o][t * C + c] -> flax (K, C, O)
         kernel = w.reshape(-1, k, c).permute(1, 2, 0)
@@ -83,12 +151,12 @@ def _plain(h0: torch.Tensor, wts: StackWeights) -> torch.Tensor:
 
     h = res = res1 = h0
     for layer, i in enumerate(range(2, NB - 1)):
-        y = conv(h, wts.mid[layer], wts.mid_bias[layer], KMID)
+        y = conv(h, mid[layer], wts.mid_bias[layer], KMID)
         if i in RESIDUAL_LAYERS:
             h = res = (res.float() + y).to(dt)
         else:
             h = F.leaky_relu(y, 0.01).to(dt)
-    h = (res1.float() + conv(h, wts.mid[-1], wts.mid_bias[-1], KMID)).to(dt)
+    h = (res1.float() + conv(h, mid[-1], wts.mid_bias[-1], KMID)).to(dt)
     return conv(h, wts.last[:wts.r], wts.last_bias[:wts.r], KLAST)
 
 
@@ -131,19 +199,21 @@ def conv_stack_fused_prepared(h0: torch.Tensor,
         raise TypeError("conv_stack_fused: the CUDA kernel takes bfloat16 "
                         f"on a CUDA device, got {h0.dtype} on {h0.device} "
                         f"with weights {wts.mid.dtype} on {wts.mid.device}")
-    if (c != CHANNELS or wts.mid.shape != (NB - 2, c, KMID * c)
+    if (c != CHANNELS or wts.mid.shape != (NB - 2, KMID, c * c)
             or wts.last.shape != (MAX_OUT, KLAST * c)):
         raise ValueError("conv_stack_fused: the CUDA kernel takes 64 "
                          "channels, k7 conv2..conv12 and a k3 conv_last with "
                          f"at most {MAX_OUT} outputs")
     out = torch.empty((bsz, length, wts.r), dtype=torch.float32,
                       device=h0.device)
+    plan = launch_plan(length, h0.device)
     lib = _build.load("conv_stack", _SIGNATURE)
     err = lib.conv_stack_launch(
         h0.contiguous().data_ptr(), wts.mid.data_ptr(),
         wts.mid_bias.data_ptr(), wts.last.data_ptr(),
-        wts.last_bias.data_ptr(), out.data_ptr(), bsz, length, wts.r,
-        h0.device.index or 0, torch.cuda.current_stream(h0.device).cuda_stream)
+        wts.last_bias.data_ptr(), out.data_ptr(), plan.data_ptr(),
+        plan.shape[0], bsz, length, wts.r, h0.device.index or 0,
+        torch.cuda.current_stream(h0.device).cuda_stream)
     _build.check(lib, err, "conv_stack_fused")
     launches += 1
     return out

@@ -75,10 +75,13 @@ def test_sgb_kernel_matches_plain(cuda, batch, length, f):
 
 
 @pytest.mark.parametrize("batch,length,up", [(2, 80, 4), (1, 444, 4),
-                                             (3, 445, 1), (2, 800, 8),
-                                             (2, 8000, 4)])
+                                             (3, 445, 1), (2, 478, 4),
+                                             (2, 479, 4), (2, 800, 8),
+                                             (2, 957, 4), (2, 8000, 4)])
 def test_conv_stack_kernel_matches_plain(cuda, batch, length, up):
-    """Tiles of 444 positions: seams at tile edges and both sequence ends."""
+    """Edge tiles of 478 positions and middle tiles of 444 (tile_plan):
+    one tile up to 512, two up to 956, three from 957; the seams between
+    tiles and both sequence ends."""
     rng = np.random.default_rng(length)
     state = StofNet(upsample_factor=up, device=cuda,
                     generator=torch.Generator().manual_seed(1)).state_dict()
@@ -88,6 +91,42 @@ def test_conv_stack_kernel_matches_plain(cuda, batch, length, up):
     assert conv_stack.launches == before + 1
     assert got.dtype == torch.float32
     _close(got, conv_stack.conv_stack_fused_reference(h0, state))
+
+
+def _shift_state(up, tap_mid, tap_last, dev):
+    """Stack weights that only shift: every layer's output is its input at
+    one outermost tap (identity there, zeros elsewhere, zero biases)."""
+    state = {}
+    for i in range(2, 13):
+        w = torch.zeros(64, 64, 7, device=dev)
+        w[:, :, tap_mid] = torch.eye(64, device=dev)
+        state[f"conv{i}.weight"] = w
+        state[f"conv{i}.bias"] = torch.zeros(64, device=dev)
+    w = torch.zeros(up, 64, 3, device=dev)
+    w[:, :up, tap_last] = torch.eye(up, device=dev)
+    state["conv_last.weight"] = w
+    state["conv_last.bias"] = torch.zeros(up, device=dev)
+    return state
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("length", [300, 957, 8000])
+def test_conv_stack_kernel_sees_its_whole_halo(cuda, length, side):
+    """With weights that only shift to one side, output p sums inputs up to
+    p -/+ 34 along paths of weight 1: small integers (under 256), exact in
+    bf16 and in any order of f32 sums, so kernel and plain version agree
+    bit for bit. A tile whose halo on that side is one row short drops the
+    path to the 34th row and differs; random weights at TOL would hide it."""
+    rng = np.random.default_rng(length)
+    taps = (0, 0) if side == "left" else (6, 2)
+    state = _shift_state(4, *taps, cuda)
+    h0 = torch.from_numpy(rng.integers(1, 4, (2, length, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    got = conv_stack.conv_stack_fused(h0, state)
+    ref = conv_stack.conv_stack_fused_reference(h0, state)
+    torch.cuda.synchronize()
+    assert 0 < ref.max().item() < 256
+    assert torch.equal(got, ref), (got != ref).sum().item()
 
 
 def _clear_windows(h, w, b):

@@ -78,7 +78,9 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(rng):
 def test_prepared_weight_layouts_are_lossless(dtype):
     """The weight layouts a pipeline builds once for the kernels hold each
     weight rounded to the compute type and nothing else: [n][t * C + c]
-    rows, biases in f32, conv_last padded with zero rows to 8."""
+    rows for the SGB kernels and conv_last, the conv stack's k7 layers as
+    swizzled 64 x 64 tap blocks, biases in f32, conv_last padded with zero
+    rows to 8."""
     state = StofNet(generator=torch.Generator().manual_seed(3),
                     device="cpu").state_dict()
     name = "semi_global_block.contract_conv"
@@ -89,9 +91,19 @@ def test_prepared_weight_layouts_are_lossless(dtype):
     assert torch.equal(bias, b.to(dtype).float())
 
     wts = conv_stack.stack_weights(state, dtype)
+    assert wts.mid.shape == (11, 7, 64 * 64)
+    # tap block [layer][t]: row n holds w[n, :, t] with its 16-byte chunk j
+    # (8 channels) at chunk j ^ (n % 8)
+    n, c = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    image = n * 64 + ((c // 8) ^ (n % 8)) * 8 + c % 8
+    assert sorted(image.ravel()) == list(range(64 * 64))
     for layer, i in enumerate(range(2, 13)):
-        assert torch.equal(wts.mid[layer].reshape(64, 7, 64).permute(0, 2, 1),
-                           state[f"conv{i}.weight"].to(dtype))
+        w = state[f"conv{i}.weight"].to(dtype)
+        for t in range(7):
+            assert torch.equal(wts.mid[layer, t][torch.from_numpy(image)],
+                               w[:, :, t])
+        assert torch.equal(conv_stack.mid_plain(wts)[layer].reshape(
+            64, 7, 64).permute(0, 2, 1), w)
         assert torch.equal(wts.mid_bias[layer],
                            state[f"conv{i}.bias"].to(dtype).float())
     assert wts.r == 4 and wts.last.shape == (8, 3 * 64)
@@ -100,3 +112,63 @@ def test_prepared_weight_layouts_are_lossless(dtype):
     assert torch.equal(wts.last_bias[:4],
                        state["conv_last.bias"].to(dtype).float())
     assert not wts.last[4:].any() and not wts.last_bias[4:].any()
+
+
+@pytest.mark.parametrize("length", [80, 444, 478, 479, 512, 513, 956, 957,
+                                    2000, 8000])
+def test_conv_stack_tile_plan(length):
+    """Every position lies in exactly one kept range; a kept position has a
+    halo of rows on both sides within its tile, or lies within the halo of
+    a sequence end that its tile touches; tiles lie inside the sequence."""
+    starts, kept = conv_stack.tile_plan(length)
+    rows, halo = conv_stack.ROWS, conv_stack.HALO
+    assert halo == 34 and len(starts) == len(kept)
+    owner = np.zeros(length, np.int64)
+    for start, (lo, hi) in zip(starts, kept):
+        assert 0 <= start and lo < hi and (length <= rows
+                                           or start + rows <= length)
+        owner[lo:hi] += 1
+        p = np.arange(lo, hi)
+        left_ok = (p - start >= halo) | ((start == 0) & (p < halo))
+        right_ok = ((start + rows - 1 - p >= halo)
+                    | ((start + rows >= length) & (p >= length - halo)))
+        assert left_ok.all() and right_ok.all()
+    assert (owner == 1).all()
+    want = {8000: 18, 2000: 5, 512: 1, 513: 2, 956: 2, 957: 3}
+    assert len(starts) == want.get(length, len(starts))
+
+
+@pytest.mark.parametrize("length", [479, 513, 957, 2000, 8000])
+def test_conv_stack_tiles_stitch_to_the_whole(rng, length):
+    """The plain stack run tile by tile on the windows of the plan the
+    kernel is given (each a zero-padded sequence of its own, as the
+    kernel's buffer is) and stitched over the kept ranges equals the stack
+    over the whole sequence: f32, so the two differ by summation order
+    alone. Random weights all but erase the outermost paths of the
+    receptive field (a halo a few rows short moves the output by far less
+    than the tolerance), so every layer's outermost taps also carry an
+    identity: position p then depends on p - 34 and p + 34 with weight 1,
+    and a halo one row short fails the tolerance."""
+    state = StofNet(generator=torch.Generator().manual_seed(6),
+                    device="cpu").state_dict()
+    for name, n in [(f"conv{i}", 64) for i in range(2, 13)] + [
+            ("conv_last", 4)]:
+        w = state[f"{name}.weight"]
+        w[:, :n, 0] += torch.eye(n)
+        w[:, :n, -1] += torch.eye(n)
+    wts = conv_stack.stack_weights(state, torch.float32)
+    h0 = torch.from_numpy(rng.standard_normal((1, length, 64)).astype(
+        np.float32))
+    ref = conv_stack.conv_stack_fused_prepared(h0, wts)
+    got = torch.full_like(ref, float("nan"))
+    plan = conv_stack.launch_plan(length, torch.device("cpu"))
+    starts, kept = conv_stack.tile_plan(length)
+    assert plan.dtype == torch.int32 and plan.tolist() == [
+        [s, lo, hi] for s, (lo, hi) in zip(starts, kept)]
+    for start, lo, hi in plan.tolist():
+        window = h0[:, start:start + conv_stack.ROWS]
+        out = conv_stack.conv_stack_fused_prepared(window, wts)
+        got[:, lo:hi] = out[:, lo - start:hi - start]
+    assert torch.isfinite(got).all()
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
