@@ -15,9 +15,12 @@
    with max|kernel - plain| <= 2e-2 * max|plain|, and times the kernel, the
    plain version and one PyTorch yardstick the port never calls (CUDA
    events, a different input each launch, median of 20). The streamed SGB
-   kernel is also held at L=800 over 3 seeds, and must give the tile
-   kernel's bits on the same inputs there and at L=8000, where the tile
-   kernel is timed beside it. The conv stack is also held bit for bit to
+   kernel (``wgmma``, on the weight image of ``sgb_dma_weights``) is also
+   held at L=800 over 3 seeds, and bit for bit to its plain version on
+   spike inputs at L=800 and L (``sgb_dma.spike_inputs``: spikes at window
+   offsets 0, 1, 78, 79 and at the sequence ends, every f32 sum exact, so
+   a tap that reads one row off differs); the tile kernel is timed beside
+   it on the same inputs. The conv stack is also held bit for bit to
    its plain version at L and L_TILE with weights that only shift, to
    either side (exact small integers, so a tile whose halo is a row short
    differs), and prints its tile count and its achieved TFLOP/s on the
@@ -43,7 +46,10 @@
    the 4 batches served again under the profiler. Fails when the kernel
    path moves more rows against the plain path than twice those that the
    plain path moves between the card and the CPU (f32 summation order
-   alone), plus 4.
+   alone), plus 4. Then one batch of 128 at L_MODULE=1000 (L % 80 != 0),
+   which the pipeline serves through the ``StofNet`` module (its module
+   route): it must launch no kernel and agree with the bf16 module on
+   >= 0.99 of the coord slots.
 5. Holds the trainable SGB op's kernels against their plain versions at
    B=128, L=8000, F=512: kernel A (forward with argmax) to the tolerance
    above, its offsets equal to the plain version's wherever the plain
@@ -118,13 +124,14 @@ from stofnet_tpu_torch.ops.kernels._timing import time_ms
 from stofnet_tpu_torch.ops.conv import conv1d_same
 from stofnet_tpu_torch.ops.peaks import mask2coords
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
-from stofnet_tpu_torch.serve import make_pipeline
+from stofnet_tpu_torch.serve import make_pipeline, module_coords
 from stofnet_tpu_torch.train import (
     LossConfig, fused_loss, make_fused_train_step, make_optimizer,
 )
 
 B, L, UP = 128, 8000, 4
 L_TILE = 2000  # a serving length dma_supported refuses: the tile SGB kernel
+L_MODULE = 1000  # a serving length the fused forward does not take (L % 80)
 # the kernels each served batch launches, by length and counter
 SERVE = {L: {"sgb_dma.launches": 1, "conv_stack.launches": 1},
          L_TILE: {"sgb.launches": 1, "conv_stack.launches": 1}}
@@ -351,50 +358,60 @@ def canary(dev, rng) -> dict:
                 library_ms=time_ms(lambda v: torch.mul(v, 2), xs))
 
 
-def same_bits(name: str, streamed: torch.Tensor, h, wt, bias) -> None:
-    """The streamed kernel's output must equal the tile kernel's on the
-    same inputs bit for bit: one mainloop and epilogue (sgb_window.cuh),
-    fed by another copy."""
-    tile = sgb.sgb_contract_pool_prepared(h, wt, bias)
-    if not torch.equal(streamed, tile):
-        raise AssertionError(f"{name}: the streamed and the tile SGB kernels "
-                             f"differ in {int((streamed != tile).sum())} "
-                             f"elements on the same inputs")
-    log(f"{name}: the tile kernel's bits")
+def spike_bits(length: int, dev) -> None:
+    """The streamed kernel on ``sgb_dma.spike_inputs`` at B=128 must give
+    its plain version's bits: every f32 sum is exact there, and a tap that
+    reads one row off (a short halo, a misplaced window) moves a spike into
+    another window, which random inputs at TOL would hide."""
+    h, w, b = (torch.from_numpy(a).to(dev)
+               for a in sgb_dma.spike_inputs(B, length, seed=length))
+    h = h.to(torch.bfloat16)
+    got = sgb_dma.sgb_contract_pool_dma(h, w, b)
+    ref = sgb_dma.sgb_contract_pool_dma_reference(h, w, b)
+    torch.cuda.synchronize()
+    if not (0 < ref.float().max().item() < 32 and torch.equal(got, ref)):
+        raise AssertionError(f"sgb_contract_pool_dma: spike inputs at "
+                             f"L={length}: {int((got != ref).sum())} outputs "
+                             f"differ from the plain version")
+    log(f"sgb_contract_pool_dma: spike inputs at L={length}: the plain "
+        f"version's bits")
 
 
 def kernel_sgb_dma(dev, rng, state) -> dict:
     """The streamed SGB kernel at the main path's shapes and types, then at
     L=800 (one ring's worth of windows and a little more) over DMA_SEEDS
-    seeds, each also against the tile kernel's bits; the tile kernel timed
+    seeds, and on spike inputs at L=800 and L; the tile kernel timed
     beside it on the same inputs."""
     w, b = contract_bf16(state)
-    wt, bias = sgb.sgb_weights(w, b, torch.bfloat16)  # as fused_forward does
+    # both layouts, as fused_forward lays them out
+    image, bias = sgb_dma.sgb_dma_weights(w, b, torch.bfloat16)
+    wt, _ = sgb.sgb_weights(w, b, torch.bfloat16)
     for seed in range(DMA_SEEDS):
         h8 = torch.from_numpy(np.random.default_rng(seed).standard_normal(
             (B, 800, 64), np.float32)).to(dev, torch.bfloat16)
-        name = f"sgb_contract_pool_dma L=800 seed {seed}"
-        got = sgb_dma.sgb_contract_pool_dma_prepared(h8, wt, bias)
-        check_close(name, got, sgb_dma.sgb_contract_pool_dma_reference(
-            h8, w, b))
-        same_bits(name, got, h8, wt, bias)
+        check_close(f"sgb_contract_pool_dma L=800 seed {seed}",
+                    sgb_dma.sgb_contract_pool_dma_prepared(h8, image, bias),
+                    sgb_dma.sgb_contract_pool_dma_reference(h8, w, b))
+    for length in (800, L):
+        spike_bits(length, dev)
     h = torch.from_numpy(rng.standard_normal((B, L, 64), np.float32)).to(
         dev, torch.bfloat16)
-    got = sgb_dma.sgb_contract_pool_dma_prepared(h, wt, bias)
+    got = sgb_dma.sgb_contract_pool_dma_prepared(h, image, bias)
     err = check_close("sgb_contract_pool_dma", got,
                       sgb_dma.sgb_contract_pool_dma_reference(h, w, b))
-    same_bits("sgb_contract_pool_dma", got, h, wt, bias)
 
     hs = variants(h)
     ms = time_ms(lambda x: sgb_dma.sgb_contract_pool_dma_prepared(
-        x, wt, bias), [(x,) for x in hs])
+        x, image, bias), [(x,) for x in hs])
     tile_ms = time_ms(lambda x: sgb.sgb_contract_pool_prepared(x, wt, bias),
                       [(x,) for x in hs])
     plain_ms = time_ms(lambda x: sgb_dma.sgb_contract_pool_dma_reference(
         x, w, b), [(x,) for x in hs])
-    log(f"sgb_contract_pool_dma: {ms:.4f} ms; the tile kernel on the same "
-        f"inputs: {tile_ms:.4f} ms")
     t, by = sgb_bound(h, w, b)
+    flop = 2.0 * B * L * w.shape[0] * w.shape[1] * w.shape[2]
+    log(f"sgb_contract_pool_dma: {ms:.4f} ms, {flop / ms / 1e9:.1f} TFLOP/s "
+        f"({t / ms:.3f} of the bound); the tile kernel on the same inputs: "
+        f"{tile_ms:.4f} ms")
     return dict(name="sgb_contract_pool_dma", route="cuda",
                 source="stofnet_tpu_torch/csrc/sgb_contract_pool_dma.cu",
                 replaces="stofnet_tpu/ops/pallas/sgb_dma_kernel.py:158",
@@ -491,6 +508,7 @@ def main_path(dev, state, rng) -> dict:
                 "sgb_contract_pool": c["sgb.launches"],
                 "conv_stack_fused": c["conv_stack.launches"]}
     log(f"main path launches: {json.dumps(launches)}")
+    module_route(dev, state, pipe, run, rng)
 
     params = {k: v.to(dev) for k, v in state.items()}
     for length, (got, batch_ms) in served.items():
@@ -525,6 +543,27 @@ def main_path(dev, state, rng) -> dict:
         prof["idle_share_derived"] = 1.0 - prof["device_busy_ms"] / ms
         log(f"{name} profile: {json.dumps(prof)}")
     return launches
+
+
+def module_route(dev, state, pipe, run, rng) -> None:
+    """One batch at L_MODULE through the main pipeline: its module route,
+    which launches no kernel (serve_timed holds every counter still) and
+    must agree with the bf16 StofNet module on >= AGREE_MIN of the coord
+    slots."""
+    x = gate_batch(B, L_MODULE, rng)
+    before = pipe.calls["module"]
+    got, batch_ms = serve_timed(f"main path L={L_MODULE}", run, [x], {})
+    ref = torch.from_numpy(module_coords(
+        state, {"upsample_factor": UP}, x, torch.bfloat16, dev,
+        window_size=DECODE["window_size"], threshold=DECODE["threshold"],
+        max_echoes=DECODE["max_echoes"]))
+    agree = coord_agreement(got, ref)
+    out = dict(route_calls=pipe.calls["module"] - before,
+               coord_agreement_module_bf16=agree, ms=batch_ms[0])
+    log(f"main path L={L_MODULE}: {json.dumps(out)}")
+    if out["route_calls"] != 1 or agree < AGREE_MIN:
+        raise AssertionError(f"main path L={L_MODULE}: {out}, not one module "
+                             f"call at >= {AGREE_MIN} of the slots")
 
 
 def bench_paths(dev, state, rng) -> dict:

@@ -69,7 +69,7 @@
 // Shared memory: ring 81,920 B + 2 x 66,560 B + barriers, 216,144 B with
 // the 1,024 B that align the ring.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -97,39 +97,6 @@ constexpr int SMEM = 1024 + SMEM_RING + 2 * SMEM_X + SMEM_BAR;  // 216,144 B
 // byte offset of 16-byte chunk j of row i in a 1,024-byte aligned buffer of
 // 128-byte rows in the 128-byte swizzle (the layout wgmma reads)
 __device__ __forceinline__ int swz(int i, int j) { return i * ROW + ((j ^ (i & 7)) << 4); }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-
-// spin until the phase of `bar` with this parity has completed (the loop
-// stays inside the asm: a C++ loop around try_wait is a divergent path to
-// the compiler, which then serializes the wgmma that follow)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
-// one bulk copy of `bytes` from device memory into shared memory, counted
-// on `bar` (which this thread's arrival arms with the byte count)
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
-                                          uint64_t* bar) {
-  const uint32_t b = smem_u32(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-               "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(b)
-      : "memory");
-}
 
 __device__ __forceinline__ void block_sync() {
   asm volatile("bar.sync 0;\n" ::: "memory");
@@ -165,33 +132,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-// descriptor of 128-byte activation rows from row `i` of a buffer at shared
-// address `base` (1,024-byte aligned): K-major, 128-byte swizzle, 8-row
-// groups 1,024 B apart; + 2 steps K by 16 (32 bytes). The card applies the
-// swizzle to absolute shared addresses, so a start at any row needs no base
-// offset (a base offset of (start >> 7) & 7 reads the wrong chunks).
-__device__ __forceinline__ uint64_t rows_desc(uint32_t base, int i) {
-  const uint32_t a = base + i * ROW;
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of the accumulator across
-// the asynchronous wgmma's issue and wait
-__device__ __forceinline__ void acc_fence(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 output channels x 128 positions, f32) += a (64 x 16 bf16 of a tap

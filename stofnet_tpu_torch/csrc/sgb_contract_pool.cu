@@ -22,8 +22,8 @@
 // (exact: leaky is monotone). Rows of 72 bf16 (input) and 328 bf16 (weights)
 // keep the fragment loads free of bank conflicts. No cp.async, TMA or wgmma
 // yet: this is the simple first version. The mainloop and the pooled epilogue
-// live in sgb_window.cuh, shared with the streamed kernel
-// (sgb_contract_pool_dma.cu), which feeds them through a cp.async ring.
+// live in sgb_window.cuh; they serve this kernel and kernel A only (the
+// streamed kernel, sgb_contract_pool_dma.cu, runs on wgmma).
 //
 // Kernel A, the forward of the trainable op (replaces _run(with_argmax=True)
 // of sgb_kernel.py, reached from sgb_contract_pool_trainable's _trainable_fwd):

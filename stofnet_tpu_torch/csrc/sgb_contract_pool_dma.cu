@@ -4,115 +4,267 @@
 // Replaces the TPU kernel stofnet_tpu/ops/pallas/sgb_dma_kernel.py:
 // sgb_contract_pool_dma (_kernel), whose point is an explicit double-buffered
 // copy of the input from device memory (pltpu.make_async_copy with
-// semaphores). h (B, L, 64) bf16 with L % 800 == 0, weights (F, 320) bf16 as
-// [n][t*64 + c], bias (F,) f32 -> out (B, L/80, F) bf16. The function is the
-// tile kernel's (sgb_contract_pool.cu); only the way the input arrives
-// differs.
+// semaphores). h (B, L, 64) bf16 with L % 800 == 0, weights bf16 in the
+// image of ops/kernels/sgb_dma.py:sgb_dma_weights, bias (F,) f32 -> out
+// (B, L/80, F) bf16. The function is the tile kernel's
+// (sgb_contract_pool.cu): f32 sums, the bias added after the window max
+// (exact: rounding is monotone), leaky after the pool, one rounding to bf16.
 //
-// Bound on the H100: operations, as the tile kernel's. At B=128, L=8000,
-// F=512 the direct conv is 3.36e11 FLOP (0.339 ms at 989 TFLOP/s bf16),
-// against 131 MB read and 13 MB written (0.04 ms at 3.35 TB/s).
+// Bound on the H100: operations. At B=128, L=8000, F=512 the direct conv is
+// 3.36e11 FLOP (0.339 ms at 989 TFLOP/s bf16), against 131 MB read and
+// 13 MB written (0.04 ms at 3.35 TB/s).
 //
-// Design: one CTA per (waveform, 128-channel slice), as the TPU grid gives
-// one program per waveform. The CTA keeps its weight slice in shared memory
-// for its life and walks the waveform's L/80 pool windows, two at a time,
-// through a ring of STAGES input stages. Each stage is filled with
-// cp.async.cg 16-byte copies (one commit group per stage); rows outside
-// [0, L) are zero-filled by the copy itself (source size 0), which is the
-// SAME conv's zero padding. At step s the CTA waits for stage s's group,
-// synchronises (every thread's copies are visible, and every warp is done
-// with stage s-1), issues the copies of stage s + STAGES - 1 into the slot
-// that stage s-1 held, then runs the tile kernel's mma.sync mainloop and
-// pooled epilogue (sgb_window.cuh) on stage s. The weight slice is copied
-// with the first stage's group.
+// Design: the conv stack's wgmma recipe (conv_stack.cu) with its roles.
+// - One CTA per (waveform, 128-channel slice), as the TPU grid gives one
+//   program per waveform: 512 CTAs at B=128, F=512, one an SM (shared
+//   memory), 3.9 waves over 132 SMs. Two consumer warpgroups own 64 output
+//   channels each; a ninth warp issues the copies.
+// - The product of a tile of two pool windows (160 positions): D (64
+//   channels x 160 positions, 80 f32 accumulators a thread) = A (a tap
+//   block's 64 channels x 16 input channels) x B (16 input channels x 160
+//   positions), wgmma.m64n160k16, 5 taps x 4 k-steps in one commit group.
+//   B is read through a descriptor on the staged input, 128-byte rows (64
+//   bf16, one position each) in the 128-byte swizzle, starting at row t for
+//   tap t and stepped along K by 32 bytes (rows_desc): output position p
+//   reads input p + t - 2, and no im2col copy is made.
+// - The weights: the CTA's slice lives in shared memory for its life as
+//   2 halves x 5 taps of 64 x 64 swizzled blocks (80 KB), laid out once on
+//   the host (sgb_dma_weights) and brought in by ten 1-D bulk copies on one
+//   mbarrier. A comes through a descriptor on its tap block too (both
+//   operands from shared memory): no thread loads a weight, and the 20
+//   products of a tile go out as one commit group with no wait between
+//   taps. The whole 64 x 320 slice of a warpgroup as register fragments
+//   (80 registers a thread) took ptxas to 168 registers with spills and
+//   serialized wgmma (C7512), and ran slower (PERF.md).
+// - The input ring: STAGES slots of 164 rows (160 positions and the 2-row
+//   halo on each side, not duplicated between the two windows), each filled
+//   by one 3-D TMA copy over the (64, L, B) tensor in the 128-byte swizzle;
+//   rows at -2, -1 and >= L are outside the tensor and arrive as zeros, the
+//   SAME conv's padding. A full barrier a slot (the copy's bytes) and an
+//   empty barrier a slot (one arrival a warpgroup once its wgmma are done)
+//   let the two warpgroups run a tile apart, so one's epilogue overlaps the
+//   other's products. The copy warp needs no registers to speak of: nine
+//   warps leave each thread up to 224 (the conv stack's 17th warp capped
+//   its 512 threads at 96).
+// - The pooled epilogue in registers: for window w a thread holds the n8
+//   groups 10w..10w+9, two columns each, on rows g and g+8 of its warp's
+//   16; it takes the max of its 20 values per row, then across the quad
+//   (shuffles xor 1, 2); the lane whose column pair is 2w + m adds the bias
+//   to row g + 8m, applies leaky and stores one bf16. No pre-pool value
+//   leaves the registers.
+// Shared memory: 80 KB of weights + 4 x 21 KB stages + barriers, 169,032 B
+// with the 1,024 B that align the swizzled buffers.
 //
-// Not carried over from the TPU kernel: the pair-packed 128-lane rows, the
-// 16-row output blocks and the 800-sample chunk (the TPU's lane and sublane
-// rules). A chunk of 804 rows x 64 bf16 is 103 KB, and two of them plus the
-// weight slice would not fit in a block's 227 KB of shared memory.
-//
-// Shared memory: the weight slice 128 x 328 bf16 = 83,968 B; a stage is two
-// windows of 84 rows x 72 bf16 = 24,192 B; three stages 72,576 B; in all
-// 156,544 B, so one CTA (8 warps) per SM. At B=128, F=512: 512 CTAs, 3.9
-// waves over 132 SMs.
+// This replaces the first design (the tile kernel's mma.sync mainloop,
+// sgb_window.cuh, fed with 32-bit shared loads: 23 FLOP a byte of shared
+// memory): a k16 step of a warpgroup here reads 2 KB of A and 5 KB of B for
+// 327 kFLOP, 47 FLOP a byte, within the SM's shared-memory rate at the
+// tensor cores' peak. What is left above the bound is the tail of the last
+// of the 3.9 waves and each tile's epilogue, which the other warpgroup's
+// products cover.
 
-#include "sgb_window.cuh"
+#include <cuda.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace sgb;
+constexpr int C = 64;                 // input channels
+constexpr int K = 5;                  // taps
+constexpr int PAD = K / 2;            // SAME padding of a k5 conv
+constexpr int POOL = 80;              // pool window
+constexpr int WINDOWS = 2;            // pool windows of a tile
+constexpr int NP = WINDOWS * POOL;    // positions of a tile, wgmma N = 160
+constexpr int N_SUB = NP / 8;         // n8 groups of an accumulator, 20
+constexpr int ROWS = NP + K - 1;      // staged input rows of a tile, 164
+constexpr int ROW = C * 2;            // bytes of an input row, 128
+constexpr int N_TILE = 128;           // output channels of a CTA
+constexpr int GROUP = 64;             // output channels of a warpgroup
+constexpr int HALVES = N_TILE / GROUP;
+constexpr int THREADS = 32 * (4 * HALVES + 1);  // two warpgroups, the copy warp
+constexpr int COPY_WARP = 4 * HALVES;
+constexpr int STAGES = 4;             // input ring slots
+constexpr int TAP_BYTES = GROUP * C * 2;                  // 8,192
+constexpr int SMEM_W = HALVES * K * TAP_BYTES;            // 81,920
+constexpr int STAGE_BYTES = ROWS * ROW;                   // 20,992
+constexpr int STAGE_STRIDE = (STAGE_BYTES + 1023) / 1024 * 1024;  // 21,504
+constexpr int SMEM_BAR = (2 * STAGES + 1) * 8;
+constexpr int SMEM = 1024 + SMEM_W + STAGES * STAGE_STRIDE + SMEM_BAR;  // 169,032
 
-constexpr int STAGES = 3;
-constexpr int SMEM = SMEM_W + STAGES * SMEM_TILE;  // 156,544 B
+// rows [p, p + ROWS) of waveform b, all 64 channels, into `dst` (1,024-byte
+// aligned) in the 128-byte swizzle by one TMA copy counted on `bar`; rows
+// outside [0, L) arrive as zeros
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, int p,
+                                         int b, uint64_t* bar) {
+  const uint32_t mb = smem_u32(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mb),
+               "r"(STAGE_BYTES) : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(p), "r"(b), "r"(mb)
+      : "memory");
+}
+
+// d (64 output channels x 160 positions, f32) += a (64 x 16 bf16 of a tap
+// block, through its descriptor) * b (16 channels x 160 positions, the
+// descriptor's rows)
+__device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(1));
+}
 
 __global__ void __launch_bounds__(THREADS, 1)
-sgb_contract_pool_dma_kernel(const __nv_bfloat16* __restrict__ h,   // (B, L, 64)
-                             const __nv_bfloat16* __restrict__ wt,  // (F, 320)
-                             const float* __restrict__ bias,        // (F,)
-                             __nv_bfloat16* __restrict__ out,       // (B, L/80, F)
+sgb_contract_pool_dma_kernel(const __grid_constant__ CUtensorMap hmap,  // h as (64, L, B)
+                             const __nv_bfloat16* __restrict__ wimg,  // (F/64, 5, 64 x 64)
+                             const float* __restrict__ bias,          // (F,)
+                             __nv_bfloat16* __restrict__ out,         // (B, L/80, F)
                              int L, int F, float slope) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_W);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzled buffers on 1,024-byte boundaries: the 128-byte swizzle is
+  // laid on absolute shared addresses
+  unsigned char* ws = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* xs = ws + SMEM_W;
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + STAGES * STAGE_STRIDE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* wbar = empty + STAGES;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;  // fragment row group, column pair
-  const int wm = warp >> 2;                // window slot of this warp
-  const int wn = warp & 3;                 // 32-channel slice of this warp
-  const int n0 = blockIdx.x * N_TILE;
   const int b = blockIdx.y;
-  const int W = L / POOL;                  // windows of this waveform, even
-  const int n_tiles = W / WINDOWS;
-  const __nv_bfloat16* hb = h + (size_t)b * L * C;
+  const int n_tiles = L / NP;
 
-  // stage `tile` into ring slot `slot`: two windows of 84 rows x 8 x 16 B
-  auto issue = [&](int tile, int slot) {
-    __nv_bfloat16* dst = xs + slot * (WINDOWS * ROWS * IN_STRIDE);
-    for (int i = tid; i < WINDOWS * ROWS * (C / 8); i += THREADS) {
-      const int w = i / (ROWS * (C / 8));
-      const int rem = i % (ROWS * (C / 8));
-      const int r = rem / (C / 8), v = rem % (C / 8);
-      const int p = (tile * WINDOWS + w) * POOL - PAD + r;
-      const bool in = p >= 0 && p < L;
-      cp_async16(dst + (w * ROWS + r) * IN_STRIDE + v * 8,
-                 hb + (size_t)(in ? p : 0) * C + v * 8, in ? 16 : 0);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], HALVES);
     }
-  };
-
-  // the weight slice (128 rows of 40 x 16 B) joins stage 0's group
-  for (int i = tid; i < N_TILE * (KC / 8); i += THREADS) {
-    const int r = i / (KC / 8), v = i % (KC / 8);
-    cp_async16(ws + r * W_STRIDE + v * 8, wt + (size_t)(n0 + r) * KC + v * 8);
+    mbar_init(wbar, HALVES * K);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_tiles) issue(s, s);
-    cp_async_commit();  // one group per stage, empty ones included
+  __syncthreads();
+
+  if (warp == COPY_WARP) {
+    // the weight slice, then the input tiles, slot s refilled once both
+    // warpgroups have released it
+    if (lane == 0) {
+      const __nv_bfloat16* wsrc = wimg + (size_t)blockIdx.x * (SMEM_W / 2);
+      for (int i = 0; i < HALVES * K; ++i)
+        bulk_load(ws + i * TAP_BYTES, wsrc + i * (TAP_BYTES / 2), TAP_BYTES, wbar);
+      for (int tile = 0; tile < n_tiles; ++tile) {
+        const int s = tile % STAGES;
+        if (tile >= STAGES) mbar_wait(&empty[s], (tile / STAGES - 1) & 1);
+        tma_rows(xs + s * STAGE_STRIDE, &hmap, tile * NP - PAD, b, &full[s]);
+      }
+    }
+    return;
   }
 
-  const __nv_bfloat16* wb = ws + (wn * 32) * W_STRIDE;
+  // warpgroup wg computes output channels [64 wg, 64 wg + 64) of the
+  // slice; its warp wq the rows [16 wq, 16 wq + 16), the accumulator's
+  // layout: d[4j + 2m + e] is channel g + 8m, position 8j + 2tq + e
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, tq = lane & 3;
+  const int ch = blockIdx.x * N_TILE + wg * GROUP + wq * 16 + g;
+  const float bias0 = bias[ch], bias1 = bias[ch + 8];
+  const uint32_t w0 = smem_u32(ws + wg * K * TAP_BYTES), x0 = smem_u32(xs);
+  const int W = L / POOL;
+
+  mbar_wait(wbar, 0);
   for (int tile = 0; tile < n_tiles; ++tile) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of stage `tile` landed
-    __syncthreads();              // everyone's did; slot (tile - 1) % STAGES is free
-    const int next = tile + STAGES - 1;
-    if (next < n_tiles) issue(next, next % STAGES);
-    cp_async_commit();
+    const int s = tile % STAGES;
+    mbar_wait(&full[s], (tile / STAGES) & 1);
+    float acc[4 * N_SUB];
+#pragma unroll
+    for (int i = 0; i < 4 * N_SUB; ++i) acc[i] = 0.f;
+    acc_fence(acc);
+    wg_fence();
+    const uint32_t xb = x0 + s * STAGE_STRIDE;
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      const uint64_t bd = rows_desc(xb, t);
+      const uint64_t ad = rows_desc(w0 + t * TAP_BYTES, 0);
+#pragma unroll
+      for (int k = 0; k < C / 16; ++k) wgmma_ss(acc, ad + 2 * k, bd + 2 * k);
+    }
+    wg_commit();
+    wg_wait_all();
+    acc_fence(acc);
+    if ((tid & 127) == 0) mbar_arrive(&empty[s]);
 
-    const __nv_bfloat16* xw =
-        xs + (tile % STAGES) * (WINDOWS * ROWS * IN_STRIDE) + wm * ROWS * IN_STRIDE;
-    float acc[M_TILES][N_SUB][4] = {};
-    window_mma(acc, xw, wb, g, tq);
-    float mx[N_SUB][2];
-    window_max(acc, mx);
-    const size_t row = (size_t)b * W + tile * WINDOWS + wm;
-    store_pooled(out + row * F, bias, mx, n0 + wn * 32, g, tq, slope);
+    const size_t row0 = (size_t)b * W + tile * WINDOWS;
+#pragma unroll
+    for (int w = 0; w < WINDOWS; ++w)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        constexpr int J = N_SUB / WINDOWS;
+        float mx = fmaxf(acc[4 * J * w + 2 * m], acc[4 * J * w + 2 * m + 1]);
+#pragma unroll
+        for (int j = J * w + 1; j < J * (w + 1); ++j)
+          mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * m], acc[4 * j + 2 * m + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        if (tq == 2 * w + m) {
+          float v = mx + (m ? bias1 : bias0);
+          v = v >= 0.f ? v : slope * v;
+          out[(row0 + w) * F + ch + 8 * m] = __float2bfloat16_rn(v);
+        }
+      }
   }
-  cp_async_wait<0>();  // no copy outlives the block (the tail groups are empty)
+}
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime's entry-point
+// query, so the library links nothing beyond the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (!found) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || !p) return cudaErrorSymbolNotFound;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int sgb_contract_pool_dma_launch(const void* h, const void* wt, const void* bias,
+extern "C" int sgb_contract_pool_dma_launch(const void* h, const void* wimg, const void* bias,
                                             void* out, int B, int L, int F, float slope,
                                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -121,9 +273,22 @@ extern "C" int sgb_contract_pool_dma_launch(const void* h, const void* wt, const
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   if (B > 65535) return cudaErrorInvalidValue;  // one grid row per waveform
+  EncodeTiled encode;
+  err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  // h as a (64, L, B) tensor of bf16; a box of 64 x ROWS x 1 is one stage
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {C, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {ROW, (cuuint64_t)L * ROW};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {C, ROWS, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(h), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
   dim3 grid(F / N_TILE, B);
   sgb_contract_pool_dma_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)h, (const __nv_bfloat16*)wt, (const float*)bias,
-      (__nv_bfloat16*)out, L, F, slope);
+      map, (const __nv_bfloat16*)wimg, (const float*)bias, (__nv_bfloat16*)out, L, F, slope);
   return cudaGetLastError();
 }

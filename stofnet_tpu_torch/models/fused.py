@@ -18,11 +18,20 @@ differentiated function, so the gradients come back in f32.
 
 The SGB kernel is the streamed one (``ops/kernels/sgb_dma.py``) where
 ``dma_supported`` takes the shape and the tile kernel
-(``ops/kernels/sgb.py``) elsewhere, chosen by shape before any launch: the
-two give the same bits where both run, and the streamed one is the faster
-on the card (PERF.md).
+(``ops/kernels/sgb.py``) elsewhere, chosen by shape before any launch. The
+two take different weight layouts, both laid out once per forward, and
+compute the same function with f32 sums in different orders; the
+streamed one is the faster on the card (PERF.md).
 ``sgb_impl="tile"`` runs the tile kernel at every shape: the JAX function's
 default, kept for parity with it.
+
+Every SGB kernel and its plain version pool a fixed 80 samples, so the
+fused forward (``stofnet_apply_fused``, ``fused_forward`` with or without
+``trainable``, ``stofnet_apply_reference``) raises ValueError for a
+``semi_global_scale`` other than 1 (no SemiGlobalBlock) or 80. This
+departs from the JAX function, which pools 80 and repeats by the scale,
+serving another function without an error; ``serve.make_pipeline`` runs
+the ``StofNet`` module for such a checkpoint.
 
 ``stofnet_apply_packed`` is the position-packed forward (plain PyTorch,
 ``ops/packed_conv.py``): the same math, no kernel.
@@ -40,11 +49,11 @@ from stofnet_tpu_torch.ops.kernels.conv_stack import (
     NB, conv_stack_fused_prepared, conv_stack_fused_reference, stack_weights,
 )
 from stofnet_tpu_torch.ops.kernels.sgb import (
-    sgb_contract_pool_prepared, sgb_contract_pool_reference,
+    CHANNELS, POOL, sgb_contract_pool_prepared, sgb_contract_pool_reference,
     sgb_contract_pool_trainable, sgb_weights,
 )
 from stofnet_tpu_torch.ops.kernels.sgb_dma import (
-    dma_supported, sgb_contract_pool_dma_prepared,
+    dma_supported, sgb_contract_pool_dma_prepared, sgb_dma_weights,
 )
 from stofnet_tpu_torch.ops.packed_conv import (
     conv1d_blocked, conv1d_same_packed,
@@ -53,6 +62,7 @@ from stofnet_tpu_torch.ops.shuffle import sample_shuffle
 
 CONTRACT = "semi_global_block.contract_conv"
 SGB_IMPLS = ("tile", "dma")
+FUSED_SCALES = (1, POOL)  # the semi_global_scale values the forward computes
 
 
 def stofnet_apply_fused(
@@ -77,7 +87,8 @@ def stofnet_apply_fused(
     ``fused_stack=False``. ``sgb_impl`` picks the contract path's kernel:
     ``"dma"`` the streamed kernel where ``dma_supported`` takes (L, 64) and
     the tile kernel elsewhere, ``"tile"`` the tile kernel at every shape;
-    ``trainable`` comes first.
+    ``trainable`` comes first. Raises ValueError for a
+    ``semi_global_scale`` other than 1 or 80 (module docstring).
     """
     return fused_forward(state, upsample_factor, num_blocks,
                          semi_global_scale, dtype, fused_stack, trainable,
@@ -95,13 +106,16 @@ def fused_forward(
     sgb_impl: str = "dma",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """:func:`stofnet_apply_fused` as a callable of ``x`` that lays the
-    kernels' weights out once (``sgb_weights``, ``stack_weights``), on the
-    state's device: the forward a server closes over. With ``trainable``
-    nothing is laid out ahead: the weights change every step. Both SGB
-    kernels take the one layout, and ``sgb_impl="dma"`` picks between them
-    by the shape of each call's features, before any launch, so one
-    pipeline serves every length."""
+    kernels' weights out once, on the state's device: the forward a server
+    closes over. With ``trainable`` nothing is laid out ahead: the weights
+    change every step. ``sgb_impl="dma"`` picks the SGB kernel by the shape
+    of each call's features, before any launch, so one pipeline serves
+    every length; the two kernels take different layouts, so both are laid
+    out here (``sgb_weights`` for the tile kernel, ``sgb_dma_weights`` for
+    the streamed one where the features have its 64 channels), with
+    ``stack_weights`` for the conv stack."""
     _check_sgb_impl(sgb_impl)
+    _check_scale(semi_global_scale)
     if trainable:
         def sgb_train(h):
             return sgb_contract_pool_trainable(h, *_kernel_and_bias(
@@ -114,11 +128,14 @@ def fused_forward(
     dt = torch.float32 if dtype is None else dtype
     sgb = stack = None
     if semi_global_scale != 1:
-        wt, bias = sgb_weights(*_kernel_and_bias(state, CONTRACT), dt)
+        kernel, b = _kernel_and_bias(state, CONTRACT)
+        wt, bias = sgb_weights(kernel, b, dt)
+        image = (sgb_dma_weights(kernel, b, dt)[0] if sgb_impl == "dma"
+                 and kernel.shape[1] == CHANNELS else None)
 
         def sgb(h):
-            if sgb_impl == "dma" and dma_supported(h.shape[1], h.shape[2]):
-                return sgb_contract_pool_dma_prepared(h, wt, bias)
+            if image is not None and dma_supported(h.shape[1], h.shape[2]):
+                return sgb_contract_pool_dma_prepared(h, image, bias)
             return sgb_contract_pool_prepared(h, wt, bias)
     if fused_stack and num_blocks == NB:
         wts = stack_weights(state, dt)
@@ -148,8 +165,10 @@ def stofnet_apply_reference(
     differ only by the order of f32 sums. The plain path the card's
     kernel path is held against; ``trainable`` runs the plain versions of
     kernels A and B. Both SGB kernels have the one plain version, so
-    ``sgb_impl`` is only checked."""
+    ``sgb_impl`` is only checked; ``semi_global_scale`` is refused as
+    there."""
     _check_sgb_impl(sgb_impl)
+    _check_scale(semi_global_scale)
 
     def sgb(h):
         if trainable:
@@ -232,6 +251,14 @@ def stofnet_apply_packed(
 def _check_sgb_impl(sgb_impl):
     if sgb_impl not in SGB_IMPLS:
         raise ValueError(f"sgb_impl={sgb_impl!r}, not one of {SGB_IMPLS}")
+
+
+def _check_scale(semi_global_scale):
+    if semi_global_scale not in FUSED_SCALES:
+        raise ValueError(f"semi_global_scale={semi_global_scale}: the SGB "
+                         f"kernels pool a fixed {POOL} samples, so the fused "
+                         f"forward computes only {FUSED_SCALES} (serve the "
+                         f"StofNet module for any other)")
 
 
 def _kernel_and_bias(state, name):

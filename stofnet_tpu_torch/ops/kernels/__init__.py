@@ -4,7 +4,8 @@ and the two kernels of ``scripts/dma_probe.py``).
 Each kernel module holds the wrapper, its plain PyTorch version, one
 launch counter per kernel (named in its ``COUNTERS``) and the layout of
 its weights that a pipeline builds once (``sgb_weights``,
-``stack_weights``) for the wrapper's ``*_prepared`` form. A wrapper given a CPU tensor runs the plain
+``sgb_dma_weights``, ``stack_weights``) for the wrapper's ``*_prepared``
+form. A wrapper given a CPU tensor runs the plain
 version; given a CUDA tensor it launches the kernel or raises.
 """
 

@@ -75,21 +75,24 @@ def launch_plan(length: int, device: torch.device) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
-def _swizzle() -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def tap_block_index(device: torch.device) -> torch.Tensor:
     """Where element (n, k) of a 64 x 64 tap block lies in its flat
     shared-memory image: rows of 64 values (128 bytes in bf16), the 16-byte
     chunk j of row n moved to chunk j ^ (n % 8), the 128-byte swizzle
-    ``wgmma`` reads."""
+    ``wgmma`` reads. Built once per device: a forward that lays its
+    weights out per call copies no index to the card."""
     n = torch.arange(CHANNELS)[:, None]
     k = torch.arange(CHANNELS)[None, :]
-    return (n * CHANNELS + ((k // 8) ^ (n % 8)) * 8 + k % 8).reshape(-1)
+    return (n * CHANNELS + ((k // 8) ^ (n % 8)) * 8 + k % 8).reshape(-1).to(
+        device)
 
 
 class StackWeights(NamedTuple):
     """conv2..conv12 and conv_last in the kernel's layout, built once per
     model by :func:`stack_weights`."""
     mid: torch.Tensor  # (11, 7, C * C): tap block [layer][t] of w[n][c],
-    # swizzled (_swizzle), compute type; mid_plain undoes it
+    # swizzled (tap_block_index), compute type; mid_plain undoes it
     mid_bias: torch.Tensor  # (11, C) f32, rounded to the compute type
     last: torch.Tensor  # (max(r, 8), 3 C) as [n][t * C + c], rows >= r zero
     last_bias: torch.Tensor  # (max(r, 8),) f32, rounded; zero from r on
@@ -119,7 +122,7 @@ def stack_weights(state: Mapping[str, torch.Tensor], dtype: torch.dtype,
                          f"conv2..conv12 of {tuple(mid.shape[1:])}")
     blocks = mid.reshape(n_mid, c, KMID, c).permute(0, 2, 1, 3)
     image = torch.empty((n_mid, KMID, c * c), dtype=dtype, device=mid.device)
-    image[:, :, _swizzle().to(mid.device)] = blocks.reshape(
+    image[:, :, tap_block_index(mid.device)] = blocks.reshape(
         n_mid, KMID, c * c)
     last, blast = lay("conv_last", KLAST), bias("conv_last")
     last = torch.cat([last, last.new_zeros((rows - r, last.shape[1]))])
@@ -134,7 +137,7 @@ def mid_plain(wts: StackWeights) -> torch.Tensor:
     """conv2..conv12 as (11, C, 7 C) [layer][n][t * C + c]: the swizzled
     tap blocks of ``wts.mid`` read back in order."""
     n_mid, k, c = wts.mid.shape[0], KMID, CHANNELS
-    blocks = wts.mid[:, :, _swizzle().to(wts.mid.device)].reshape(
+    blocks = wts.mid[:, :, tap_block_index(wts.mid.device)].reshape(
         n_mid, k, c, c)
     return blocks.permute(0, 2, 1, 3).reshape(n_mid, c, k * c)
 

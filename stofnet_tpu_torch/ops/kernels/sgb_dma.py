@@ -6,23 +6,27 @@ The same function as ``sgb.sgb_contract_pool``, for the shapes of
 :func:`dma_supported`. ``sgb_contract_pool_dma`` launches the CUDA kernel
 ``csrc/sgb_contract_pool_dma.cu`` on a CUDA tensor and runs
 ``sgb_contract_pool_dma_reference`` on a CPU tensor. A server lays the
-weights out once with ``sgb.sgb_weights`` (the layout both SGB kernels
-take) and calls ``sgb_contract_pool_dma_prepared`` per batch. The kernel's
-design and bound are in the source's header.
+weights out once with :func:`sgb_dma_weights` (the kernel's shared-memory
+image of them, undone by :func:`dma_weights_plain`) and calls
+``sgb_contract_pool_dma_prepared`` per batch. The kernel's design and
+bound are in the source's header.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from stofnet_tpu_torch.ops.kernels import _build
+from stofnet_tpu_torch.ops.kernels.conv_stack import tap_block_index
 from stofnet_tpu_torch.ops.kernels.sgb import (
-    CHANNELS, KSIZE, N_TILE, POOL, sgb_contract_pool_reference, sgb_weights,
+    CHANNELS, KSIZE, N_TILE, POOL, sgb_contract_pool_reference,
 )
 
 CHUNK = 800  # samples: the JAX kernel's chunk, 10 pool windows
+GROUP = 64  # output channels of one tap block (one warpgroup's rows)
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 COUNTERS = ("launches",)
@@ -40,6 +44,63 @@ def dma_supported(length: int, channels: int) -> bool:
     return length % CHUNK == 0 and length >= CHUNK and channels == CHANNELS
 
 
+def sgb_dma_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
+    """The streamed kernel's layout of the contract conv, built once per
+    model: w (5, 64, F) -> (F / 64, 5, 64 * 64) in ``dtype``, for each
+    group of 64 output channels and each tap the 64 x 64 block [n][c] in
+    the 128-byte swizzle (``conv_stack.tap_block_index``, the conv stack's
+    tap-block image), so a CTA's 128 channels are one run of 80 KB that
+    bulk copies bring into shared memory as ``wgmma`` reads it; b rounded
+    to ``dtype`` and held in f32."""
+    k, c, f = w.shape
+    if k != KSIZE or c != CHANNELS or f % GROUP or b.shape != (f,):
+        raise ValueError(f"sgb_dma_weights: w {tuple(w.shape)}, b "
+                         f"{tuple(b.shape)}: needs w (5, 64, F) with "
+                         f"F % 64 == 0 and b (F,)")
+    blocks = w.to(dtype).permute(2, 0, 1).reshape(f // GROUP, GROUP, k, c)
+    image = torch.empty((f // GROUP, k, GROUP * c), dtype=dtype,
+                        device=w.device)
+    image[:, :, tap_block_index(w.device)] = blocks.permute(
+        0, 2, 1, 3).reshape(f // GROUP, k, GROUP * c)
+    return image, b.to(dtype).float().contiguous()
+
+
+def dma_weights_plain(image: torch.Tensor) -> torch.Tensor:
+    """The (5, 64, F) conv kernel held in an :func:`sgb_dma_weights`
+    image: its swizzled blocks read back in order."""
+    groups, k, _ = image.shape
+    blocks = image[:, :, tap_block_index(image.device)].reshape(
+        groups, k, GROUP, CHANNELS)  # [group][t][n][c]
+    return blocks.permute(1, 3, 0, 2).reshape(k, CHANNELS, groups * GROUP)
+
+
+def spike_inputs(batch: int, length: int, seed: int = 0):
+    """Inputs on which a tap that reads one row off changes the output,
+    where random inputs hide it under the max over 80 rows: numpy f32 h
+    (B, L, 64), w (5, 64, 512) and b (512,), every value a small integer,
+    so every f32 sum is exact and any order of sums gives the same bits.
+    Output channel f reads one tap (f % 5) of one input channel
+    ((f // 5) % 64) with weight 1 + f % 3, bias f % 2. h is zero but for
+    spikes of heights 1..8: in about half the windows of each channel, one
+    at window offset 0, 1, 78 or 79 (where the halo of a neighbouring
+    window reads it), and at the two rows of each sequence end."""
+    rng = np.random.default_rng(seed)
+    f = np.arange(8 * CHANNELS)
+    w = np.zeros((KSIZE, CHANNELS, f.size), np.float32)
+    w[f % KSIZE, (f // KSIZE) % CHANNELS, f] = 1 + f % 3
+    b = (f % 2).astype(np.float32)
+    windows = length // POOL
+    offsets = np.array([0, 1, POOL - 2, POOL - 1])
+    pos = (np.arange(windows)[None, :, None] * POOL
+           + offsets[rng.integers(0, 4, (batch, windows, CHANNELS))])
+    bi, wi, ci = np.nonzero(rng.random((batch, windows, CHANNELS)) < 0.5)
+    h = np.zeros((batch, length, CHANNELS), np.float32)
+    h[bi, pos[bi, wi, ci], ci] = rng.integers(1, 9, bi.size)
+    h[:, [0, 1, length - 2, length - 1]] = rng.integers(
+        1, 9, (batch, 4, CHANNELS))
+    return h, w, b
+
+
 def sgb_contract_pool_dma_reference(h: torch.Tensor, w: torch.Tensor,
                                     b: torch.Tensor,
                                     negative_slope: float = 0.01
@@ -54,8 +115,8 @@ def sgb_contract_pool_dma_reference(h: torch.Tensor, w: torch.Tensor,
 
 def sgb_contract_pool_dma(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                           negative_slope: float = 0.01) -> torch.Tensor:
-    """leaky(maxpool80(conv1d_same(h, w) + b)): ``sgb_weights`` on ``h``'s
-    device, then :func:`sgb_contract_pool_dma_prepared`.
+    """leaky(maxpool80(conv1d_same(h, w) + b)): :func:`sgb_dma_weights` on
+    ``h``'s device, then :func:`sgb_contract_pool_dma_prepared`.
 
     Args:
         h: (B, L, 64) features with :func:`dma_supported`; bfloat16 on a
@@ -64,44 +125,46 @@ def sgb_contract_pool_dma(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         b: (F,) bias.
     Returns: (B, L // 80, F) in ``h.dtype``.
     """
-    wt, bias = sgb_weights(w.to(h.device), b.to(h.device), h.dtype)
-    return sgb_contract_pool_dma_prepared(h, wt, bias, negative_slope)
+    image, bias = sgb_dma_weights(w.to(h.device), b.to(h.device), h.dtype)
+    return sgb_contract_pool_dma_prepared(h, image, bias, negative_slope)
 
 
-def sgb_contract_pool_dma_prepared(h: torch.Tensor, wt: torch.Tensor,
+def sgb_contract_pool_dma_prepared(h: torch.Tensor, image: torch.Tensor,
                                    bias: torch.Tensor,
                                    negative_slope: float = 0.01
                                    ) -> torch.Tensor:
-    """:func:`sgb_contract_pool_dma` on weights in ``sgb_weights``' layout:
-    the CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
-    Raises ValueError on a shape :func:`dma_supported` refuses."""
+    """:func:`sgb_contract_pool_dma` on weights in the
+    :func:`sgb_dma_weights` image: the CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor. Raises ValueError on a shape
+    :func:`dma_supported` refuses."""
     global launches
     bsz, length, c = h.shape
-    f = wt.shape[0]
-    if (not dma_supported(length, c) or wt.shape != (f, KSIZE * c)
-            or bias.shape != (f,)):
+    f = bias.shape[0]
+    if (not dma_supported(length, c) or f % GROUP
+            or image.shape != (f // GROUP, KSIZE, GROUP * c)):
         raise ValueError(f"sgb_contract_pool_dma: h {tuple(h.shape)}, "
-                         f"weights {tuple(wt.shape)}, bias "
+                         f"weights {tuple(image.shape)}, bias "
                          f"{tuple(bias.shape)}: needs L % 800 == 0, L >= 800, "
-                         f"C == 64, weights (F, 5 * C) and bias (F,)")
+                         f"C == 64, weights (F / 64, 5, 64 * C) and bias (F,)")
     if h.device.type == "cpu":
-        w = wt.reshape(f, KSIZE, c).permute(1, 2, 0)
-        return sgb_contract_pool_dma_reference(h, w, bias, negative_slope)
+        return sgb_contract_pool_dma_reference(h, dma_weights_plain(image),
+                                               bias, negative_slope)
     if (h.device.type != "cuda" or h.dtype != torch.bfloat16
-            or wt.dtype != torch.bfloat16 or bias.dtype != torch.float32
-            or not wt.device == bias.device == h.device):
+            or image.dtype != torch.bfloat16 or bias.dtype != torch.float32
+            or not image.device == bias.device == h.device):
         raise TypeError(f"sgb_contract_pool_dma: the CUDA kernel takes "
                         f"bfloat16 on a CUDA device, got {h.dtype} on "
-                        f"{h.device} with weights {wt.dtype} on {wt.device}")
+                        f"{h.device} with weights {image.dtype} on "
+                        f"{image.device}")
     if f % N_TILE:
         raise ValueError(f"sgb_contract_pool_dma: the CUDA kernel takes "
                          f"F % 128 == 0, got F={f}")
-    h, wt, bias = h.contiguous(), wt.contiguous(), bias.contiguous()
+    h, image, bias = h.contiguous(), image.contiguous(), bias.contiguous()
     out = torch.empty((bsz, length // POOL, f), dtype=torch.bfloat16,
                       device=h.device)
     lib = _build.load("sgb_contract_pool_dma", _SIGNATURE)
     err = lib.sgb_contract_pool_dma_launch(
-        h.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz,
+        h.data_ptr(), image.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz,
         length, f, float(negative_slope), h.device.index or 0,
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, err, "sgb_contract_pool_dma")

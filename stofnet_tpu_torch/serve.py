@@ -2,11 +2,12 @@
 ``stofnet_tpu/serve.py:make_pipeline`` and ``probe_dtype_agreement``).
 
 ``make_pipeline`` returns the serving callable ``x (B, 1, L) f32 -> coords``
-with the weights closed over: the StofNet forward through
-``models/fused.py:stofnet_apply_fused`` (bf16 by default; on the card its
-two hot blocks run as CUDA kernels, on weights laid out once per pipeline)
-and the protocol decode
-``ops/peaks.mask2coords`` in the checkpoint's own upsample units.
+with the weights closed over: the StofNet forward, through
+``models/fused.py:fused_forward`` where that computes the module's function
+(bf16 by default; on the card its two hot blocks run as CUDA kernels, on
+weights laid out once per pipeline) and through the ``StofNet`` module
+elsewhere, then the protocol decode ``ops/peaks.mask2coords`` in the
+checkpoint's own upsample units.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import torch
 
 from stofnet_tpu_torch import DeviceLike, resolve_device
 from stofnet_tpu_torch.data.synthetic import gate_batch
-from stofnet_tpu_torch.models.fused import fused_forward
+from stofnet_tpu_torch.models.fused import FUSED_SCALES, fused_forward
 from stofnet_tpu_torch.models.stofnet import StofNet
+from stofnet_tpu_torch.ops.kernels.sgb import POOL
 from stofnet_tpu_torch.ops.peaks import mask2coords
 
 # the architecture arguments stofnet_apply_fused takes; the fused path has
@@ -34,34 +36,63 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
                   ) -> Callable[[Any], torch.Tensor]:
     """The serving callable ``x (B, 1, L) f32 -> (B, max_echoes) coords``.
 
+    Two routes, chosen before any launch:
+
+    - **fused**: ``fused_forward`` (the SGB and conv-stack kernels on the
+      card, their plain versions on the CPU), where it computes the
+      module's function: no overrides beyond ``FUSED_OVERRIDES``,
+      ``semi_global_scale`` 1 or 80, and L % 80 == 0 when there is a
+      SemiGlobalBlock;
+    - **module**: the ``StofNet(dtype=dtype, **overrides)`` module with
+      the state loaded, everywhere else, as JAX's ``make_pipeline`` serves
+      every checkpoint. It is built at the first call that needs it.
+
+    The overrides decide when the pipeline is built, each call's L before
+    its forward. ``pipe.route(length)`` names the route a length takes;
+    ``pipe.calls`` counts the calls served by each route.
+
     Args:
         state: StofNet state dict (reference torch names; tensors or numpy
             arrays), copied to ``device``.
-        overrides: architecture as ``load_stofnet`` reports it; only
-            ``upsample_factor``, ``num_blocks`` and ``semi_global_scale``
-            may differ from the defaults.
+        overrides: architecture as ``load_stofnet`` reports it.
         dtype: compute type of the forward, bfloat16 when None.
         device: ``cuda`` when None (raises without a card); ``"cpu"`` runs
             the plain versions of the kernels.
     """
     device = resolve_device(device)
     dtype = torch.bfloat16 if dtype is None else dtype
-    unsupported = set(overrides) - set(FUSED_OVERRIDES)
-    if unsupported:
-        raise ValueError(f"the fused StofNet forward takes only "
-                         f"{FUSED_OVERRIDES}, got {sorted(unsupported)}")
-    kw = {k: int(v) for k, v in overrides.items()}
-    up = kw.get("upsample_factor", 4)
+    up = int(overrides.get("upsample_factor", 4))
+    scale = int(overrides.get("semi_global_scale", POOL))
     params = {k: _tensor(v).to(device) for k, v in state.items()}
-    forward = fused_forward(params, dtype=dtype, **kw)
+    forward = None
+    if set(overrides) <= set(FUSED_OVERRIDES) and scale in FUSED_SCALES:
+        forward = fused_forward(params, dtype=dtype,
+                                **{k: int(v) for k, v in overrides.items()})
+    module = None  # the StofNet module, once a call needs it
+
+    def route(length: int) -> str:
+        if forward is not None and (scale == 1 or length % POOL == 0):
+            return "fused"
+        return "module"
 
     @torch.inference_mode()
     def pipe(x) -> torch.Tensor:
+        nonlocal module
         x = torch.as_tensor(x, dtype=torch.float32).to(device)
-        return mask2coords(forward(x), window_size=window_size,
+        r = route(x.shape[-1])
+        pipe.calls[r] += 1
+        if r == "fused":
+            heat = forward(x)
+        else:
+            if module is None:
+                module = _module(params, overrides, dtype, device)
+            heat = module(x)
+        return mask2coords(heat, window_size=window_size,
                            threshold=threshold, upsample_factor=up,
                            max_echoes=max_echoes)
 
+    pipe.route = route
+    pipe.calls = {"fused": 0, "module": 0}
     return pipe
 
 
@@ -97,8 +128,7 @@ def module_coords(state: Mapping[str, Any], overrides: Dict[str, Any], x,
     """One leg of :func:`probe_dtype_agreement`: the decoded coords of the
     ``StofNet(dtype=dtype, **overrides)`` module on ``x`` (B, 1, L), as a
     numpy array on the host."""
-    model = StofNet(dtype=dtype, device=device, **overrides)
-    model.load_state_dict({k: _tensor(v) for k, v in state.items()})
+    model = _module(state, overrides, dtype, device)
     dev = next(model.parameters()).device
     with torch.inference_mode():
         heat = model(torch.as_tensor(x, dtype=torch.float32).to(dev))
@@ -106,6 +136,15 @@ def module_coords(state: Mapping[str, Any], overrides: Dict[str, Any], x,
                              int(overrides.get("upsample_factor", 4)),
                              max_echoes)
     return coords.cpu().numpy()
+
+
+def _module(state: Mapping[str, Any], overrides: Dict[str, Any],
+            dtype: torch.dtype, device: DeviceLike) -> StofNet:
+    """``StofNet(dtype=dtype, **overrides)`` on ``device`` with ``state``
+    loaded."""
+    model = StofNet(dtype=dtype, device=device, **overrides)
+    model.load_state_dict({k: _tensor(v) for k, v in state.items()})
+    return model
 
 
 def _tensor(v) -> torch.Tensor:

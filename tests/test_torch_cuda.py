@@ -12,8 +12,10 @@ Kernel A's offsets must equal the plain version's wherever the plain
 window maximum beats its runner-up by more than 1e-3 of its magnitude (a
 closer pair may swap under another order of f32 sums); kernel B is held
 against its plain version on kernel A's own outputs, per output, and must
-give the same bits twice. The streamed SGB kernel must give the tile
-kernel's bits. The probe is held to its total (rtol 1e-3 of the f64 sum),
+give the same bits twice. The streamed SGB kernel sums in another order
+than the tile kernel, so it is held to its plain version at the tolerance
+on random inputs and bit for bit on spike inputs, whose every f32 sum is
+exact. The probe is held to its total (rtol 1e-3 of the f64 sum),
 each element to 64 f32 epsilons of the sum of its terms' magnitudes, and
 the same bits twice; the canary to ``x * 2`` exactly.
 """
@@ -22,13 +24,14 @@ import numpy as np
 import pytest
 import torch
 
+from stofnet_tpu_torch.data.synthetic import gate_batch
 from stofnet_tpu_torch.models import (
     StofNet, stofnet_apply_fused, stofnet_apply_reference,
 )
 from stofnet_tpu_torch.ops.conv import conv1d_same
 from stofnet_tpu_torch.ops.kernels import conv_stack, dma_probe, sgb, sgb_dma
 from stofnet_tpu_torch.scripts.dma_probe import ELEM_TOL
-from stofnet_tpu_torch.serve import make_pipeline
+from stofnet_tpu_torch.serve import make_pipeline, module_coords
 from stofnet_tpu_torch.train import (
     LossConfig, make_fused_train_step, make_optimizer,
 )
@@ -210,6 +213,21 @@ def test_fused_forward_and_pipeline_on_the_card(cuda):
         counts[0] + 1, counts[1], counts[2] + 1)
 
 
+def test_pipeline_module_route_on_the_card(cuda):
+    """At L=1000 (not a multiple of 80) make_pipeline serves the StofNet
+    module and launches no kernel; its coords are the bf16 module's."""
+    state = StofNet(device=cuda,
+                    generator=torch.Generator().manual_seed(2)).state_dict()
+    x = gate_batch(4, 1000, np.random.default_rng(3))
+    pipe = make_pipeline(state, {}, max_echoes=8, device=cuda)
+    counts = (sgb_dma.launches, sgb.launches, conv_stack.launches)
+    got = pipe(x)
+    assert (sgb_dma.launches, sgb.launches, conv_stack.launches) == counts
+    assert pipe.calls == {"fused": 0, "module": 1}
+    ref = module_coords(state, {}, x, torch.bfloat16, cuda, max_echoes=8)
+    assert torch.equal(got.cpu(), torch.from_numpy(ref))
+
+
 def test_canary_on_the_card(cuda):
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (8, 128)).astype(np.float32)).to(cuda)
@@ -224,8 +242,8 @@ def test_canary_on_the_card(cuda):
 @pytest.mark.parametrize("length", [800, 8000])
 def test_sgb_dma_kernel_matches_plain(cuda, length, seed):
     """The streamed kernel: L=800 is one ring's worth of windows and a
-    little more (5 stages of 2 windows through 3 slots), L=8000 many
-    turns of the ring; both sequence ends take the zero fill."""
+    little more (5 tiles of 2 windows through 4 slots), L=8000 many
+    turns of the ring; both sequence ends take the copy's zero fill."""
     rng = np.random.default_rng(100 + seed)
     h = _bf16(rng, (4, length, 64), cuda)
     w = _bf16(rng, (5, 64, 512), cuda, 0.05)
@@ -234,7 +252,23 @@ def test_sgb_dma_kernel_matches_plain(cuda, length, seed):
     got = sgb_dma.sgb_contract_pool_dma(h, w, b)
     assert sgb_dma.launches == before + 1
     _close(got, sgb_dma.sgb_contract_pool_dma_reference(h, w, b))
-    assert torch.equal(got, sgb.sgb_contract_pool(h, w, b))  # one mainloop
+
+
+@pytest.mark.parametrize("length", [800, 8000])
+def test_sgb_dma_kernel_sees_window_edges_and_halo(cuda, length):
+    """Spikes at window offsets 0, 1, 78, 79 and at both sequence ends,
+    one tap and one channel per output, small integers: every f32 sum is
+    exact, so the kernel gives its plain version's bits, and a tap that
+    reads one row off (a halo row short, a window misplaced) differs where
+    random inputs at the tolerance would hide it."""
+    h, w, b = (torch.from_numpy(a).to(cuda)
+               for a in sgb_dma.spike_inputs(8, length, seed=length))
+    h = h.to(torch.bfloat16)
+    got = sgb_dma.sgb_contract_pool_dma(h, w, b)
+    ref = sgb_dma.sgb_contract_pool_dma_reference(h, w, b)
+    torch.cuda.synchronize()
+    assert 0 < ref.float().max().item() < 32
+    assert torch.equal(got, ref), (got != ref).sum().item()
 
 
 @pytest.mark.parametrize("length,impl,dma", [(8000, "dma", True),

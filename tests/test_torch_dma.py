@@ -18,7 +18,7 @@ from stofnet_tpu.ops.pallas.sgb_dma_kernel import (
 )
 from stofnet_tpu_torch.models import stofnet_apply_fused
 from stofnet_tpu_torch.models.torch_import import params_to_state_dict
-from stofnet_tpu_torch.ops.kernels import sgb_dma
+from stofnet_tpu_torch.ops.kernels import sgb, sgb_dma
 
 
 def _inputs(rng, length):
@@ -58,6 +58,51 @@ def test_sgb_dma_plain_matches_pallas_bf16(rng, length):
     ref = np.asarray(ref.astype(jnp.float32))
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() <= 2.0 ** -8 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [800, 2400])
+def test_sgb_dma_plain_matches_pallas_on_spikes(length, dtype):
+    """The inputs of the card's halo check (``spike_inputs``: spikes at
+    window offsets 0, 1, 78, 79 and at both sequence ends, one tap and one
+    channel per output): every sum is exact, so the plain version gives
+    the JAX kernel's bits, in f32 and in bf16."""
+    h, w, b = sgb_dma.spike_inputs(2, length, seed=length)
+    got = sgb_dma.sgb_contract_pool_dma(
+        torch.from_numpy(h).to(getattr(torch, dtype)),
+        *map(torch.from_numpy, (w, b)))
+    ref = jax_sgb_dma(jnp.asarray(h, getattr(jnp, dtype)), jnp.asarray(w),
+                      jnp.asarray(b), interpret=True)
+    assert got.shape == ref.shape == (2, length // 80, 512)
+    assert 0 < float(got.max()) < 32
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sgb_dma_weight_image_is_lossless(dtype):
+    """``sgb_dma_weights`` holds ``sgb_weights``' [n][t * 64 + c] rows,
+    each (group of 64 channels, tap) block with row n's 16-byte chunk j
+    (8 channels) at chunk j ^ (n % 8), and nothing else;
+    ``dma_weights_plain`` reads the conv kernel back."""
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy(rng.standard_normal((5, 64, 512)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.standard_normal(512).astype(np.float32))
+    image, bias = sgb_dma.sgb_dma_weights(w, b, dtype)
+    wt, bias_t = sgb.sgb_weights(w, b, dtype)
+    assert image.shape == (8, 5, 64 * 64) and image.dtype == dtype
+    n, c = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    index = torch.from_numpy(n * 64 + ((c // 8) ^ (n % 8)) * 8 + c % 8)
+    for group in range(8):
+        for t in range(5):
+            assert torch.equal(
+                image[group, t][index],
+                wt[64 * group:64 * group + 64, 64 * t:64 * t + 64])
+    assert torch.equal(sgb_dma.dma_weights_plain(image), w.to(dtype))
+    assert torch.equal(bias, bias_t)
+    with pytest.raises(ValueError, match="F % 64"):
+        sgb_dma.sgb_dma_weights(w[:, :, :96], b[:96], dtype)
 
 
 def test_dma_supported_matches_jax():

@@ -1,6 +1,7 @@
 """The port's serving pipeline against the JAX package's on the CPU: the
-decoded coords of ``make_pipeline`` on an echo-bearing gate batch, the gate
-batch itself, and the device rule of the entry points."""
+decoded coords of ``make_pipeline`` on echo-bearing gate batches, through
+its fused route and its module route, the gate batch itself, and the
+device rule of the entry points."""
 
 import numpy as np
 import pytest
@@ -13,7 +14,9 @@ from stofnet_tpu.data.synthetic import gate_batch as jax_gate_batch
 from stofnet_tpu.models import StofNet as JaxStofNet
 from stofnet_tpu_torch import default_device
 from stofnet_tpu_torch.data.synthetic import gate_batch
-from stofnet_tpu_torch.models import StofNet
+from stofnet_tpu_torch.models import (
+    StofNet, stofnet_apply_fused, stofnet_apply_reference,
+)
 from stofnet_tpu_torch.models.torch_import import params_to_state_dict
 from stofnet_tpu_torch.serve import (
     make_pipeline, module_coords, probe_dtype_agreement,
@@ -47,14 +50,88 @@ def test_pipeline_coords_match_jax(rng, weights):
 
 
 def test_pipeline_bf16_on_cpu(rng, weights):
+    """bf16 on both routes: the default checkpoint at L=800 takes the
+    fused forward; a num_features override, which the fused forward does
+    not take, takes the StofNet module."""
     _, state = weights
     x = gate_batch(2, 800, rng)
-    got = make_pipeline(state, {"upsample_factor": 4}, max_echoes=8,
-                        device="cpu")(torch.from_numpy(x))
+    pipe = make_pipeline(state, {"upsample_factor": 4}, max_echoes=8,
+                         device="cpu")
+    got = pipe(torch.from_numpy(x))
     assert got.shape == (2, 8) and got.dtype == torch.float32
     assert torch.isfinite(got).all()
-    with pytest.raises(ValueError, match="num_features"):
-        make_pipeline(state, {"num_features": 32}, device="cpu")
+    assert pipe.calls == {"fused": 1, "module": 0}
+    _, state32 = _init({"num_features": 32}, 800)
+    pipe = make_pipeline(state32, {"num_features": 32}, max_echoes=8,
+                         device="cpu")
+    got = pipe(torch.from_numpy(x))
+    assert got.shape == (2, 8) and torch.isfinite(got).all()
+    assert pipe.calls == {"fused": 0, "module": 1}
+
+
+def _init(cfg, length):
+    variables = JaxStofNet(**cfg).init(jax.random.key(0),
+                                       jnp.zeros((1, 1, length)))
+    return variables, params_to_state_dict(variables)
+
+
+def _jax_coords(variables, cfg, x):
+    return np.asarray(jax.jit(jax_serve.make_pipeline(
+        variables, cfg, window_size=20, threshold=None, max_echoes=8,
+        dtype=jnp.float32))(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("cfg,length", [({"semi_global_scale": 40}, 1600),
+                                        ({"num_features": 32}, 800)])
+def test_pipeline_module_route_matches_jax(cfg, length):
+    """A checkpoint the fused forward does not compute (an SGB that pools
+    40, or 32 features) is served by the StofNet module, as JAX's
+    make_pipeline serves it: f32 coords within 1 sample of JAX's. The
+    route is read off the pipeline's call counts, and the module is
+    built only at the first call."""
+    variables, state = _init(cfg, length)
+    x = gate_batch(4, length, np.random.default_rng(11))
+    pipe = make_pipeline(state, cfg, window_size=20, threshold=None,
+                         max_echoes=8, dtype=torch.float32, device="cpu")
+    assert pipe.route(length) == "module"
+    assert pipe.calls == {"fused": 0, "module": 0}
+    got = pipe(x).numpy()
+    ref = _jax_coords(variables, cfg, x)
+    assert pipe.calls == {"fused": 0, "module": 1}
+    assert got.shape == ref.shape == (4, 8)
+    assert np.all(np.abs(got - ref) <= 1.0), (got, ref)
+    assert np.all((got != 0).sum(1) >= 1)
+
+
+def test_pipeline_routes_each_length(weights):
+    """One pipeline of the default checkpoint: L=1000 (not a multiple of
+    80) takes the module route, L=800 the fused route; both give JAX's
+    make_pipeline coords within 1 sample, in f32."""
+    variables, state = weights
+    pipe = make_pipeline(state, {}, window_size=20, threshold=None,
+                         max_echoes=8, dtype=torch.float32, device="cpu")
+    for length, route, calls in ((1000, "module", {"fused": 0, "module": 1}),
+                                 (800, "fused", {"fused": 1, "module": 1})):
+        x = gate_batch(4, length, np.random.default_rng(length))
+        assert pipe.route(length) == route
+        got = pipe(x).numpy()
+        assert pipe.calls == calls
+        ref = _jax_coords(variables, {}, x)
+        assert got.shape == ref.shape == (4, 8)
+        assert np.all(np.abs(got - ref) <= 1.0), (length, got, ref)
+
+
+def test_fused_forward_refuses_other_pool_scales():
+    """The SGB kernels pool a fixed 80: every fused entry point refuses
+    another semi_global_scale (a departure from the JAX function, which
+    serves another function there) instead of computing it wrong."""
+    state = StofNet(semi_global_scale=40, device="cpu").state_dict()
+    x = torch.zeros((1, 1, 1600))
+    for forward, kw in ((stofnet_apply_fused, {}),
+                        (stofnet_apply_fused, {"trainable": True}),
+                        (stofnet_apply_reference, {})):
+        with pytest.raises(ValueError, match="semi_global_scale=40"):
+            forward(state, x, semi_global_scale=40, dtype=None, **kw)
 
 
 def test_probe_dtype_agreement_on_cpu(weights):
