@@ -7,7 +7,11 @@
    ``nvcc`` per source, in parallel), prints the build time and the card,
    and runs the canary (o = 2 x on (8, 128) f32) before any other kernel:
    it must equal ``x * 2`` bit for bit, so a failure there names the
-   toolchain or the CUDA runtime, not a kernel.
+   toolchain or the CUDA runtime, not a kernel. Its launch route is read
+   three ways beside ``torch.mul``'s (the ``canary launch route`` line, us
+   a call): CUDA events around one call (its kernels-line time), the host
+   clock over 1,000 calls back to back with no synchronise, and the
+   kernel's device time under the profiler over 100 calls.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (B=128, L=8000; the tile SGB kernel at
    L_TILE=2000, the serving length the streamed one refuses; bf16 inputs
@@ -56,10 +60,14 @@
    window maximum beats its runner-up by more than 1e-3 of its magnitude;
    kernel B (backward) per output on kernel A's own outputs, its f32
    sums (dkernel, dbias) also to relative L2 1e-5, and bitwise equal
-   over two runs. Times both as in 2 (kernel B's yardstick: the
-   backward of cuDNN conv + max-pool + leaky in bf16, timed alone), and
-   requires one forward + backward of the op to stay below the 1.05 GB
-   of one (128, 8000, 512) bf16 plane of device memory.
+   over two runs; then bit for bit to its plain version on
+   ``sgb.bwd_exact_inputs`` at L=800 and L (every sum exact, offsets at the
+   window seams, so a missed seam term differs). Times both as in 2
+   (kernel B's yardstick: the backward of cuDNN conv + max-pool + leaky in
+   bf16, timed alone), prints kernel B's device time by pass under the
+   profiler and its CUDA-core floor beside its bound, and requires one
+   forward + backward of the op to stay below the 1.05 GB of one
+   (128, 8000, 512) bf16 plane of device memory.
 6. The bench's paths (``bench_paths.py``) over a gate batch and 4 fresh
    batches: ``try_fused_pipeline`` (the streamed SGB kernel, the conv stack
    as plain convs) must pass its gate against the plain path on the card
@@ -151,6 +159,8 @@ SUM_TOL = 1e-5  # relative L2 of kernel B's f32 sums (dkernel, dbias)
 OPT = dict(lr=5e-4, weight_decay=1e-8, epochs=80, steps_per_epoch=100)
 N_STEPS = 4  # timed training steps, after one warm-up step
 DMA_SEEDS = 3  # seeds of the streamed SGB kernel's check at L=800
+HOST_CALLS = 1000  # back-to-back calls of the canary's host-time reading
+PROFILE_CALLS = 100  # calls of the canary's device-time reading
 
 
 def log(msg: str) -> None:
@@ -349,13 +359,36 @@ def canary(dev, rng) -> dict:
     log("canary: 2 x equals x * 2 bit for bit")
     xs = [(x + i,) for i in range(4)]
     t, by = bound(2 * nbytes(x))
-    return dict(name="canary", route="cuda",
-                source="stofnet_tpu_torch/csrc/dma_probe.cu",
-                replaces="scripts/dma_probe.py:145", max_abs_err=0.0,
-                ms=time_ms(dma_probe.canary, xs),
-                plain_ms=time_ms(dma_probe.canary_reference, xs),
-                bound_ms=t, bound_by=by,
-                library_ms=time_ms(lambda v: torch.mul(v, 2), xs))
+    row = dict(name="canary", route="cuda",
+               source="stofnet_tpu_torch/csrc/dma_probe.cu",
+               replaces="scripts/dma_probe.py:145", max_abs_err=0.0,
+               ms=time_ms(dma_probe.canary, xs),
+               plain_ms=time_ms(dma_probe.canary_reference, xs),
+               bound_ms=t, bound_by=by,
+               library_ms=time_ms(lambda v: torch.mul(v, 2), xs))
+    route = {}
+    for name, fn, ms in (("canary", dma_probe.canary, row["ms"]),
+                         ("torch.mul", lambda v: torch.mul(v, 2),
+                          row["library_ms"])):
+        route[name] = dict(event_us=ms * 1e3, host_us=host_us(fn, x),
+                           device_us=profile_runs(fn, [x] * PROFILE_CALLS)[
+                               "device_busy_ms"] * 1e3)
+    log(f"canary launch route (us a call): {json.dumps(route)}")
+    return row
+
+
+def host_us(fn, x) -> float:
+    """Host microseconds a call of ``fn(x)`` over HOST_CALLS back-to-back
+    calls with no synchronise between them (``time.perf_counter``): the
+    launch route's host work, which the card, idle, cannot hide."""
+    fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn(x)
+    us = (time.perf_counter() - t0) * 1e6 / HOST_CALLS
+    torch.cuda.synchronize()
+    return us
 
 
 def spike_bits(length: int, dev) -> None:
@@ -709,6 +742,7 @@ def profile_runs(run_one, items) -> dict:
         t0 = time.perf_counter()
         for x in items:
             run_one(x)
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / len(items)
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -768,6 +802,8 @@ def kernels_trainable(dev, rng, state):
                 raise AssertionError(f"sgb_contract_pool_bwd {name}: relative "
                                      f"L2 {rel} > {SUM_TOL}")
     log("sgb_contract_pool_bwd: two runs bitwise equal")
+    for length in (800, L):
+        bwd_exact_bits(length, dev)
     peak = trainable_peak_bytes(h, w, b, g)
     log(f"trainable op forward + backward: peak {peak / 1e6:.1f} MB above "
         f"the inputs (one bf16 pre-pool plane: {PLANE_BYTES / 1e6:.1f} MB)")
@@ -800,6 +836,10 @@ def kernels_trainable(dev, rng, state):
         x, w, gi, p, o), bwd_args)
     plain_b = time_ms(lambda x, gi, p, o: sgb.sgb_contract_pool_bwd_reference(
         x, w, gi, p, o), bwd_args)
+    split = profile_runs(lambda a: sgb.sgb_contract_pool_bwd(
+        a[0], w, *a[1:]), bwd_args)
+    log(f"sgb_contract_pool_bwd passes, device ms a call: "
+        f"{json.dumps(split['top_ms'])}")
     # yardstick: the backward alone of cuDNN conv + max-pool + leaky in bf16
     graphs = []
     for x, gi in zip(hs[:2], gs[:2]):
@@ -822,6 +862,11 @@ def kernels_trainable(dev, rng, state):
     t_b, by_b = bound(nbytes(h, w, g, pooled, off, *got),
                       bf16=2.0 * taps * 64,
                       f32=2.0 * taps * 64 + 2.0 * pooled.numel())
+    # the kernel's own design runs both passes' products in f32 on the
+    # CUDA cores: its floor, beside the bound
+    floor_b = (4.0 * taps * 64 + 2.0 * pooled.numel()) / PEAK_F32 * 1e3
+    log(f"sgb_contract_pool_bwd: {ms_b:.4f} ms; bound {t_b:.4f} ms by "
+        f"{by_b}, CUDA-core floor of the design {floor_b:.4f} ms")
     a = dict(name="sgb_contract_pool_argmax", route="cuda",
              source="stofnet_tpu_torch/csrc/sgb_contract_pool.cu",
              replaces="stofnet_tpu/ops/pallas/sgb_kernel.py:209",
@@ -833,6 +878,27 @@ def kernels_trainable(dev, rng, state):
               max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=t_b,
               bound_by=by_b, library_ms=lib_b)
     return a, bk
+
+
+def bwd_exact_bits(length: int, dev) -> None:
+    """Kernel B on ``sgb.bwd_exact_inputs`` at B=128 must give its plain
+    version's bits: every f32 sum is exact there and dh exact in bf16, and
+    offsets at window positions 0, 1, 78, 79 put terms across the seams,
+    so a missed seam term changes dh where random inputs at TOL hide it."""
+    h, w, g, pooled, off = (torch.from_numpy(a).to(dev)
+                            for a in sgb.bwd_exact_inputs(B, length,
+                                                          seed=length))
+    h, g, pooled = (t.to(torch.bfloat16) for t in (h, g, pooled))
+    got = sgb.sgb_contract_pool_bwd(h, w, g, pooled, off)
+    ref = sgb.sgb_contract_pool_bwd_reference(h, w, g, pooled, off)
+    torch.cuda.synchronize()
+    for name, x, z in zip(("dh", "dkernel", "dbias"), got, ref):
+        if not (z.abs().max().item() > 0 and torch.equal(x, z)):
+            raise AssertionError(f"sgb_contract_pool_bwd {name}: exact inputs "
+                                 f"at L={length}: {int((x != z).sum())} "
+                                 f"outputs differ from the plain version")
+    log(f"sgb_contract_pool_bwd: exact inputs at L={length}: the plain "
+        f"version's bits")
 
 
 def trainable_peak_bytes(h, w, b, g) -> int:

@@ -45,6 +45,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// make `device` current for this host thread, calling cudaSetDevice only
+// where another device is current
+inline cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

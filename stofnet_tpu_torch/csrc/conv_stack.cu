@@ -413,7 +413,7 @@ extern "C" int conv_stack_launch(const void* h0, const void* wmid, const void* b
                                  const void* wlast, const void* blast, void* out,
                                  const void* plan, int n_seq, int B, int L, int r_out,
                                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(conv_stack_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);

@@ -161,7 +161,7 @@ extern "C" int dma_probe_ctas(long long n_chunks, int chunk_rows, int n_buffers,
 extern "C" int dma_probe_launch(const void* x, void* partial, void* out, long long n_rows,
                                 int chunk_rows, int n_buffers, int n_parts, int device,
                                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   if (chunk_rows <= 0 || chunk_rows % 8 || n_rows % chunk_rows || n_parts < 1)
     return cudaErrorInvalidValue;
@@ -179,7 +179,7 @@ extern "C" int dma_probe_launch(const void* x, void* partial, void* out, long lo
 }
 
 extern "C" int dma_canary_launch(const void* x, void* o, int n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   canary_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>((const float*)x,
                                                                    (float*)o, n);

@@ -1,7 +1,10 @@
-// Hopper helpers shared by the wgmma kernels of this directory (the conv
-// stack and the streamed SGB kernel): mbarriers, bulk copies, the
-// descriptor of 128-byte swizzled rows and the wgmma group fences.
+// Hopper helpers shared by the kernels of this directory (the conv stack,
+// the streamed SGB kernel and kernel B): mbarriers, bulk and TMA copies, the
+// tensor-map encoder, the descriptor of 128-byte swizzled rows and the wgmma
+// group fences.
 #pragma once
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -30,16 +33,42 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// one bulk copy of `bytes` from device memory into shared memory, counted
-// on `bar` (which this thread's arrival arms with the byte count)
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
-                                          uint64_t* bar) {
-  const uint32_t b = smem_u32(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+// arm `bar` with `bytes` of copies to come (this thread's arrival), for the
+// copies of bulk_copy and tma_load_3d that follow
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
                "r"(bytes) : "memory");
+}
+
+// one bulk copy of `bytes` from device memory into shared memory, counted
+// on `bar`, which mbar_expect_tx has armed
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(b)
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one bulk copy of `bytes` from device memory into shared memory, counted
+// on `bar`, which this thread's arrival arms with the byte count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  mbar_expect_tx(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
+}
+
+// the box of `map` at coordinates (x, y, z) into `dst` by one TMA copy
+// counted on `bar`, which mbar_expect_tx has armed; elements outside the
+// tensor arrive as zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int x, int y,
+                                            int z, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -69,4 +98,32 @@ template <int N>
 __device__ __forceinline__ void acc_fence(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime's entry-point
+// query, so the library links nothing beyond the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (!found) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || !p) return cudaErrorSymbolNotFound;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
 }

@@ -156,7 +156,7 @@ sgb_contract_pool_kernel(const __nv_bfloat16* __restrict__ h,   // (B, L, 64)
 template <bool ARGMAX>
 int launch(const void* h, const void* wt, const void* bias, void* out, void* offs,
            int B, int L, int F, float slope, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(sgb_contract_pool_kernel<ARGMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);

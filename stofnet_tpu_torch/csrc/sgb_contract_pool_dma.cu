@@ -63,8 +63,6 @@
 // of the 3.9 waves and each tile's epilogue, which the other warpgroup's
 // products cover.
 
-#include <cuda.h>
-
 #include "hopper.cuh"
 
 namespace {
@@ -96,14 +94,8 @@ constexpr int SMEM = 1024 + SMEM_W + STAGES * STAGE_STRIDE + SMEM_BAR;  // 169,0
 // outside [0, L) arrive as zeros
 __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, int p,
                                          int b, uint64_t* bar) {
-  const uint32_t mb = smem_u32(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mb),
-               "r"(STAGE_BYTES) : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(p), "r"(b), "r"(mb)
-      : "memory");
+  mbar_expect_tx(bar, STAGE_BYTES);
+  tma_load_3d(dst, map, 0, p, b, bar);
 }
 
 // d (64 output channels x 160 positions, f32) += a (64 x 16 bf16 of a tap
@@ -234,40 +226,12 @@ sgb_contract_pool_dma_kernel(const __grid_constant__ CUtensorMap hmap,  // h as 
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda, found through the runtime's entry-point
-// query, so the library links nothing beyond the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled found = nullptr;
-  if (!found) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess) return err;
-    if (q != cudaDriverEntryPointSuccess || !p) return cudaErrorSymbolNotFound;
-    found = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = found;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" int sgb_contract_pool_dma_launch(const void* h, const void* wimg, const void* bias,
                                             void* out, int B, int L, int F, float slope,
                                             int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(sgb_contract_pool_dma_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>.so`` at the repository root (a gitignored
 directory) the first time it is needed, and loaded with ``ctypes``. A
 source exports a plain C interface: every launch function takes raw device
-pointers and the CUDA stream, launches on that stream, and returns
-``cudaGetLastError()`` so that a refused launch is reported to the caller.
+pointers, then the device index and the CUDA stream (``launch_args``),
+launches on that stream, and returns ``cudaGetLastError()`` so that a
+refused launch is reported to the caller.
 
 A library is rebuilt when its source or a shared ``csrc/*.cuh`` header is
 newer than it. ``build_all``
@@ -21,7 +22,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -30,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# the current stream's raw handle as an int, where the installed torch has it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def nvcc_path() -> str:
@@ -103,6 +108,17 @@ def load(name: str, functions: Dict[str, List]) -> ctypes.CDLL:
     lib.kernel_error_string.restype = ctypes.c_char_p
     _libs[name] = lib
     return lib
+
+
+def launch_args(t: torch.Tensor) -> Tuple[int, int]:
+    """The last two arguments of every launch function for the CUDA tensor
+    ``t``: its device index and the raw handle of that device's current
+    stream. Builds no ``torch.cuda.Stream`` object where torch gives the
+    handle as an int."""
+    index = t.get_device()
+    if _raw_stream is not None:
+        return index, _raw_stream(index)
+    return index, torch.cuda.current_stream(index).cuda_stream
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -215,8 +215,7 @@ def conv_stack_fused_prepared(h0: torch.Tensor,
         h0.contiguous().data_ptr(), wts.mid.data_ptr(),
         wts.mid_bias.data_ptr(), wts.last.data_ptr(),
         wts.last_bias.data_ptr(), out.data_ptr(), plan.data_ptr(),
-        plan.shape[0], bsz, length, wts.r, h0.device.index or 0,
-        torch.cuda.current_stream(h0.device).cuda_stream)
+        plan.shape[0], bsz, length, wts.r, *_build.launch_args(h0))
     _build.check(lib, err, "conv_stack_fused")
     launches += 1
     return out

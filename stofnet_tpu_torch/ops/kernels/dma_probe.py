@@ -74,7 +74,7 @@ def stream_probe(x: torch.Tensor, chunk_rows: int,
         raise TypeError(f"stream_probe: the CUDA kernel takes bfloat16 on a "
                         f"CUDA device, got {x.dtype} on {x.device}")
     x = x.contiguous()
-    dev = x.device.index or 0
+    dev = x.get_device()
     lib = _build.load("dma_probe", _SIGNATURE)
     ctas = ctypes.c_int(0)
     err = lib.dma_probe_ctas(x.shape[0] // chunk_rows, chunk_rows, n_buffers,
@@ -86,8 +86,7 @@ def stream_probe(x: torch.Tensor, chunk_rows: int,
     out = torch.empty((GROUP, WIDTH), dtype=torch.float32, device=x.device)
     err = lib.dma_probe_launch(
         x.data_ptr(), partial.data_ptr(), out.data_ptr(), x.shape[0],
-        chunk_rows, n_buffers, ctas.value, dev,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        chunk_rows, n_buffers, ctas.value, *_build.launch_args(x))
     _build.check(lib, err, "stream_probe")
     probe_launches += 1
     return out
@@ -111,8 +110,7 @@ def canary(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     lib = _build.load("dma_probe", _SIGNATURE)
     err = lib.dma_canary_launch(
-        x.data_ptr(), out.data_ptr(), x.numel(), x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), out.data_ptr(), x.numel(), *_build.launch_args(x))
     _build.check(lib, err, "canary")
     canary_launches += 1
     return out

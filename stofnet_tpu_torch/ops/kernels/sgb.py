@@ -22,8 +22,10 @@ kernels' designs and bounds are in the sources' headers.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,8 +37,9 @@ KSIZE = 5
 PAD = KSIZE // 2
 CHANNELS = 64
 N_TILE = 128  # output channels per CTA (csrc/sgb_contract_pool.cu)
-BWD_F_TILE = 64  # output channels per CTA of the dkernel pass (bwd source)
-BWD_GROUPS = 128  # window groups of the dkernel pass (its partial sums)
+BWD_F_MULT = 64  # kernel B takes F % 64 == 0 (its dh pass's weight chunks)
+BWD_RUN = 8  # windows of a dh CTA's run (csrc/sgb_contract_pool_bwd.cu)
+BWD_F_TILE = 128  # output channels of a dkernel CTA (the same source)
 PLAIN_CHUNK = 8  # channels per pass of the plain backward, as JAX's scan
 
 # kernel launches since the last reset (chip_smoke.py reads them): the
@@ -55,7 +58,7 @@ _SIGNATURE = {
                                         ctypes.c_float, _I, _P],
 }
 _BWD_SIGNATURE = {"sgb_contract_pool_bwd_launch": [
-    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
     ctypes.c_float, _I, _P]}
 
 
@@ -123,6 +126,71 @@ def sgb_contract_pool_bwd_reference(
             k, fc, c).transpose(1, 2)
         dh += taps @ wf[:, :, s:s + fc].permute(0, 2, 1).reshape(k * fc, c)
     return dh.reshape(bsz, length, c).to(h.dtype), dkernel, dbias
+
+
+def bwd_exact_inputs(batch: int, length: int, seed: int = 0, f: int = 512):
+    """Inputs of kernel B on which every f32 sum is exact and dh is exact in
+    bf16, so any order of sums gives the plain version's bits and a term
+    missed at a window seam changes them (random inputs hide it under the
+    tolerance). Numpy: f32 h (B, L, 64), w (5, 64, F), g and pooled
+    (B, L/80, F), int32 offsets (B, L/80, F).
+
+    - h: integers in [-4, 4]; g: integers in {-2, -1, 1, 2}; pooled
+      integers >= 0, so ``g_pre = g``;
+    - w: one nonzero weight in [-3, 3] per (tap t, output channel f), at
+      input channel (f + 13 t) % 64: an element of dh sums at most
+      5 F / 64 terms (40 at F=512) of magnitude <= 6, so |dh| <= 240,
+      exact in bf16;
+    - offsets: half at window positions 0, 1, 78 and 79 (a tap of those
+      reaches the neighbouring window), half uniform in 0..79.
+
+    dkernel sums B L / 80 terms of magnitude <= 8 and dbias as many of
+    magnitude <= 2, exact in f32 below 2^21 windows."""
+    if f % CHANNELS or 5 * f // CHANNELS * 6 > 256:
+        raise ValueError(f"bwd_exact_inputs: F={f}: needs F % 64 == 0 and "
+                         f"F <= 512 (dh exact in bf16)")
+    rng = np.random.default_rng(seed)
+    rows = length // POOL
+    h = rng.integers(-4, 5, (batch, length, CHANNELS)).astype(np.float32)
+    w = np.zeros((KSIZE, CHANNELS, f), np.float32)
+    t, n = np.meshgrid(np.arange(KSIZE), np.arange(f), indexing="ij")
+    w[t, (n + 13 * t) % CHANNELS, n] = (rng.integers(1, 4, t.shape)
+                                        * rng.choice([-1, 1], t.shape))
+    g = (rng.integers(1, 3, (batch, rows, f))
+         * rng.choice([-1, 1], (batch, rows, f))).astype(np.float32)
+    pooled = rng.integers(0, 5, (batch, rows, f)).astype(np.float32)
+    seams = np.array([0, 1, POOL - 2, POOL - 1])
+    off = np.where(rng.random((batch, rows, f)) < 0.5,
+                   seams[rng.integers(0, 4, (batch, rows, f))],
+                   rng.integers(0, POOL, (batch, rows, f))).astype(np.int32)
+    return h, w, g, pooled, off
+
+
+def bwd_plan(batch: int, length: int, f: int,
+             sms: int) -> Tuple[List[int], List[int]]:
+    """Kernel B's split of the B * L / 80 windows (b, r flattened) over its
+    CTAs, as window bounds (first 0, last B * L / 80): the dh pass's runs of
+    BWD_RUN consecutive windows (the last may be shorter), and the dkernel
+    pass's groups, contiguous and as even as the count allows, so that
+    ceil(F / BWD_F_TILE) channel tiles x groups give one CTA to each of the
+    card's ``sms`` SMs (never more groups than windows)."""
+    total = batch * (length // POOL)
+    runs = list(range(0, total, BWD_RUN)) + [total]
+    tiles = -(-f // BWD_F_TILE)
+    groups = max(1, min(total, sms // tiles))
+    return runs, [total * i // groups for i in range(groups + 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch_plan(batch: int, length: int, f: int,
+                    device: torch.device) -> Tuple[torch.Tensor, int, int]:
+    """:func:`bwd_plan` for the card of ``device`` as the kernel takes it:
+    one int32 tensor of the run bounds, then the group bounds, on
+    ``device``, with the counts of runs and groups; built once per shape."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    runs, groups = bwd_plan(batch, length, f, sms)
+    plan = torch.tensor(runs + groups, dtype=torch.int32, device=device)
+    return plan, len(runs) - 1, len(groups) - 1
 
 
 def sgb_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
@@ -197,8 +265,7 @@ def sgb_contract_pool_prepared(h: torch.Tensor, wt: torch.Tensor,
     lib = _build.load("sgb_contract_pool", _SIGNATURE)
     err = lib.sgb_contract_pool_launch(
         h.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz,
-        length, f, float(negative_slope), h.device.index or 0,
-        torch.cuda.current_stream(h.device).cuda_stream)
+        length, f, float(negative_slope), *_build.launch_args(h))
     _build.check(lib, err, "sgb_contract_pool")
     launches += 1
     return out
@@ -226,7 +293,7 @@ def sgb_contract_pool_argmax(h: torch.Tensor, wt: torch.Tensor,
     err = lib.sgb_contract_pool_argmax_launch(
         h.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
         off.data_ptr(), bsz, length, f, float(negative_slope),
-        h.device.index or 0, torch.cuda.current_stream(h.device).cuda_stream)
+        *_build.launch_args(h))
     _build.check(lib, err, "sgb_contract_pool_argmax")
     argmax_launches += 1
     return out, off
@@ -264,14 +331,14 @@ def sgb_contract_pool_bwd(h: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                         f"weight on one CUDA device, got h {h.dtype} on "
                         f"{h.device}, g {g.dtype}, pooled {pooled.dtype}, "
                         f"off {off.dtype}, w {w.dtype} on {w.device}")
-    if c != CHANNELS or f % BWD_F_TILE:
+    if c != CHANNELS or f % BWD_F_MULT or bsz * rows >= 2 ** 31:
         raise ValueError(f"sgb_contract_pool_bwd: the CUDA kernel takes "
-                         f"C == 64 and F % 64 == 0, got C={c}, F={f}")
+                         f"C == 64, F % 64 == 0 and B * L / 80 < 2^31, got "
+                         f"C={c}, F={f}, B={bsz}, L={length}")
     h, g, pooled, off = (t.contiguous() for t in (h, g, pooled, off))
-    # [f][t][c]: the dh pass reads one tap's 64 channels of a selected
-    # channel as one coalesced row
+    # [f][t][c]: the dh pass streams 32 channels' taps as one 40 KB chunk
     w_ftc = w.permute(2, 0, 1).contiguous()
-    groups = min(BWD_GROUPS, bsz * rows)
+    plan, n_runs, groups = bwd_launch_plan(bsz, length, f, h.device)
     dh = torch.empty_like(h)
     dkernel = torch.empty((k, c, f), dtype=torch.float32, device=h.device)
     dbias = torch.empty((f,), dtype=torch.float32, device=h.device)
@@ -282,9 +349,9 @@ def sgb_contract_pool_bwd(h: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     err = lib.sgb_contract_pool_bwd_launch(
         h.data_ptr(), w_ftc.data_ptr(), g.data_ptr(), pooled.data_ptr(),
         off.data_ptr(), dh.data_ptr(), dkernel.data_ptr(), dbias.data_ptr(),
-        part_w.data_ptr(), part_b.data_ptr(), bsz, length, f, groups,
-        float(negative_slope), h.device.index or 0,
-        torch.cuda.current_stream(h.device).cuda_stream)
+        part_w.data_ptr(), part_b.data_ptr(), plan.data_ptr(), n_runs,
+        groups, bsz, length, f, float(negative_slope),
+        *_build.launch_args(h))
     _build.check(lib, err, "sgb_contract_pool_bwd")
     bwd_launches += 1
     return dh, dkernel, dbias

@@ -165,8 +165,7 @@ def sgb_contract_pool_dma_prepared(h: torch.Tensor, image: torch.Tensor,
     lib = _build.load("sgb_contract_pool_dma", _SIGNATURE)
     err = lib.sgb_contract_pool_dma_launch(
         h.data_ptr(), image.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz,
-        length, f, float(negative_slope), h.device.index or 0,
-        torch.cuda.current_stream(h.device).cuda_stream)
+        length, f, float(negative_slope), *_build.launch_args(h))
     _build.check(lib, err, "sgb_contract_pool_dma")
     launches += 1
     return out

@@ -171,6 +171,33 @@ def test_sgb_trainable_kernels_match_plain(cuda, batch, length, f):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("batch,length,f", [(1, 80, 512), (2, 800, 128),
+                                            (3, 2000, 512), (5, 8000, 512)])
+def test_sgb_bwd_kernel_exact_inputs_bit_for_bit(cuda, batch, length, f):
+    """Kernel B on ``sgb.bwd_exact_inputs``: every f32 sum exact and dh
+    exact in bf16, offsets at the window seams, so the kernel gives its
+    plain version's bits and a term missed across a seam (between two
+    windows of one CTA's run or across its ends) differs. B * L / 80 is 1,
+    20, 75 and 500 windows: runs of 8 with a partial last one, a single
+    window with no neighbour, runs that cross from one waveform to the
+    next."""
+    h, w, g, pooled, off = (torch.from_numpy(a).to(cuda) for a in
+                            sgb.bwd_exact_inputs(batch, length, seed=length,
+                                                 f=f))
+    h, g, pooled = (t.to(torch.bfloat16) for t in (h, g, pooled))
+    assert (batch * length // 80) % sgb.BWD_RUN != 0
+    before = sgb.bwd_launches
+    got = sgb.sgb_contract_pool_bwd(h, w, g, pooled, off)
+    again = sgb.sgb_contract_pool_bwd(h, w, g, pooled, off)
+    ref = sgb.sgb_contract_pool_bwd_reference(h, w, g, pooled, off)
+    torch.cuda.synchronize()
+    assert sgb.bwd_launches == before + 2
+    for x, y, z, name in zip(got, again, ref, ("dh", "dkernel", "dbias")):
+        assert z.abs().max().item() > 0, name
+        assert torch.equal(x, z), (name, (x != z).sum().item())
+        assert torch.equal(x, y), name
+
+
 def test_fused_train_step_on_the_card(cuda):
     """Two fused train steps at L=1600: both trainable kernels launch on
     each, the loss is finite."""

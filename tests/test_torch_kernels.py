@@ -172,3 +172,24 @@ def test_conv_stack_tiles_stitch_to_the_whole(rng, length):
     assert torch.isfinite(got).all()
     scale = float(ref.abs().max())
     assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("module", ["conv_stack", "dma_probe", "sgb",
+                                    "sgb_dma"])
+def test_every_launch_takes_its_stream_from_build(module):
+    """Each wrapper passes its device index and raw stream handle through
+    ``_build.launch_args`` (one helper, no ``torch.cuda.Stream`` object a
+    call), and no CUDA launch function calls ``cudaSetDevice`` itself
+    (``use_device`` in ``csrc/common.cuh`` skips it where the device is
+    already current)."""
+    import inspect
+    from pathlib import Path
+    from stofnet_tpu_torch.ops import kernels
+
+    src = inspect.getsource(getattr(kernels, module))
+    launches = src.count("_launch(")
+    assert launches and src.count("*_build.launch_args(") == launches
+    assert "current_stream" not in src and "device.index" not in src
+    csrc = Path(kernels._build.CSRC)
+    for cu in csrc.glob("*.cu"):
+        assert "cudaSetDevice" not in cu.read_text(), cu.name

@@ -158,6 +158,56 @@ def test_sgb_bwd_plain_matches_jax_backward(rng, dtype):
                                        err_msg=name)
 
 
+@pytest.mark.parametrize("batch,length", [(2, 80), (2, 800)])
+def test_sgb_bwd_plain_matches_jax_backward_bit_for_bit(batch, length):
+    """On ``sgb.bwd_exact_inputs`` (small integers, pooled >= 0 so g_pre
+    = g, offsets at the window seams 0, 1, 78, 79 and elsewhere) every f32
+    sum is exact and dh exact in bf16: kernel B's plain version gives the
+    bits of the JAX backward in bf16, each output, with terms across the
+    seams present in both."""
+    h, w, g, pooled, off = sgb.bwd_exact_inputs(batch, length, seed=length)
+    hj, gj, pj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (h, g, pooled))
+    ref = jsgb._trainable_bwd(0.01, True, (hj, jnp.asarray(w),
+                                           jnp.zeros(w.shape[2]), pj,
+                                           jnp.asarray(off)), gj)
+    hb, gb, pb = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in (h, g, pooled))
+    got = sgb.sgb_contract_pool_bwd(hb, torch.from_numpy(w), gb, pb,
+                                    torch.from_numpy(off))
+    seam = np.isin(off, [0, 1, 78, 79]).mean()
+    assert 0.4 < seam < 0.7  # half the offsets at the seams, a few by chance
+    for x, r, name in zip(got, ref, ("dh", "dkernel", "dbias")):
+        r = np.asarray(r.astype(jnp.float32))
+        assert np.abs(r).max() > 0, name
+        np.testing.assert_array_equal(x.float().numpy(), r, err_msg=name)
+
+
+@pytest.mark.parametrize("f", [128, 512])
+@pytest.mark.parametrize("batch,length", [(3, 80), (3, 800), (3, 2000),
+                                          (3, 8000), (128, 8000)])
+def test_bwd_plan_covers_every_window_once(batch, length, f):
+    """Kernel B's plan: dh runs of at most BWD_RUN consecutive windows and
+    dkernel groups, each a partition of the B * L / 80 windows in order (a
+    partial last run where B * L / 80 % 8 != 0), no group empty, and one
+    CTA an SM for the dkernel pass where the windows allow."""
+    total = batch * (length // 80)
+    for sms in (132, 114):
+        runs, groups = sgb.bwd_plan(batch, length, f, sms)
+        for bounds in (runs, groups):
+            covered = np.concatenate([np.arange(a, b) for a, b in
+                                      zip(bounds[:-1], bounds[1:])])
+            np.testing.assert_array_equal(covered, np.arange(total))
+            assert all(b > a for a, b in zip(bounds[:-1], bounds[1:]))
+        sizes = np.diff(runs)
+        assert sizes.max() <= sgb.BWD_RUN
+        assert (sizes[:-1] == sgb.BWD_RUN).all()
+        assert sizes[-1] == (total % sgb.BWD_RUN or sgb.BWD_RUN)
+        tiles = -(-f // sgb.BWD_F_TILE)
+        assert (len(groups) - 1) * tiles <= sms
+        assert len(groups) - 1 == min(total, sms // tiles)
+        assert np.ptp(np.diff(groups)) <= 1
+
+
 def test_sgb_trainable_saves_no_pre_pool_plane(rng):
     """The op keeps (h, w, pooled, offsets) for its backward: nothing of
     the (B, L, F) size of the pre-pool plane."""
