@@ -30,7 +30,9 @@
    differs), and prints its tile count and its achieved TFLOP/s on the
    positions it keeps and on the rows it computes (halos included); the
    build prints every ptxas line that names ``wgmma`` (a serialized
-   ``wgmma`` runs far below its rate).
+   ``wgmma`` runs far below its rate) and the line that names each
+   function (the streamed kernel's two instantiations, serving and kernel
+   A, share a source).
 3. The probe: ``stofnet_tpu_torch.scripts.dma_probe``'s sweep on the
    card, every point held to its total (rtol 1e-3 of the PyTorch sum), to
    each element of the plain version (64 f32 epsilons of the sum of its
@@ -55,17 +57,23 @@
    route): it must launch no kernel and agree with the bf16 module on
    >= 0.99 of the coord slots.
 5. Holds the trainable SGB op's kernels against their plain versions at
-   B=128, L=8000, F=512: kernel A (forward with argmax) to the tolerance
-   above, its offsets equal to the plain version's wherever the plain
-   window maximum beats its runner-up by more than 1e-3 of its magnitude;
-   kernel B (backward) per output on kernel A's own outputs, its f32
-   sums (dkernel, dbias) also to relative L2 1e-5, and bitwise equal
+   B=128, L=8000, F=512: kernel A (forward with argmax, the streamed
+   kernel's ``wgmma`` loop on the ``sgb_dma_weights`` image) to the
+   tolerance above, its offsets equal to the plain version's wherever the
+   plain window maximum beats its runner-up by more than 1e-3 of its
+   magnitude, and bit for bit, pooled and offsets, on spike inputs at
+   L=800 and L (ties across whole windows); kernel B (backward) per
+   output on kernel A's own outputs, its f32 sums (dkernel, dbias) also to
+   relative L2 1e-5, and bitwise equal
    over two runs; then bit for bit to its plain version on
    ``sgb.bwd_exact_inputs`` at L=800 and L (every sum exact, offsets at the
    window seams, so a missed seam term differs). Times both as in 2
-   (kernel B's yardstick: the backward of cuDNN conv + max-pool + leaky in
-   bf16, timed alone), prints kernel B's device time by pass under the
-   profiler and its CUDA-core floor beside its bound, and requires one
+   (kernel A's yardstick: cuDNN conv + max-pool with indices + leaky;
+   kernel B's: the backward of cuDNN conv + max-pool + leaky in bf16, timed
+   alone), prints kernel A's device time under the profiler beside its
+   bound and yardstick, with the device time of the weight image the op
+   builds each step, kernel B's device time by pass and its CUDA-core
+   floor beside its bound, and requires one
    forward + backward of the op to stay below the 1.05 GB of one
    (128, 8000, 512) bf16 plane of device memory.
 6. The bench's paths (``bench_paths.py``) over a gate batch and 4 fresh
@@ -767,8 +775,8 @@ def kernels_trainable(dev, rng, state):
         2, 1, 0).contiguous()  # (5, 64, 512) f32
     b = state["semi_global_block.contract_conv.bias"]
     f = w.shape[2]
-    wt, bias = sgb.sgb_weights(w, b, torch.bfloat16)  # as the op does
-    pooled, off = sgb.sgb_contract_pool_argmax(h, wt, bias)
+    image, bias = sgb.sgb_dma_weights(w, b, torch.bfloat16)  # as the op does
+    pooled, off = sgb.sgb_contract_pool_argmax(h, image, bias)
     ref_pooled, ref_off = sgb.sgb_contract_pool_argmax_reference(h, w, b)
     err_a = check_close("sgb_contract_pool_argmax", pooled, ref_pooled)
     y = conv1d_same(h.float(), w.to(h.dtype).float(), b.to(h.dtype).float())
@@ -783,6 +791,8 @@ def kernels_trainable(dev, rng, state):
     if offsets["mismatch_clear"]:
         raise AssertionError("kernel A's offsets differ from the plain "
                              "version's where the window maximum is clear")
+    for length in (800, L):
+        argmax_spike_bits(length, dev)
 
     g = torch.from_numpy(rng.standard_normal(pooled.shape, np.float32)).to(
         dev, torch.bfloat16)
@@ -812,10 +822,16 @@ def kernels_trainable(dev, rng, state):
                              f"than one (B, L, 512) bf16 plane")
 
     hs = variants(h)
-    fwd = [sgb.sgb_contract_pool_argmax(x, wt, bias) for x in hs]
+    fwd = [sgb.sgb_contract_pool_argmax(x, image, bias) for x in hs]
     gs = variants(g)
-    ms_a = time_ms(lambda x: sgb.sgb_contract_pool_argmax(x, wt, bias),
+    ms_a = time_ms(lambda x: sgb.sgb_contract_pool_argmax(x, image, bias),
                    [(x,) for x in hs])
+    # 20 calls: over 4, one reading came to 3/4 of the event time (an
+    # event lost to the profiler), which 20 calls dilute
+    device_a = profile_runs(lambda x: sgb.sgb_contract_pool_argmax(
+        x, image, bias), hs * 5)
+    layout = profile_runs(lambda _: sgb.sgb_dma_weights(
+        w, b, torch.bfloat16), [None] * 20)
     plain_a = time_ms(
         lambda x: sgb.sgb_contract_pool_argmax_reference(x, w, b),
         [(x,) for x in hs])
@@ -828,8 +844,15 @@ def kernels_trainable(dev, rng, state):
                               return_indices=True)
         return F.leaky_relu(y, 0.01), idx
     lib_a = time_ms(library_a, hc)
-    t_a, by_a = bound(nbytes(h, wt, bias, pooled, off),
+    t_a, by_a = bound(nbytes(h, image, bias, pooled, off),
                       bf16=2.0 * B * L * f * w.shape[0] * w.shape[1])
+    log(f"sgb_contract_pool_argmax: {ms_a:.4f} ms (device "
+        f"{device_a['device_busy_ms']:.4f} ms a call under the profiler, "
+        f"{json.dumps(device_a['top_ms'])}), bound {t_a:.4f} ms by {by_a}, "
+        f"library (cuDNN conv + pool with indices + leaky) {lib_a:.4f} ms; "
+        f"the weight image it takes, built each step: device "
+        f"{layout['device_busy_ms']:.4f} ms a call "
+        f"{json.dumps(layout['top_ms'])}")
 
     bwd_args = [(x, gi, p, o) for x, gi, (p, o) in zip(hs, gs, fwd)]
     ms_b = time_ms(lambda x, gi, p, o: sgb.sgb_contract_pool_bwd(
@@ -868,7 +891,7 @@ def kernels_trainable(dev, rng, state):
     log(f"sgb_contract_pool_bwd: {ms_b:.4f} ms; bound {t_b:.4f} ms by "
         f"{by_b}, CUDA-core floor of the design {floor_b:.4f} ms")
     a = dict(name="sgb_contract_pool_argmax", route="cuda",
-             source="stofnet_tpu_torch/csrc/sgb_contract_pool.cu",
+             source="stofnet_tpu_torch/csrc/sgb_contract_pool_dma.cu",
              replaces="stofnet_tpu/ops/pallas/sgb_kernel.py:209",
              max_abs_err=err_a, ms=ms_a, plain_ms=plain_a, bound_ms=t_a,
              bound_by=by_a, library_ms=lib_a)
@@ -878,6 +901,30 @@ def kernels_trainable(dev, rng, state):
               max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=t_b,
               bound_by=by_b, library_ms=lib_b)
     return a, bk
+
+
+def argmax_spike_bits(length: int, dev) -> None:
+    """Kernel A on ``sgb_dma.spike_inputs`` at B=128 must give its plain
+    version's bits, pooled and offsets: every f32 sum is exact there, the
+    all-bias columns tie across whole windows (the first position wins),
+    and a tap that reads one row off moves a spike into another window."""
+    h, w, b = (torch.from_numpy(a).to(dev)
+               for a in sgb_dma.spike_inputs(B, length, seed=length))
+    h = h.to(torch.bfloat16)
+    image, bias = sgb.sgb_dma_weights(w, b, torch.bfloat16)
+    pooled, off = sgb.sgb_contract_pool_argmax(h, image, bias)
+    ref_pooled, ref_off = sgb.sgb_contract_pool_argmax_reference(h, w, b)
+    torch.cuda.synchronize()
+    for name, x, z in (("pooled", pooled, ref_pooled), ("offsets", off,
+                                                         ref_off)):
+        if not (0 < ref_pooled.float().max().item() < 32
+                and torch.equal(x, z)):
+            raise AssertionError(f"sgb_contract_pool_argmax {name}: spike "
+                                 f"inputs at L={length}: "
+                                 f"{int((x != z).sum())} outputs differ from "
+                                 f"the plain version")
+    log(f"sgb_contract_pool_argmax: spike inputs at L={length}: the plain "
+        f"version's bits, pooled and offsets")
 
 
 def bwd_exact_bits(length: int, dev) -> None:
@@ -1043,7 +1090,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "wgmma")):
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "wgmma")):
                 log(f"  {name}: {line.strip()}")
     log(f"card: {card()}")
     rng_new = np.random.default_rng(SEED + 2)  # this slice's phases

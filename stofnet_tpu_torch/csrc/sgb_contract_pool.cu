@@ -22,19 +22,9 @@
 // (exact: leaky is monotone). Rows of 72 bf16 (input) and 328 bf16 (weights)
 // keep the fragment loads free of bank conflicts. No cp.async, TMA or wgmma
 // yet: this is the simple first version. The mainloop and the pooled epilogue
-// live in sgb_window.cuh; they serve this kernel and kernel A only (the
-// streamed kernel, sgb_contract_pool_dma.cu, runs on wgmma).
-//
-// Kernel A, the forward of the trainable op (replaces _run(with_argmax=True)
-// of sgb_kernel.py, reached from sgb_contract_pool_trainable's _trainable_fwd):
-// the same mainloop (template flag ARGMAX), plus the int32 offset (0..79) of
-// each window's first maximal element. As in the JAX kernel, the maximum and
-// its offset are taken on y = bias + sum of taps in f32: the accumulator
-// starts at the bias. Rows are reduced as (value, row) pairs, on equal values
-// keeping the lower row: in registers over rows g, g+8, 16+g, ... in that
-// order, then across the three shuffles. Only the 80 real rows of a window
-// are candidates, never the halo rows. Its bound is the serving kernel's
-// (operations), plus 26 MB of offsets written at B=128, L=8000, F=512.
+// live in sgb_window.cuh, which serves this kernel alone (the streamed kernel
+// and kernel A, the trainable op's forward with argmax, run on wgmma in
+// sgb_contract_pool_dma.cu).
 
 #include "sgb_window.cuh"
 
@@ -45,13 +35,11 @@ using namespace sgb;
 constexpr int SMEM_IN = SMEM_TILE;                         // 24,192 B
 constexpr int SMEM = SMEM_W + SMEM_IN;                     // 108,160 B
 
-template <bool ARGMAX>
 __global__ void __launch_bounds__(THREADS, 2)
 sgb_contract_pool_kernel(const __nv_bfloat16* __restrict__ h,   // (B, L, 64)
                          const __nv_bfloat16* __restrict__ wt,  // (F, 320): [n][t*64 + c]
                          const float* __restrict__ bias,        // (F,)
                          __nv_bfloat16* __restrict__ out,       // (B, L/80, F)
-                         int* __restrict__ offs,                // (B, L/80, F), ARGMAX only
                          int L, int F, long long total_windows, float slope) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -96,69 +84,31 @@ sgb_contract_pool_kernel(const __nv_bfloat16* __restrict__ h,   // (B, L, 64)
 
     float acc[M_TILES][N_SUB][4];
 #pragma unroll
-    for (int j = 0; j < N_SUB; ++j) {
-      // ARGMAX: y = bias + taps, the value the JAX kernel takes the argmax of
-      const int n = n0 + wn * 32 + j * 8 + 2 * tq;
-      const float b0 = ARGMAX ? bias[n] : 0.f, b1 = ARGMAX ? bias[n + 1] : 0.f;
+    for (int i = 0; i < M_TILES; ++i)
 #pragma unroll
-      for (int i = 0; i < M_TILES; ++i) {
-        acc[i][j][0] = acc[i][j][2] = b0;
-        acc[i][j][1] = acc[i][j][3] = b1;
-      }
-    }
+      for (int j = 0; j < N_SUB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
     window_mma(acc, xw, wb, g, tq);
 
-    if constexpr (!ARGMAX) {
-      float mx[N_SUB][2];
-      window_max(acc, mx);
-      const long long gw = tile * WINDOWS + wm;
-      if (gw < total_windows)
-        store_pooled(out + (size_t)gw * F, bias, mx, n0 + wn * 32, g, tq, slope);
-    } else {
-      // (value, row) pairs: first maximal row of the window, ties to the
-      // lower; each column pair is written as soon as it is reduced
-      const long long gw = tile * WINDOWS + wm;
-#pragma unroll
-      for (int j = 0; j < N_SUB; ++j) {
-        float mx[2];
-        int ix[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float m = acc[0][j][e];
-          int r = g;
-#pragma unroll
-          for (int i = 0; i < M_TILES; ++i) {  // rows 16i+g, then 16i+g+8
-            if (i > 0 && acc[i][j][e] > m) { m = acc[i][j][e]; r = i * 16 + g; }
-            if (acc[i][j][e + 2] > m) { m = acc[i][j][e + 2]; r = i * 16 + g + 8; }
-          }
-#pragma unroll
-          for (int s = 4; s <= 16; s <<= 1) {
-            const float om = __shfl_xor_sync(0xffffffffu, m, s);
-            const int orow = __shfl_xor_sync(0xffffffffu, r, s);
-            if (om > m || (om == m && orow < r)) { m = om; r = orow; }
-          }
-          mx[e] = m >= 0.f ? m : slope * m;  // the bias is in already
-          ix[e] = r;
-        }
-        if (g == 0 && gw < total_windows) {
-          const int n = n0 + wn * 32 + j * 8 + 2 * tq;
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)gw * F + n) =
-              __floats2bfloat162_rn(mx[0], mx[1]);
-          *reinterpret_cast<int2*>(offs + (size_t)gw * F + n) = make_int2(ix[0], ix[1]);
-        }
-      }
-    }
+    float mx[N_SUB][2];
+    window_max(acc, mx);
+    const long long gw = tile * WINDOWS + wm;
+    if (gw < total_windows)
+      store_pooled(out + (size_t)gw * F, bias, mx, n0 + wn * 32, g, tq, slope);
     __syncthreads();  // the next tile overwrites xs
   }
 }
 
-template <bool ARGMAX>
-int launch(const void* h, const void* wt, const void* bias, void* out, void* offs,
-           int B, int L, int F, float slope, int device, void* stream) {
+}  // namespace
+
+extern "C" int sgb_contract_pool_launch(const void* h, const void* wt, const void* bias,
+                                        void* out, int B, int L, int F, float slope,
+                                        int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(sgb_contract_pool_kernel<ARGMAX>,
+  err = cudaFuncSetAttribute(sgb_contract_pool_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   int sms = 0;
@@ -172,25 +122,8 @@ int launch(const void* h, const void* wt, const void* bias, void* out, void* off
   if (per_slice > n_tiles) per_slice = n_tiles;
   if (per_slice < 1) per_slice = 1;
   dim3 grid(n_slices, (unsigned)per_slice);
-  sgb_contract_pool_kernel<ARGMAX><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+  sgb_contract_pool_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)h, (const __nv_bfloat16*)wt, (const float*)bias,
-      (__nv_bfloat16*)out, (int*)offs, L, F, total_windows, slope);
+      (__nv_bfloat16*)out, L, F, total_windows, slope);
   return cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int sgb_contract_pool_launch(const void* h, const void* wt, const void* bias,
-                                        void* out, int B, int L, int F, float slope,
-                                        int device, void* stream) {
-  return launch<false>(h, wt, bias, out, nullptr, B, L, F, slope, device, stream);
-}
-
-// kernel A: pooled output and the int32 offsets (B, L/80, F) of the first
-// maximal element of each window
-extern "C" int sgb_contract_pool_argmax_launch(const void* h, const void* wt,
-                                               const void* bias, void* out, void* offs,
-                                               int B, int L, int F, float slope,
-                                               int device, void* stream) {
-  return launch<true>(h, wt, bias, out, offs, B, L, F, slope, device, stream);
 }

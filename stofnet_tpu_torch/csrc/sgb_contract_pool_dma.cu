@@ -1,24 +1,37 @@
 // SemiGlobalBlock contract path with the input streamed through a copy ring:
-// leaky(maxpool80(conv1d_same_k5(h, w) + b)).
+// leaky(maxpool80(conv1d_same_k5(h, w) + b)), and kernel A, the same
+// contraction with the argmax of each window (template flag ARGMAX).
 //
-// Replaces the TPU kernel stofnet_tpu/ops/pallas/sgb_dma_kernel.py:
-// sgb_contract_pool_dma (_kernel), whose point is an explicit double-buffered
-// copy of the input from device memory (pltpu.make_async_copy with
-// semaphores). h (B, L, 64) bf16 with L % 800 == 0, weights bf16 in the
-// image of ops/kernels/sgb_dma.py:sgb_dma_weights, bias (F,) f32 -> out
-// (B, L/80, F) bf16. The function is the tile kernel's
-// (sgb_contract_pool.cu): f32 sums, the bias added after the window max
-// (exact: rounding is monotone), leaky after the pool, one rounding to bf16.
+// Serving (ARGMAX false) replaces the TPU kernel
+// stofnet_tpu/ops/pallas/sgb_dma_kernel.py: sgb_contract_pool_dma (_kernel),
+// whose point is an explicit double-buffered copy of the input from device
+// memory (pltpu.make_async_copy with semaphores). h (B, L, 64) bf16 (the
+// wrapper takes L % 800 == 0, the kernel every L % 80 == 0), weights bf16 in
+// the image of ops/kernels/sgb.py:sgb_dma_weights, bias (F,) f32 -> out
+// (B, L/80, F) bf16. The function is the tile kernel's (sgb_contract_pool.cu):
+// f32 sums, the bias added after the window max (exact: rounding is
+// monotone), leaky after the pool, one rounding to bf16.
 //
-// Bound on the H100: operations. At B=128, L=8000, F=512 the direct conv is
-// 3.36e11 FLOP (0.339 ms at 989 TFLOP/s bf16), against 131 MB read and
-// 13 MB written (0.04 ms at 3.35 TB/s).
+// Kernel A (ARGMAX true), the forward of the trainable op, replaces
+// _run(with_argmax=True) of stofnet_tpu/ops/pallas/sgb_kernel.py (_kernel,
+// pallas_call at :163, reached from sgb_contract_pool_trainable's
+// _trainable_fwd). Same inputs with every L % 80 == 0, plus int32 offsets
+// (B, L/80, F): the window-relative position (0..79) of the first maximal
+// element of y = bias + sum of taps in f32, the bias in before the max as
+// the JAX kernel's y (the accumulator starts at it); pooled = bf16(leaky(max
+// of y)).
+//
+// Bound on the H100, both: operations. At B=128, L=8000, F=512 the direct
+// conv is 3.36e11 FLOP (0.339 ms at 989 TFLOP/s bf16), against 131 MB read
+// and 13 MB written (0.04 ms at 3.35 TB/s); kernel A writes 26 MB of
+// offsets besides (0.05 ms of bytes in all).
 //
 // Design: the conv stack's wgmma recipe (conv_stack.cu) with its roles.
 // - One CTA per (waveform, 128-channel slice), as the TPU grid gives one
-//   program per waveform: 512 CTAs at B=128, F=512, one an SM (shared
-//   memory), 3.9 waves over 132 SMs. Two consumer warpgroups own 64 output
-//   channels each; a ninth warp issues the copies.
+//   program per waveform, numbered along x (no 65,535 limit on B): 512
+//   CTAs at B=128, F=512, one an SM (shared memory), 3.9 waves over 132
+//   SMs. Two consumer warpgroups own 64 output channels each; a ninth warp
+//   issues the copies.
 // - The product of a tile of two pool windows (160 positions): D (64
 //   channels x 160 positions, 80 f32 accumulators a thread) = A (a tap
 //   block's 64 channels x 16 input channels) x B (16 input channels x 160
@@ -40,28 +53,39 @@
 //   halo on each side, not duplicated between the two windows), each filled
 //   by one 3-D TMA copy over the (64, L, B) tensor in the 128-byte swizzle;
 //   rows at -2, -1 and >= L are outside the tensor and arrive as zeros, the
-//   SAME conv's padding. A full barrier a slot (the copy's bytes) and an
-//   empty barrier a slot (one arrival a warpgroup once its wgmma are done)
-//   let the two warpgroups run a tile apart, so one's epilogue overlaps the
-//   other's products. The copy warp needs no registers to speak of: nine
-//   warps leave each thread up to 224 (the conv stack's 17th warp capped
-//   its 512 threads at 96).
+//   SAME conv's padding. A waveform takes ceil(W / 2) tiles of W = L / 80
+//   windows: where W is odd, the last tile's second window lies past L, its
+//   rows arrive as zeros (the first window's right halo), and it is
+//   computed but not stored (the masked last tile). A full barrier a slot
+//   (the copy's bytes) and an empty barrier a slot (one arrival a
+//   warpgroup once its wgmma are done) let the two warpgroups run a tile
+//   apart, so one's epilogue overlaps the other's products. The copy warp
+//   needs no registers to speak of: nine warps leave each thread up to 224
+//   (the conv stack's 17th warp capped its 512 threads at 96).
 // - The pooled epilogue in registers: for window w a thread holds the n8
 //   groups 10w..10w+9, two columns each, on rows g and g+8 of its warp's
 //   16; it takes the max of its 20 values per row, then across the quad
 //   (shuffles xor 1, 2); the lane whose column pair is 2w + m adds the bias
 //   to row g + 8m, applies leaky and stores one bf16. No pre-pool value
 //   leaves the registers.
+// - Kernel A's (value, position) epilogue: the same walk keeps the
+//   position too, j over 10w..10w+9 then e, so a strict > keeps the lower
+//   of equal values; across the quad (shuffles xor 1, 2 of the pair) equal
+//   values go to the lower position. The lane with tq == 2w + m stores
+//   bf16(leaky(max)) and the offset. Halo rows are input rows only, never
+//   candidates, as in the JAX kernel.
 // Shared memory: 80 KB of weights + 4 x 21 KB stages + barriers, 169,032 B
 // with the 1,024 B that align the swizzled buffers.
 //
-// This replaces the first design (the tile kernel's mma.sync mainloop,
-// sgb_window.cuh, fed with 32-bit shared loads: 23 FLOP a byte of shared
-// memory): a k16 step of a warpgroup here reads 2 KB of A and 5 KB of B for
-// 327 kFLOP, 47 FLOP a byte, within the SM's shared-memory rate at the
-// tensor cores' peak. What is left above the bound is the tail of the last
-// of the 3.9 waves and each tile's epilogue, which the other warpgroup's
-// products cover.
+// This replaces the first design of both (the tile kernel's mma.sync
+// mainloop, sgb_window.cuh, fed with 32-bit shared loads: 23 FLOP a byte of
+// shared memory, no copy pipeline, 84 rows staged a window): a k16 step of
+// a warpgroup here reads 2 KB of A and 5 KB of B for 327 kFLOP, 47 FLOP a
+// byte, within the SM's shared-memory rate at the tensor cores' peak. What
+// is left above the bound is the tail of the last of the 3.9 waves and each
+// tile's epilogue, which the other warpgroup's products cover: kernel A's
+// (value, position) epilogue and offset stores cost it 0.024 ms over the
+// serving instantiation at B=128, L=8000 (PERF.md).
 
 #include "hopper.cuh"
 
@@ -128,11 +152,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t a, uint64_t b)
       : "l"(a), "l"(b), "r"(1));
 }
 
+template <bool ARGMAX>
 __global__ void __launch_bounds__(THREADS, 1)
 sgb_contract_pool_dma_kernel(const __grid_constant__ CUtensorMap hmap,  // h as (64, L, B)
                              const __nv_bfloat16* __restrict__ wimg,  // (F/64, 5, 64 x 64)
                              const float* __restrict__ bias,          // (F,)
                              __nv_bfloat16* __restrict__ out,         // (B, L/80, F)
+                             int* __restrict__ offs,  // (B, L/80, F), ARGMAX only
                              int L, int F, float slope) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzled buffers on 1,024-byte boundaries: the 128-byte swizzle is
@@ -145,8 +171,10 @@ sgb_contract_pool_dma_kernel(const __grid_constant__ CUtensorMap hmap,  // h as 
   uint64_t* wbar = empty + STAGES;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y;
-  const int n_tiles = L / NP;
+  const int n_slices = F / N_TILE;
+  const int slice = blockIdx.x % n_slices, b = blockIdx.x / n_slices;
+  const int W = L / POOL;
+  const int n_tiles = (W + WINDOWS - 1) / WINDOWS;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -162,7 +190,7 @@ sgb_contract_pool_dma_kernel(const __grid_constant__ CUtensorMap hmap,  // h as 
     // the weight slice, then the input tiles, slot s refilled once both
     // warpgroups have released it
     if (lane == 0) {
-      const __nv_bfloat16* wsrc = wimg + (size_t)blockIdx.x * (SMEM_W / 2);
+      const __nv_bfloat16* wsrc = wimg + (size_t)slice * (SMEM_W / 2);
       for (int i = 0; i < HALVES * K; ++i)
         bulk_load(ws + i * TAP_BYTES, wsrc + i * (TAP_BYTES / 2), TAP_BYTES, wbar);
       for (int tile = 0; tile < n_tiles; ++tile) {
@@ -178,18 +206,18 @@ sgb_contract_pool_dma_kernel(const __grid_constant__ CUtensorMap hmap,  // h as 
   // slice; its warp wq the rows [16 wq, 16 wq + 16), the accumulator's
   // layout: d[4j + 2m + e] is channel g + 8m, position 8j + 2tq + e
   const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, tq = lane & 3;
-  const int ch = blockIdx.x * N_TILE + wg * GROUP + wq * 16 + g;
+  const int ch = slice * N_TILE + wg * GROUP + wq * 16 + g;
   const float bias0 = bias[ch], bias1 = bias[ch + 8];
   const uint32_t w0 = smem_u32(ws + wg * K * TAP_BYTES), x0 = smem_u32(xs);
-  const int W = L / POOL;
 
   mbar_wait(wbar, 0);
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int s = tile % STAGES;
     mbar_wait(&full[s], (tile / STAGES) & 1);
     float acc[4 * N_SUB];
+    // ARGMAX: y = bias + taps, the value the JAX kernel takes the argmax of
 #pragma unroll
-    for (int i = 0; i < 4 * N_SUB; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 4 * N_SUB; ++i) acc[i] = ARGMAX ? ((i & 2) ? bias1 : bias0) : 0.f;
     acc_fence(acc);
     wg_fence();
     const uint32_t xb = x0 + s * STAGE_STRIDE;
@@ -211,32 +239,63 @@ sgb_contract_pool_dma_kernel(const __grid_constant__ CUtensorMap hmap,  // h as 
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         constexpr int J = N_SUB / WINDOWS;
-        float mx = fmaxf(acc[4 * J * w + 2 * m], acc[4 * J * w + 2 * m + 1]);
+        // the masked last tile: a second window past L is not stored
+        const bool store = tq == 2 * w + m && tile * WINDOWS + w < W;
+        const size_t o = (row0 + w) * F + ch + 8 * m;
+        if constexpr (ARGMAX) {
+          // (value, position) in increasing position order: the thread's
+          // candidates are 8 (j - J w) + 2 tq + e, kept as k = that - 2 tq
+          float mx = acc[4 * J * w + 2 * m];
+          int k = 0;
 #pragma unroll
-        for (int j = J * w + 1; j < J * (w + 1); ++j)
-          mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * m], acc[4 * j + 2 * m + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        if (tq == 2 * w + m) {
-          float v = mx + (m ? bias1 : bias0);
-          v = v >= 0.f ? v : slope * v;
-          out[(row0 + w) * F + ch + 8 * m] = __float2bfloat16_rn(v);
+          for (int j = J * w; j < J * (w + 1); ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if ((j > J * w || e > 0) && acc[4 * j + 2 * m + e] > mx) {
+                mx = acc[4 * j + 2 * m + e];
+                k = 8 * (j - J * w) + e;
+              }
+          int pos = k + 2 * tq;
+#pragma unroll
+          for (int x = 1; x <= 2; x <<= 1) {
+            const float om = __shfl_xor_sync(0xffffffffu, mx, x);
+            const int op = __shfl_xor_sync(0xffffffffu, pos, x);
+            if (om > mx || (om == mx && op < pos)) {
+              mx = om;
+              pos = op;
+            }
+          }
+          if (store) {
+            out[o] = __float2bfloat16_rn(mx >= 0.f ? mx : slope * mx);  // bias in already
+            offs[o] = pos;
+          }
+        } else {
+          float mx = fmaxf(acc[4 * J * w + 2 * m], acc[4 * J * w + 2 * m + 1]);
+#pragma unroll
+          for (int j = J * w + 1; j < J * (w + 1); ++j)
+            mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * m], acc[4 * j + 2 * m + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          if (store) {
+            float v = mx + (m ? bias1 : bias0);
+            v = v >= 0.f ? v : slope * v;
+            out[o] = __float2bfloat16_rn(v);
+          }
         }
       }
   }
 }
 
-}  // namespace
-
-extern "C" int sgb_contract_pool_dma_launch(const void* h, const void* wimg, const void* bias,
-                                            void* out, int B, int L, int F, float slope,
-                                            int device, void* stream) {
+template <bool ARGMAX>
+int launch(const void* h, const void* wimg, const void* bias, void* out, void* offs,
+           int B, int L, int F, float slope, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(sgb_contract_pool_dma_kernel,
+  err = cudaFuncSetAttribute(sgb_contract_pool_dma_kernel<ARGMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
-  if (B > 65535) return cudaErrorInvalidValue;  // one grid row per waveform
+  const long long ctas = (long long)B * (F / N_TILE);  // one a (waveform, slice)
+  if (ctas < 1 || ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
   EncodeTiled encode;
   err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
@@ -251,8 +310,25 @@ extern "C" int sgb_contract_pool_dma_launch(const void* h, const void* wimg, con
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  dim3 grid(F / N_TILE, B);
-  sgb_contract_pool_dma_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-      map, (const __nv_bfloat16*)wimg, (const float*)bias, (__nv_bfloat16*)out, L, F, slope);
+  sgb_contract_pool_dma_kernel<ARGMAX><<<(unsigned)ctas, THREADS, SMEM, (cudaStream_t)stream>>>(
+      map, (const __nv_bfloat16*)wimg, (const float*)bias, (__nv_bfloat16*)out, (int*)offs, L,
+      F, slope);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sgb_contract_pool_dma_launch(const void* h, const void* wimg, const void* bias,
+                                            void* out, int B, int L, int F, float slope,
+                                            int device, void* stream) {
+  return launch<false>(h, wimg, bias, out, nullptr, B, L, F, slope, device, stream);
+}
+
+// kernel A: pooled output and the int32 offsets (B, L/80, F) of the first
+// maximal element of each window of bias + conv
+extern "C" int sgb_contract_pool_argmax_launch(const void* h, const void* wimg,
+                                               const void* bias, void* out, void* offs,
+                                               int B, int L, int F, float slope,
+                                               int device, void* stream) {
+  return launch<true>(h, wimg, bias, out, offs, B, L, F, slope, device, stream);
 }

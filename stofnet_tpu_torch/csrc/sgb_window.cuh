@@ -1,5 +1,6 @@
-// The SGB contract+pool mma.sync mainloop of the tile kernel and of kernel A
-// (both in sgb_contract_pool.cu); the streamed kernel has its own on wgmma.
+// The SGB contract+pool mma.sync mainloop of the tile kernel
+// (sgb_contract_pool.cu), which it serves alone: the streamed kernel and
+// kernel A run on wgmma (sgb_contract_pool_dma.cu).
 //
 // A CTA holds a 128-channel slice of the contract conv's weights in shared
 // memory as rows of W_STRIDE bf16 ([n][t * 64 + c], 8 bf16 of padding), and

@@ -9,14 +9,20 @@ out once (``sgb_weights``) and calls ``sgb_contract_pool_prepared`` per
 batch.
 
 Training: ``sgb_contract_pool_trainable`` is differentiable. Its forward
-(``sgb_contract_pool_argmax``, the same kernel's argmax entry point) also
-returns the int32 offset (0..79) of each window's first maximal element of
-the biased f32 conv output, as the JAX kernel's ``with_argmax``; its
-backward (``sgb_contract_pool_bwd``, ``csrc/sgb_contract_pool_bwd.cu``)
-routes the cotangents through those offsets. It saves (h, pooled, offsets)
-and the weights. Neither pass allocates the (B, L, F) pre-pool tensor: only
-the pooled (B, L/80, F) rows and their offsets reach device memory. The
-kernels' designs and bounds are in the sources' headers.
+(``sgb_contract_pool_argmax``, kernel A: the streamed kernel's ``wgmma``
+loop in ``csrc/sgb_contract_pool_dma.cu`` with an argmax epilogue, on the
+weight image of ``sgb_dma_weights``) also returns the int32 offset (0..79)
+of each window's first maximal element of the biased f32 conv output, as
+the JAX kernel's ``with_argmax``; its backward (``sgb_contract_pool_bwd``,
+``csrc/sgb_contract_pool_bwd.cu``) routes the cotangents through those
+offsets. It saves (h, pooled, offsets) and the weights. Neither pass
+allocates the (B, L, F) pre-pool tensor: only the pooled (B, L/80, F) rows
+and their offsets reach device memory. The kernels' designs and bounds are
+in the sources' headers.
+
+``sgb_dma_weights`` (undone by ``dma_weights_plain``) lives here because
+kernel A takes it; ``sgb_dma`` re-exports it for the streamed serving
+kernel.
 """
 
 from __future__ import annotations
@@ -31,12 +37,14 @@ import torch.nn.functional as F
 
 from stofnet_tpu_torch.ops.conv import conv1d_same
 from stofnet_tpu_torch.ops.kernels import _build
+from stofnet_tpu_torch.ops.kernels.conv_stack import tap_block_index
 
 POOL = 80
 KSIZE = 5
 PAD = KSIZE // 2
 CHANNELS = 64
-N_TILE = 128  # output channels per CTA (csrc/sgb_contract_pool.cu)
+N_TILE = 128  # output channels per CTA (both forward sources)
+GROUP = 64  # output channels of one tap block of the sgb_dma_weights image
 BWD_F_MULT = 64  # kernel B takes F % 64 == 0 (its dh pass's weight chunks)
 BWD_RUN = 8  # windows of a dh CTA's run (csrc/sgb_contract_pool_bwd.cu)
 BWD_F_TILE = 128  # output channels of a dkernel CTA (the same source)
@@ -51,9 +59,13 @@ COUNTERS = ("launches", "argmax_launches", "bwd_launches")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = {
-    "sgb_contract_pool_launch": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
-                                 _I, _P],
+_SIGNATURE = {"sgb_contract_pool_launch": [_P, _P, _P, _P, _I, _I, _I,
+                                           ctypes.c_float, _I, _P]}
+# csrc/sgb_contract_pool_dma.cu, whichever of this module and sgb_dma loads
+# it first: the streamed serving kernel and kernel A
+DMA_SIGNATURE = {
+    "sgb_contract_pool_dma_launch": [_P, _P, _P, _P, _I, _I, _I,
+                                     ctypes.c_float, _I, _P],
     "sgb_contract_pool_argmax_launch": [_P, _P, _P, _P, _P, _I, _I, _I,
                                         ctypes.c_float, _I, _P],
 }
@@ -205,6 +217,37 @@ def sgb_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
     return wt, b.to(dtype).float().contiguous()
 
 
+def sgb_dma_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
+    """The layout of the contract conv that kernel A and the streamed
+    serving kernel take, built once per model (each training step for
+    kernel A): w (5, 64, F) -> (F / 64, 5, 64 * 64) in ``dtype``, for each
+    group of 64 output channels and each tap the 64 x 64 block [n][c] in
+    the 128-byte swizzle (``conv_stack.tap_block_index``, the conv stack's
+    tap-block image), so a CTA's 128 channels are one run of 80 KB that
+    bulk copies bring into shared memory as ``wgmma`` reads it; b rounded
+    to ``dtype`` and held in f32."""
+    k, c, f = w.shape
+    if k != KSIZE or c != CHANNELS or f % GROUP or b.shape != (f,):
+        raise ValueError(f"sgb_dma_weights: w {tuple(w.shape)}, b "
+                         f"{tuple(b.shape)}: needs w (5, 64, F) with "
+                         f"F % 64 == 0 and b (F,)")
+    blocks = w.to(dtype).permute(2, 0, 1).reshape(f // GROUP, GROUP, k, c)
+    image = torch.empty((f // GROUP, k, GROUP * c), dtype=dtype,
+                        device=w.device)
+    image[:, :, tap_block_index(w.device)] = blocks.permute(
+        0, 2, 1, 3).reshape(f // GROUP, k, GROUP * c)
+    return image, b.to(dtype).float().contiguous()
+
+
+def dma_weights_plain(image: torch.Tensor) -> torch.Tensor:
+    """The (5, 64, F) conv kernel held in an :func:`sgb_dma_weights`
+    image: its swizzled blocks read back in order."""
+    groups, k, _ = image.shape
+    blocks = image[:, :, tap_block_index(image.device)].reshape(
+        groups, k, GROUP, CHANNELS)  # [group][t][n][c]
+    return blocks.permute(1, 3, 0, 2).reshape(k, CHANNELS, groups * GROUP)
+
+
 def sgb_contract_pool(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       negative_slope: float = 0.01) -> torch.Tensor:
     """leaky(maxpool80(conv1d_same(h, w) + b)): :func:`sgb_weights` on
@@ -241,6 +284,37 @@ def _check_kernel_inputs(what, h, wt, bias):
                          f"and F % 128 == 0, got C={c}, F={f}")
 
 
+def check_image_inputs(what: str, h: torch.Tensor, image: torch.Tensor,
+                       bias: torch.Tensor) -> None:
+    """Shapes of every input of a kernel on the :func:`sgb_dma_weights`
+    image (L % 80 == 0, image (F / 64, 5, 64 * C), bias (F,)); for the
+    CUDA kernel also types and devices, C == 64, F % 128 == 0 and, where
+    ``h`` is contiguous (the wrapper copies it otherwise), a 16-byte
+    aligned base, which the kernel's tensor map needs."""
+    _, length, c = h.shape
+    f = bias.shape[0]
+    if (length % POOL or f % GROUP or bias.shape != (f,)
+            or image.shape != (f // GROUP, KSIZE, GROUP * c)):
+        raise ValueError(f"{what}: h {tuple(h.shape)}, weights "
+                         f"{tuple(image.shape)}, bias {tuple(bias.shape)}: "
+                         f"needs L % 80 == 0, weights (F / 64, 5, 64 * C) "
+                         f"and bias (F,)")
+    if h.device.type == "cpu":
+        return
+    if (h.device.type != "cuda" or h.dtype != torch.bfloat16
+            or image.dtype != torch.bfloat16 or bias.dtype != torch.float32
+            or not image.device == bias.device == h.device):
+        raise TypeError(f"{what}: the CUDA kernel takes bfloat16 on a CUDA "
+                        f"device, got {h.dtype} on {h.device} with weights "
+                        f"{image.dtype} on {image.device}")
+    if c != CHANNELS or f % N_TILE:
+        raise ValueError(f"{what}: the CUDA kernel takes C == 64 and "
+                         f"F % 128 == 0, got C={c}, F={f}")
+    if h.is_contiguous() and h.data_ptr() % 16:
+        raise ValueError(f"{what}: the CUDA kernel's tensor map needs h "
+                         f"16-byte aligned, got address {h.data_ptr():#x}")
+
+
 def _plain_weights(wt, bias):
     f, kc = wt.shape
     return wt.reshape(f, KSIZE, kc // KSIZE).permute(1, 2, 0), bias
@@ -271,27 +345,28 @@ def sgb_contract_pool_prepared(h: torch.Tensor, wt: torch.Tensor,
     return out
 
 
-def sgb_contract_pool_argmax(h: torch.Tensor, wt: torch.Tensor,
+def sgb_contract_pool_argmax(h: torch.Tensor, image: torch.Tensor,
                              bias: torch.Tensor, negative_slope: float = 0.01
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel A on weights in the kernel's layout (:func:`sgb_weights`):
-    (pooled (B, L/80, F) in ``h.dtype``, int32 offsets (B, L/80, F)). The
-    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    """Kernel A on weights in the :func:`sgb_dma_weights` image: (pooled
+    (B, L/80, F) in ``h.dtype``, int32 offsets (B, L/80, F)), for every
+    L % 80 == 0. The CUDA kernel on a CUDA tensor, the plain version on a
+    CPU tensor; raises (:func:`check_image_inputs`) on anything else."""
     global argmax_launches
-    _check_kernel_inputs("sgb_contract_pool_argmax", h, wt, bias)
+    check_image_inputs("sgb_contract_pool_argmax", h, image, bias)
     if h.device.type == "cpu":
         return sgb_contract_pool_argmax_reference(
-            h, *_plain_weights(wt, bias), negative_slope)
+            h, dma_weights_plain(image), bias, negative_slope)
     bsz, length, _ = h.shape
-    f = wt.shape[0]
-    h, wt, bias = h.contiguous(), wt.contiguous(), bias.contiguous()
+    f = bias.shape[0]
+    h, image, bias = h.contiguous(), image.contiguous(), bias.contiguous()
     out = torch.empty((bsz, length // POOL, f), dtype=torch.bfloat16,
                       device=h.device)
     off = torch.empty((bsz, length // POOL, f), dtype=torch.int32,
                       device=h.device)
-    lib = _build.load("sgb_contract_pool", _SIGNATURE)
+    lib = _build.load("sgb_contract_pool_dma", DMA_SIGNATURE)
     err = lib.sgb_contract_pool_argmax_launch(
-        h.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        h.data_ptr(), image.data_ptr(), bias.data_ptr(), out.data_ptr(),
         off.data_ptr(), bsz, length, f, float(negative_slope),
         *_build.launch_args(h))
     _build.check(lib, err, "sgb_contract_pool_argmax")
@@ -368,8 +443,8 @@ class _Trainable(torch.autograd.Function):
             pooled, off = sgb_contract_pool_argmax_reference(
                 h, w, b, negative_slope)
         else:
-            wt, bias = sgb_weights(w, b, h.dtype)
-            pooled, off = sgb_contract_pool_argmax(h, wt, bias,
+            image, bias = sgb_dma_weights(w, b, h.dtype)
+            pooled, off = sgb_contract_pool_argmax(h, image, bias,
                                                    negative_slope)
         ctx.save_for_backward(h, w, pooled, off)
         ctx.slope, ctx.plain, ctx.bias_dtype = negative_slope, plain, b.dtype

@@ -7,34 +7,27 @@ The same function as ``sgb.sgb_contract_pool``, for the shapes of
 ``csrc/sgb_contract_pool_dma.cu`` on a CUDA tensor and runs
 ``sgb_contract_pool_dma_reference`` on a CPU tensor. A server lays the
 weights out once with :func:`sgb_dma_weights` (the kernel's shared-memory
-image of them, undone by :func:`dma_weights_plain`) and calls
+image of them, undone by :func:`dma_weights_plain`; both live in ``sgb``,
+whose kernel A takes the same image) and calls
 ``sgb_contract_pool_dma_prepared`` per batch. The kernel's design and
 bound are in the source's header.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from stofnet_tpu_torch.ops.kernels import _build
-from stofnet_tpu_torch.ops.kernels.conv_stack import tap_block_index
 from stofnet_tpu_torch.ops.kernels.sgb import (
-    CHANNELS, KSIZE, N_TILE, POOL, sgb_contract_pool_reference,
+    CHANNELS, DMA_SIGNATURE, KSIZE, POOL, check_image_inputs,
+    dma_weights_plain, sgb_contract_pool_reference, sgb_dma_weights,
 )
 
 CHUNK = 800  # samples: the JAX kernel's chunk, 10 pool windows
-GROUP = 64  # output channels of one tap block (one warpgroup's rows)
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 COUNTERS = ("launches",)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURE = {"sgb_contract_pool_dma_launch": [_P, _P, _P, _P, _I, _I, _I,
-                                               ctypes.c_float, _I, _P]}
 
 
 def dma_supported(length: int, channels: int) -> bool:
@@ -42,36 +35,6 @@ def dma_supported(length: int, channels: int) -> bool:
     L % 800 == 0, L >= 800 and C == 64. The dispatch rule of
     ``models/fused.py``'s ``sgb_impl="dma"``."""
     return length % CHUNK == 0 and length >= CHUNK and channels == CHANNELS
-
-
-def sgb_dma_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
-    """The streamed kernel's layout of the contract conv, built once per
-    model: w (5, 64, F) -> (F / 64, 5, 64 * 64) in ``dtype``, for each
-    group of 64 output channels and each tap the 64 x 64 block [n][c] in
-    the 128-byte swizzle (``conv_stack.tap_block_index``, the conv stack's
-    tap-block image), so a CTA's 128 channels are one run of 80 KB that
-    bulk copies bring into shared memory as ``wgmma`` reads it; b rounded
-    to ``dtype`` and held in f32."""
-    k, c, f = w.shape
-    if k != KSIZE or c != CHANNELS or f % GROUP or b.shape != (f,):
-        raise ValueError(f"sgb_dma_weights: w {tuple(w.shape)}, b "
-                         f"{tuple(b.shape)}: needs w (5, 64, F) with "
-                         f"F % 64 == 0 and b (F,)")
-    blocks = w.to(dtype).permute(2, 0, 1).reshape(f // GROUP, GROUP, k, c)
-    image = torch.empty((f // GROUP, k, GROUP * c), dtype=dtype,
-                        device=w.device)
-    image[:, :, tap_block_index(w.device)] = blocks.permute(
-        0, 2, 1, 3).reshape(f // GROUP, k, GROUP * c)
-    return image, b.to(dtype).float().contiguous()
-
-
-def dma_weights_plain(image: torch.Tensor) -> torch.Tensor:
-    """The (5, 64, F) conv kernel held in an :func:`sgb_dma_weights`
-    image: its swizzled blocks read back in order."""
-    groups, k, _ = image.shape
-    blocks = image[:, :, tap_block_index(image.device)].reshape(
-        groups, k, GROUP, CHANNELS)  # [group][t][n][c]
-    return blocks.permute(1, 3, 0, 2).reshape(k, CHANNELS, groups * GROUP)
 
 
 def spike_inputs(batch: int, length: int, seed: int = 0):
@@ -140,29 +103,17 @@ def sgb_contract_pool_dma_prepared(h: torch.Tensor, image: torch.Tensor,
     global launches
     bsz, length, c = h.shape
     f = bias.shape[0]
-    if (not dma_supported(length, c) or f % GROUP
-            or image.shape != (f // GROUP, KSIZE, GROUP * c)):
-        raise ValueError(f"sgb_contract_pool_dma: h {tuple(h.shape)}, "
-                         f"weights {tuple(image.shape)}, bias "
-                         f"{tuple(bias.shape)}: needs L % 800 == 0, L >= 800, "
-                         f"C == 64, weights (F / 64, 5, 64 * C) and bias (F,)")
+    if not dma_supported(length, c):
+        raise ValueError(f"sgb_contract_pool_dma: h {tuple(h.shape)}: "
+                         f"needs L % 800 == 0, L >= 800 and C == 64")
+    check_image_inputs("sgb_contract_pool_dma", h, image, bias)
     if h.device.type == "cpu":
         return sgb_contract_pool_dma_reference(h, dma_weights_plain(image),
                                                bias, negative_slope)
-    if (h.device.type != "cuda" or h.dtype != torch.bfloat16
-            or image.dtype != torch.bfloat16 or bias.dtype != torch.float32
-            or not image.device == bias.device == h.device):
-        raise TypeError(f"sgb_contract_pool_dma: the CUDA kernel takes "
-                        f"bfloat16 on a CUDA device, got {h.dtype} on "
-                        f"{h.device} with weights {image.dtype} on "
-                        f"{image.device}")
-    if f % N_TILE:
-        raise ValueError(f"sgb_contract_pool_dma: the CUDA kernel takes "
-                         f"F % 128 == 0, got F={f}")
     h, image, bias = h.contiguous(), image.contiguous(), bias.contiguous()
     out = torch.empty((bsz, length // POOL, f), dtype=torch.bfloat16,
                       device=h.device)
-    lib = _build.load("sgb_contract_pool_dma", _SIGNATURE)
+    lib = _build.load("sgb_contract_pool_dma", DMA_SIGNATURE)
     err = lib.sgb_contract_pool_dma_launch(
         h.data_ptr(), image.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz,
         length, f, float(negative_slope), *_build.launch_args(h))

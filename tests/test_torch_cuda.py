@@ -10,7 +10,9 @@ round at the kernel's points and run in f32 with TF32 off, so the two
 differ by the order of f32 sums and the bf16 roundings that order flips.
 Kernel A's offsets must equal the plain version's wherever the plain
 window maximum beats its runner-up by more than 1e-3 of its magnitude (a
-closer pair may swap under another order of f32 sums); kernel B is held
+closer pair may swap under another order of f32 sums), and both its
+outputs must equal the plain version's bits on spike inputs, whose every
+f32 sum is exact; kernel B is held
 against its plain version on kernel A's own outputs, per output, and must
 give the same bits twice. The streamed SGB kernel sums in another order
 than the tile kernel, so it is held to its plain version at the tolerance
@@ -151,9 +153,9 @@ def test_sgb_trainable_kernels_match_plain(cuda, batch, length, f):
         np.float32)).to(cuda)
     b = torch.from_numpy((rng.standard_normal(f) * 0.1).astype(
         np.float32)).to(cuda)
-    wt, bias = sgb.sgb_weights(w, b, torch.bfloat16)
+    image, bias = sgb.sgb_dma_weights(w, b, torch.bfloat16)
     before = (sgb.argmax_launches, sgb.bwd_launches)
-    pooled, off = sgb.sgb_contract_pool_argmax(h, wt, bias)
+    pooled, off = sgb.sgb_contract_pool_argmax(h, image, bias)
     ref_pooled, ref_off = sgb.sgb_contract_pool_argmax_reference(h, w, b)
     _close(pooled, ref_pooled)
     clear = _clear_windows(h, w, b)
@@ -169,6 +171,43 @@ def test_sgb_trainable_kernels_match_plain(cuda, batch, length, f):
     for x, y, z in zip(got, again, ref):
         _close(x, z)
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("batch,length", [(3, 80), (1, 240), (2, 2000),
+                                          (5, 8000)])
+def test_sgb_argmax_kernel_spike_inputs_bit_for_bit(cuda, batch, length):
+    """Kernel A on ``sgb_dma.spike_inputs``: every f32 sum is exact, so the
+    kernel gives its plain version's bits in pooled and offsets alike; the
+    all-bias columns tie across whole windows (the first position must
+    win) and spikes at window positions 0, 1, 78, 79 move into another
+    window if a tap reads one row off. 1, 3, 25 and 100 windows a
+    sequence: one window, odd counts (the masked last tile) and even."""
+    h, w, b = (torch.from_numpy(a).to(cuda)
+               for a in sgb_dma.spike_inputs(batch, length, seed=length))
+    h = h.to(torch.bfloat16)
+    image, bias = sgb.sgb_dma_weights(w, b, torch.bfloat16)
+    before = sgb.argmax_launches
+    pooled, off = sgb.sgb_contract_pool_argmax(h, image, bias)
+    ref_pooled, ref_off = sgb.sgb_contract_pool_argmax_reference(h, w, b)
+    torch.cuda.synchronize()
+    assert sgb.argmax_launches == before + 1
+    assert 0 < ref_pooled.float().max().item() < 32
+    assert torch.equal(pooled, ref_pooled), (pooled != ref_pooled).sum().item()
+    assert torch.equal(off, ref_off), (off != ref_off).sum().item()
+
+
+def test_sgb_argmax_kernel_takes_a_batch_past_the_grid_row_limit(cuda):
+    """B = 70,000 > 65,535 (the grid's y limit) at L=80, F=128: kernel A
+    numbers its CTAs along x, so the grid refuses no training batch."""
+    rng = np.random.default_rng(7)
+    h = _bf16(rng, (70_000, 80, 64), cuda)
+    w = _bf16(rng, (5, 64, 128), cuda, 0.05)
+    b = _bf16(rng, (128,), cuda, 0.1)
+    image, bias = sgb.sgb_dma_weights(w, b, torch.bfloat16)
+    pooled, off = sgb.sgb_contract_pool_argmax(h, image, bias)
+    ref_pooled, ref_off = sgb.sgb_contract_pool_argmax_reference(h, w, b)
+    _close(pooled, ref_pooled)
+    assert bool((off == ref_off)[_clear_windows(h, w, b)].all())
 
 
 @pytest.mark.parametrize("batch,length,f", [(1, 80, 512), (2, 800, 128),
@@ -223,6 +262,23 @@ def test_kernels_refuse_float32_on_the_card(cuda):
     with pytest.raises(TypeError):
         sgb.sgb_contract_pool(h, torch.zeros((5, 64, 512), device=cuda),
                               torch.zeros(512, device=cuda))
+
+
+def test_image_kernels_refuse_a_misaligned_h(cuda):
+    """Kernel A and the streamed kernel read h through a tensor map, whose
+    base must be 16-byte aligned: a contiguous view 2 bytes off raises
+    ValueError before any launch (a non-contiguous h is copied first)."""
+    w = torch.zeros((5, 64, 128), device=cuda)
+    image, bias = sgb.sgb_dma_weights(w, torch.zeros(128, device=cuda),
+                                      torch.bfloat16)
+    flat = torch.zeros(800 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    h = flat[1:].view(1, 800, 64)
+    before = (sgb.argmax_launches, sgb_dma.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        sgb.sgb_contract_pool_argmax(h, image, bias)
+    with pytest.raises(ValueError, match="16-byte"):
+        sgb_dma.sgb_contract_pool_dma_prepared(h, image, bias)
+    assert (sgb.argmax_launches, sgb_dma.launches) == before
 
 
 def test_fused_forward_and_pipeline_on_the_card(cuda):

@@ -19,8 +19,9 @@ from stofnet_tpu.ops import poolgrad as jpool
 from stofnet_tpu.ops.pallas import sgb_kernel as jsgb
 from stofnet_tpu_torch.models import stofnet_apply_fused
 from stofnet_tpu_torch.models.torch_import import params_to_state_dict
+from stofnet_tpu_torch.ops.conv import conv1d_same
 from stofnet_tpu_torch.ops import poolgrad
-from stofnet_tpu_torch.ops.kernels import sgb
+from stofnet_tpu_torch.ops.kernels import sgb, sgb_dma
 
 
 def _torch_grad_of_pool(y, g, scale, dtype=torch.float32):
@@ -83,15 +84,63 @@ def test_sgb_argmax_plain_matches_pallas(rng, length):
     """Kernel A's plain version against the Pallas kernel's with_argmax
     outputs: offsets of the biased f32 conv output, window-relative."""
     h, w, b = _sgb_inputs(rng, length)
-    wt, bias = sgb.sgb_weights(torch.from_numpy(w), torch.from_numpy(b),
-                               torch.float32)
-    pooled, off = sgb.sgb_contract_pool_argmax(torch.from_numpy(h), wt, bias)
+    image, bias = sgb.sgb_dma_weights(torch.from_numpy(w),
+                                      torch.from_numpy(b), torch.float32)
+    pooled, off = sgb.sgb_contract_pool_argmax(torch.from_numpy(h), image,
+                                               bias)
     ref_pooled, ref_off = jsgb._run(*map(jnp.asarray, (h, w, b)), 0.01,
                                     True, True)
     assert off.dtype == torch.int32 and off.shape == (2, length // 80, 512)
     np.testing.assert_allclose(pooled.numpy(), np.asarray(ref_pooled),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(off.numpy(), np.asarray(ref_off))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [80, 240, 800])
+def test_sgb_argmax_plain_matches_pallas_on_spikes(length, dtype):
+    """Kernel A's plain version, through the wrapper on the weight image,
+    against the Pallas kernel's with_argmax outputs in interpret mode, bit
+    for bit, offsets included, on ``sgb_dma.spike_inputs``: every f32 sum
+    is exact, the all-bias columns tie across whole windows (the first
+    position wins) and spikes sit at window positions 0, 1, 78 and 79
+    (read by a neighbouring window's halo). One window, an odd count (the
+    card's masked last tile) and an even one."""
+    h, w, b = sgb_dma.spike_inputs(2, length, seed=length)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    image, bias = sgb.sgb_dma_weights(torch.from_numpy(w),
+                                      torch.from_numpy(b), tdt)
+    pooled, off = sgb.sgb_contract_pool_argmax(
+        torch.from_numpy(h).to(tdt), image, bias)
+    ref_pooled, ref_off = jsgb._run(jnp.asarray(h, jdt), jnp.asarray(w),
+                                    jnp.asarray(b), 0.01, True, True)
+    assert off.shape == ref_off.shape == (2, length // 80, 512)
+    assert 0 < float(pooled.max()) < 32
+    y = conv1d_same(*map(torch.from_numpy, (h, w, b))).reshape(
+        2, length // 80, 80, 512)
+    ties = (y == y.max(2, keepdim=True).values).sum(2) > 1
+    assert ties.float().mean() > 0.15  # the case under test: 16-47 % tie
+    np.testing.assert_array_equal(pooled.float().numpy(),
+                                  np.asarray(ref_pooled.astype(jnp.float32)))
+    np.testing.assert_array_equal(off.numpy(), np.asarray(ref_off))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dma_weight_image_round_trips_from_sgb(dtype):
+    """``sgb.dma_weights_plain`` reads back the conv kernel that
+    ``sgb.sgb_dma_weights`` laid out (rounded to ``dtype``), and the bias
+    is rounded to ``dtype`` and held in f32; ``sgb_dma`` re-exports both."""
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.standard_normal((5, 64, 256)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.standard_normal(256).astype(np.float32))
+    image, bias = sgb.sgb_dma_weights(w, b, dtype)
+    assert image.shape == (4, 5, 64 * 64) and image.dtype == dtype
+    assert torch.equal(sgb.dma_weights_plain(image), w.to(dtype))
+    assert bias.dtype == torch.float32
+    assert torch.equal(bias, b.to(dtype).float())
+    assert sgb_dma.sgb_dma_weights is sgb.sgb_dma_weights
+    assert sgb_dma.dma_weights_plain is sgb.dma_weights_plain
 
 
 def test_sgb_trainable_value_and_grads_match_jax(rng):
@@ -229,14 +278,28 @@ def test_sgb_trainable_saves_no_pre_pool_plane(rng):
 
 def test_trainable_wrappers_never_fall_back_off_the_cpu(rng):
     h, w, b = (torch.from_numpy(a) for a in _sgb_inputs(rng, 800))
-    wt, bias = sgb.sgb_weights(w, b, torch.float32)
+    image, bias = sgb.sgb_dma_weights(w, b, torch.float32)
     with pytest.raises(TypeError, match="CUDA"):
-        sgb.sgb_contract_pool_argmax(h.to("meta"), wt, bias)
-    pooled, off = sgb.sgb_contract_pool_argmax(h, wt, bias)
+        sgb.sgb_contract_pool_argmax(h.to("meta"), image, bias)
+    pooled, off = sgb.sgb_contract_pool_argmax(h, image, bias)
     with pytest.raises(TypeError, match="CUDA"):
         sgb.sgb_contract_pool_bwd(h.to("meta"), w, pooled, pooled, off)
     with pytest.raises(ValueError):
         sgb.sgb_contract_pool_bwd(h, w, pooled[:, :-1], pooled, off)
+
+
+@pytest.mark.parametrize("case", ["length", "image", "bias"])
+def test_sgb_argmax_wrapper_refuses_bad_shapes(rng, case):
+    """Kernel A's wrapper checks every shape before it runs anything: an L
+    that is not a multiple of 80, an image of another layout (the old
+    [n][t * 64 + c] rows) or a bias of another width raise ValueError."""
+    h, w, b = (torch.from_numpy(a) for a in _sgb_inputs(rng, 800))
+    image, bias = sgb.sgb_dma_weights(w, b, torch.float32)
+    args = {"length": (h[:, :760], image, bias),
+            "image": (h, sgb.sgb_weights(w, b, torch.float32)[0], bias),
+            "bias": (h, image, bias[:448])}[case]
+    with pytest.raises(ValueError, match="L % 80"):
+        sgb.sgb_contract_pool_argmax(*args)
 
 
 def test_fused_trainable_grads_match_jax(rng):
