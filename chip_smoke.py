@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the five CUDA sources of ``stofnet_tpu_torch/csrc`` (one
+1. Builds the four CUDA sources of ``stofnet_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), prints the build time and the card,
    and runs the canary (o = 2 x on (8, 128) f32) before any other kernel:
    it must equal ``x * 2`` bit for bit, so a failure there names the
@@ -13,19 +13,24 @@
    clock over 1,000 calls back to back with no synchronise, and the
    kernel's device time under the profiler over 100 calls.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes its path gives it (B=128, L=8000; the tile SGB kernel at
-   L_TILE=2000, the serving length the streamed one refuses; bf16 inputs
-   from a seeded numpy generator; plain versions in f32 with TF32 off),
-   with max|kernel - plain| <= 2e-2 * max|plain|, and times the kernel, the
-   plain version and one PyTorch yardstick the port never calls (CUDA
-   events, a different input each launch, median of 20). The streamed SGB
-   kernel (``wgmma``, on the weight image of ``sgb_dma_weights``) is also
-   held at L=800 over 3 seeds, and bit for bit to its plain version on
-   spike inputs at L=800 and L (``sgb_dma.spike_inputs``: spikes at window
-   offsets 0, 1, 78, 79 and at the sequence ends, every f32 sum exact, so
-   a tap that reads one row off differs); the tile kernel is timed beside
-   it on the same inputs. The conv stack is also held bit for bit to
-   its plain version at L and L_TILE with weights that only shift, to
+   shapes its path gives it (B=128, L=8000; JAX's ``sgb_contract_pool``
+   counterpart at L_UNCHUNKED=2000, a serving length JAX's DMA kernel
+   refuses; bf16 inputs from a seeded numpy generator; plain versions in
+   f32 with TF32 off), with max|kernel - plain| <= 2e-2 * max|plain|, and
+   times the kernel, the plain version and one PyTorch yardstick the port
+   never calls (CUDA events, a different input each launch, median of
+   20). Both of JAX's serving SGB kernels have one counterpart, the
+   serving instantiation of the streamed kernel (``wgmma``, on the weight
+   image of ``sgb_dma_weights``): its ``sgb_contract_pool`` row is timed
+   at L_UNCHUNKED through ``sgb.sgb_contract_pool_prepared``, its
+   ``sgb_contract_pool_dma`` row at L through
+   ``sgb_dma.sgb_contract_pool_dma_prepared``. It is also held at L=800
+   over 3 seeds, and bit for bit to its plain version on spike inputs at
+   L=240, 800, L_UNCHUNKED and L (``sgb_dma.spike_inputs``: spikes at
+   window offsets 0, 1, 78, 79 and at the sequence ends, every f32 sum
+   exact, so a tap that reads one row off differs; 3 and 25 windows leave
+   a masked last tile). The conv stack is also held bit for bit to
+   its plain version at L and L_UNCHUNKED with weights that only shift, to
    either side (exact small integers, so a tile whose halo is a row short
    differs), and prints its tile count and its achieved TFLOP/s on the
    positions it keeps and on the rows it computes (halos included); the
@@ -41,9 +46,10 @@
 4. Serves through ``serve.make_pipeline`` with a seeded random-init
    StofNet (different-armadillo architecture, x4) at two lengths, each
    over one warm-up batch and 4 fresh batches of 128 echo-bearing
-   waveforms: at L=8000 the streamed SGB kernel and the conv stack must
-   launch once on every batch, at L_TILE=2000 (L % 800 != 0) the tile SGB
-   kernel and the conv stack, and no other kernel. At each length >= 0.99
+   waveforms: at L=8000 and at L_UNCHUNKED=2000 (L % 800 != 0) the
+   serving SGB kernel and the conv stack must launch once on every batch,
+   and no other kernel; the counts are set to 0 before each length and
+   read after it. At each length >= 0.99
    of the coords must lie within 1 sample of the plain path's (the same
    forward through the plain versions). Prints the agreement over coord
    slots and over rows with a detection, ms per batch (median of the 4),
@@ -80,8 +86,8 @@
    batches: ``try_fused_pipeline`` (the streamed SGB kernel, the conv stack
    as plain convs) must pass its gate against the plain path on the card
    (``stofnet_apply_reference(fused_stack=False)``),
-   launch the streamed kernel on every batch and neither the tile SGB nor
-   the conv-stack kernel, agree with the plain path on >= 0.99 of the coord
+   launch the streamed kernel on every batch and not the conv-stack
+   kernel, agree with the plain path on >= 0.99 of the coord
    slots, and move no more rows against it than twice those the plain path
    moves between the card and the CPU, plus 4; its agreement with the f32
    ``StofNet`` module (the bench's own gate) is printed. Then
@@ -105,7 +111,9 @@
    the plain versions, with the warm-up batch's loss before and after.
 8. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
    launches of its paths: the serving, bench, training and probe runs,
-   each counted from 0, summed over the paths that launch it), the card's
+   each counted from 0, summed over the paths that launch it; the serving
+   instantiation's launches go to ``sgb_contract_pool`` at L_UNCHUNKED and
+   to ``sgb_contract_pool_dma`` at L and on the fused path), the card's
    name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -146,11 +154,13 @@ from stofnet_tpu_torch.train import (
 )
 
 B, L, UP = 128, 8000, 4
-L_TILE = 2000  # a serving length dma_supported refuses: the tile SGB kernel
+L_UNCHUNKED = 2000  # a serving length JAX's dma_supported refuses (L % 800)
 L_MODULE = 1000  # a serving length the fused forward does not take (L % 80)
 # the kernels each served batch launches, by length and counter
 SERVE = {L: {"sgb_dma.launches": 1, "conv_stack.launches": 1},
-         L_TILE: {"sgb.launches": 1, "conv_stack.launches": 1}}
+         L_UNCHUNKED: {"sgb_dma.launches": 1, "conv_stack.launches": 1}}
+# the kernels line's row of the serving SGB kernel's launches, by length
+SGB_ROW = {L: "sgb_contract_pool_dma", L_UNCHUNKED: "sgb_contract_pool"}
 DECODE = dict(window_size=20, threshold=None, upsample_factor=UP,
               max_echoes=8)
 SEED = 0
@@ -240,25 +250,33 @@ def sgb_bound(h, w, b):
 
 
 def kernel_sgb(dev, rng, state) -> dict:
-    """The tile SGB kernel at the shapes the main path gives it: B=128 at
-    L_TILE, the serving length the streamed kernel does not take."""
-    h = torch.from_numpy(rng.standard_normal((B, L_TILE, 64),
+    """JAX's ``sgb_contract_pool`` counterpart (the serving instantiation
+    of the streamed kernel) at the shapes the main path gives it: B=128 at
+    L_UNCHUNKED, a serving length JAX's DMA kernel refuses; then bit for
+    bit on spike inputs at L=240 and L_UNCHUNKED (odd window counts)."""
+    h = torch.from_numpy(rng.standard_normal((B, L_UNCHUNKED, 64),
                                              np.float32)).to(
         dev, torch.bfloat16)
     w, b = contract_bf16(state)
-    wt, bias = sgb.sgb_weights(w, b, torch.bfloat16)  # as make_pipeline does
+    # as make_pipeline lays it out
+    image, bias = sgb.sgb_dma_weights(w, b, torch.bfloat16)
     err = check_close("sgb_contract_pool",
-                      sgb.sgb_contract_pool_prepared(h, wt, bias),
+                      sgb.sgb_contract_pool_prepared(h, image, bias),
                       sgb.sgb_contract_pool_reference(h, w, b))
+    for length in (240, L_UNCHUNKED):
+        spike_bits(length, dev, sgb.sgb_contract_pool)
 
     hs = variants(h)
-    ms = time_ms(lambda x: sgb.sgb_contract_pool_prepared(x, wt, bias),
+    ms = time_ms(lambda x: sgb.sgb_contract_pool_prepared(x, image, bias),
                  [(x,) for x in hs])
     plain_ms = time_ms(lambda x: sgb.sgb_contract_pool_reference(x, w, b),
                        [(x,) for x in hs])
     t, by = sgb_bound(h, w, b)
+    flop = 2.0 * B * L_UNCHUNKED * w.shape[0] * w.shape[1] * w.shape[2]
+    log(f"sgb_contract_pool: {ms:.4f} ms at L={L_UNCHUNKED}, "
+        f"{flop / ms / 1e9:.1f} TFLOP/s ({t / ms:.3f} of the bound)")
     return dict(name="sgb_contract_pool", route="cuda",
-                source="stofnet_tpu_torch/csrc/sgb_contract_pool.cu",
+                source="stofnet_tpu_torch/csrc/sgb_contract_pool_dma.cu",
                 replaces="stofnet_tpu/ops/pallas/sgb_kernel.py:189",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t,
                 bound_by=by, library_ms=sgb_yardstick_ms(hs, w, b))
@@ -294,7 +312,7 @@ def kernel_stack(dev, rng, state) -> dict:
     # the halo and seams: with shift weights and inputs in {1, 2, 3} every
     # value is an integer under 256, exact in bf16 and in any order of f32
     # sums, and a path to a row outside a tile's halo is missed exactly
-    for length in (L, L_TILE):
+    for length in (L, L_UNCHUNKED):
         x = torch.from_numpy(rng.integers(1, 4, (B, length, 64)).astype(
             np.float32)).to(dev, torch.bfloat16)
         for side in ("left", "right"):
@@ -308,7 +326,7 @@ def kernel_stack(dev, rng, state) -> dict:
                     f": {(got != ref).sum().item()} outputs differ from the "
                     "plain version")
     log(f"conv_stack_fused: shift weights, both sides, L={L} and "
-        f"L={L_TILE}: the plain version's bits")
+        f"L={L_UNCHUNKED}: the plain version's bits")
 
     hs = variants(h0)
     ms = time_ms(lambda x: conv_stack.conv_stack_fused_prepared(x, wts),
@@ -399,34 +417,33 @@ def host_us(fn, x) -> float:
     return us
 
 
-def spike_bits(length: int, dev) -> None:
-    """The streamed kernel on ``sgb_dma.spike_inputs`` at B=128 must give
-    its plain version's bits: every f32 sum is exact there, and a tap that
-    reads one row off (a short halo, a misplaced window) moves a spike into
-    another window, which random inputs at TOL would hide."""
+def spike_bits(length: int, dev, op=sgb_dma.sgb_contract_pool_dma) -> None:
+    """The serving kernel through ``op`` (either of its wrappers) on
+    ``sgb_dma.spike_inputs`` at B=128 must give its plain version's bits:
+    every f32 sum is exact there, and a tap that reads one row off (a
+    short halo, a misplaced window) moves a spike into another window,
+    which random inputs at TOL would hide."""
     h, w, b = (torch.from_numpy(a).to(dev)
                for a in sgb_dma.spike_inputs(B, length, seed=length))
     h = h.to(torch.bfloat16)
-    got = sgb_dma.sgb_contract_pool_dma(h, w, b)
-    ref = sgb_dma.sgb_contract_pool_dma_reference(h, w, b)
+    got = op(h, w, b)
+    ref = sgb.sgb_contract_pool_reference(h, w, b)
     torch.cuda.synchronize()
     if not (0 < ref.float().max().item() < 32 and torch.equal(got, ref)):
-        raise AssertionError(f"sgb_contract_pool_dma: spike inputs at "
-                             f"L={length}: {int((got != ref).sum())} outputs "
-                             f"differ from the plain version")
-    log(f"sgb_contract_pool_dma: spike inputs at L={length}: the plain "
-        f"version's bits")
+        raise AssertionError(f"{op.__name__}: spike inputs at L={length}: "
+                             f"{int((got != ref).sum())} outputs differ from "
+                             f"the plain version")
+    log(f"{op.__name__}: spike inputs at L={length}: the plain version's "
+        f"bits")
 
 
 def kernel_sgb_dma(dev, rng, state) -> dict:
     """The streamed SGB kernel at the main path's shapes and types, then at
     L=800 (one ring's worth of windows and a little more) over DMA_SEEDS
-    seeds, and on spike inputs at L=800 and L; the tile kernel timed
-    beside it on the same inputs."""
+    seeds, and on spike inputs at L=800 and L."""
     w, b = contract_bf16(state)
-    # both layouts, as fused_forward lays them out
+    # as fused_forward lays it out
     image, bias = sgb_dma.sgb_dma_weights(w, b, torch.bfloat16)
-    wt, _ = sgb.sgb_weights(w, b, torch.bfloat16)
     for seed in range(DMA_SEEDS):
         h8 = torch.from_numpy(np.random.default_rng(seed).standard_normal(
             (B, 800, 64), np.float32)).to(dev, torch.bfloat16)
@@ -444,15 +461,12 @@ def kernel_sgb_dma(dev, rng, state) -> dict:
     hs = variants(h)
     ms = time_ms(lambda x: sgb_dma.sgb_contract_pool_dma_prepared(
         x, image, bias), [(x,) for x in hs])
-    tile_ms = time_ms(lambda x: sgb.sgb_contract_pool_prepared(x, wt, bias),
-                      [(x,) for x in hs])
     plain_ms = time_ms(lambda x: sgb_dma.sgb_contract_pool_dma_reference(
         x, w, b), [(x,) for x in hs])
     t, by = sgb_bound(h, w, b)
     flop = 2.0 * B * L * w.shape[0] * w.shape[1] * w.shape[2]
     log(f"sgb_contract_pool_dma: {ms:.4f} ms, {flop / ms / 1e9:.1f} TFLOP/s "
-        f"({t / ms:.3f} of the bound); the tile kernel on the same inputs: "
-        f"{tile_ms:.4f} ms")
+        f"({t / ms:.3f} of the bound)")
     return dict(name="sgb_contract_pool_dma", route="cuda",
                 source="stofnet_tpu_torch/csrc/sgb_contract_pool_dma.cu",
                 replaces="stofnet_tpu/ops/pallas/sgb_dma_kernel.py:158",
@@ -524,9 +538,10 @@ def serve_timed(name, run, batches, per_batch):
 def main_path(dev, state, rng) -> dict:
     """make_pipeline at each length of SERVE over one warm-up batch and
     N_BATCHES fresh gate batches, each batch launching the kernels SERVE
-    names for its length and no other; then, per length, the agreement
-    with the plain path, the witnesses and the profile. Returns the
-    launches of the served batches by kernel."""
+    names for its length and no other, the counts set to 0 just before
+    each length and read just after; then, per length, the agreement with
+    the plain path, the witnesses and the profile. Returns the launches of
+    the served batches by kernels-line row."""
     pipe = make_pipeline(state, {"upsample_factor": UP}, device=dev,
                          window_size=DECODE["window_size"],
                          threshold=DECODE["threshold"],
@@ -540,14 +555,14 @@ def main_path(dev, state, rng) -> dict:
         run(gate_batch(B, length, rng))  # cuDNN's algorithm choice, not timed
         batches[length] = [gate_batch(B, length, rng)
                            for _ in range(N_BATCHES)]
-    reset_launch_counts()
-    served = {length: serve_timed(f"main path L={length}", run,
-                                  batches[length], per_batch)
-              for length, per_batch in SERVE.items()}
-    c = counts()
-    launches = {"sgb_contract_pool_dma": c["sgb_dma.launches"],
-                "sgb_contract_pool": c["sgb.launches"],
-                "conv_stack_fused": c["conv_stack.launches"]}
+    served, launches = {}, {"conv_stack_fused": 0}
+    for length, per_batch in SERVE.items():
+        reset_launch_counts()
+        served[length] = serve_timed(f"main path L={length}", run,
+                                     batches[length], per_batch)
+        c = counts()
+        launches[SGB_ROW[length]] = c["sgb_dma.launches"]
+        launches["conv_stack_fused"] += c["conv_stack.launches"]
     log(f"main path launches: {json.dumps(launches)}")
     module_route(dev, state, pipe, run, rng)
 

@@ -10,9 +10,9 @@ gate); otherwise ``None``. A build or launch failure raises: the gate
 judges coords, nothing else.
 
 - fused: ``stofnet_apply_fused(dtype=bf16, fused_stack=False)``, the
-  streamed SGB kernel (which the bench asks for with ``sgb_impl="dma"``,
-  the port's default) and the conv stack as plain convs, as the bench
-  composes it.
+  streamed SGB kernel (at every L % 80 == 0, whatever ``sgb_impl`` the
+  bench names) and the conv stack as plain convs, as the bench composes
+  it.
 - packed: ``stofnet_apply_packed(dtype=bf16, pack=2)``, plain PyTorch.
 """
 
@@ -92,9 +92,8 @@ def try_packed_pipeline(state: Mapping[str, torch.Tensor],
 def try_fused_pipeline(state: Mapping[str, torch.Tensor],
                        overrides: Dict[str, Any], x: torch.Tensor,
                        coords_ref) -> Optional[Pipe]:
-    """The fused path: the streamed SGB kernel (the tile kernel where
-    ``dma_supported`` refuses L) and the conv stack as plain convs, bf16,
-    gated on ``coords_ref`` over the batch ``x``."""
+    """The fused path: the streamed SGB kernel and the conv stack as plain
+    convs, bf16, gated on ``coords_ref`` over the batch ``x``."""
     kw = _fused_kwargs(overrides)
     decode = make_decoder(overrides)
 

@@ -2,15 +2,16 @@
 // leaky(maxpool80(conv1d_same_k5(h, w) + b)), and kernel A, the same
 // contraction with the argmax of each window (template flag ARGMAX).
 //
-// Serving (ARGMAX false) replaces the TPU kernel
-// stofnet_tpu/ops/pallas/sgb_dma_kernel.py: sgb_contract_pool_dma (_kernel),
-// whose point is an explicit double-buffered copy of the input from device
-// memory (pltpu.make_async_copy with semaphores). h (B, L, 64) bf16 (the
-// wrapper takes L % 800 == 0, the kernel every L % 80 == 0), weights bf16 in
+// Serving (ARGMAX false) replaces both TPU kernels of this function, at
+// every L % 80 == 0: stofnet_tpu/ops/pallas/sgb_kernel.py: sgb_contract_pool
+// (_kernel, pallas_call at :163) and stofnet_tpu/ops/pallas/sgb_dma_kernel.py:
+// sgb_contract_pool_dma (_kernel, pallas_call at :189), whose point is an
+// explicit double-buffered copy of the input from device memory
+// (pltpu.make_async_copy with semaphores); the JAX package takes the second
+// only where L % 800 == 0, a TPU tiling. h (B, L, 64) bf16, weights bf16 in
 // the image of ops/kernels/sgb.py:sgb_dma_weights, bias (F,) f32 -> out
-// (B, L/80, F) bf16. The function is the tile kernel's (sgb_contract_pool.cu):
-// f32 sums, the bias added after the window max (exact: rounding is
-// monotone), leaky after the pool, one rounding to bf16.
+// (B, L/80, F) bf16: f32 sums, the bias added after the window max (exact:
+// rounding is monotone), leaky after the pool, one rounding to bf16.
 //
 // Kernel A (ARGMAX true), the forward of the trainable op, replaces
 // _run(with_argmax=True) of stofnet_tpu/ops/pallas/sgb_kernel.py (_kernel,
@@ -77,9 +78,9 @@
 // Shared memory: 80 KB of weights + 4 x 21 KB stages + barriers, 169,032 B
 // with the 1,024 B that align the swizzled buffers.
 //
-// This replaces the first design of both (the tile kernel's mma.sync
-// mainloop, sgb_window.cuh, fed with 32-bit shared loads: 23 FLOP a byte of
-// shared memory, no copy pipeline, 84 rows staged a window): a k16 step of
+// This replaces the first design of both (an mma.sync m16n8k16 mainloop
+// fed with 32-bit shared loads: 23 FLOP a byte of shared memory, no copy
+// pipeline, 84 rows staged a window): a k16 step of
 // a warpgroup here reads 2 KB of A and 5 KB of B for 327 kFLOP, 47 FLOP a
 // byte, within the SM's shared-memory rate at the tensor cores' peak. What
 // is left above the bound is the tail of the last of the 3.9 waves and each

@@ -16,14 +16,12 @@ stack kernel has no backward in either package). The state may then hold
 f32 ``nn.Parameter`` masters: every weight is cast to ``dtype`` inside the
 differentiated function, so the gradients come back in f32.
 
-The SGB kernel is the streamed one (``ops/kernels/sgb_dma.py``) where
-``dma_supported`` takes the shape and the tile kernel
-(``ops/kernels/sgb.py``) elsewhere, chosen by shape before any launch. The
-two take different weight layouts, both laid out once per forward, and
-compute the same function with f32 sums in different orders; the
-streamed one is the faster on the card (PERF.md).
-``sgb_impl="tile"`` runs the tile kernel at every shape: the JAX function's
-default, kept for parity with it.
+The SGB kernel is the serving instantiation of the streamed kernel
+(``ops/kernels/sgb.py:sgb_contract_pool_prepared``) at every L % 80 == 0,
+on the one weight layout ``sgb_dma_weights`` builds. ``sgb_impl`` stays in
+the signatures for parity with the JAX function, whose ``"tile"`` and
+``"dma"`` pick two Pallas kernels of one function; here both run the same
+kernel, and an unknown value raises.
 
 Every SGB kernel and its plain version pool a fixed 80 samples, so the
 fused forward (``stofnet_apply_fused``, ``fused_forward`` with or without
@@ -49,11 +47,9 @@ from stofnet_tpu_torch.ops.kernels.conv_stack import (
     NB, conv_stack_fused_prepared, conv_stack_fused_reference, stack_weights,
 )
 from stofnet_tpu_torch.ops.kernels.sgb import (
-    CHANNELS, POOL, sgb_contract_pool_prepared, sgb_contract_pool_reference,
-    sgb_contract_pool_trainable, sgb_weights,
-)
-from stofnet_tpu_torch.ops.kernels.sgb_dma import (
-    dma_supported, sgb_contract_pool_dma_prepared, sgb_dma_weights,
+    CHANNELS, GROUP, POOL, sgb_contract_pool, sgb_contract_pool_prepared,
+    sgb_contract_pool_reference, sgb_contract_pool_trainable,
+    sgb_dma_weights,
 )
 from stofnet_tpu_torch.ops.packed_conv import (
     conv1d_blocked, conv1d_same_packed,
@@ -84,11 +80,9 @@ def stofnet_apply_fused(
     take bfloat16). ``fused_stack=False``, or a ``num_blocks`` other than
     13, runs the conv stack as separate plain convs. ``trainable=True`` is
     differentiable in ``state`` and ``x`` (module docstring) and implies
-    ``fused_stack=False``. ``sgb_impl`` picks the contract path's kernel:
-    ``"dma"`` the streamed kernel where ``dma_supported`` takes (L, 64) and
-    the tile kernel elsewhere, ``"tile"`` the tile kernel at every shape;
-    ``trainable`` comes first. Raises ValueError for a
-    ``semi_global_scale`` other than 1 or 80 (module docstring).
+    ``fused_stack=False``. ``sgb_impl`` (``"tile"`` or ``"dma"``) is
+    checked and chooses nothing (module docstring). Raises ValueError for
+    a ``semi_global_scale`` other than 1 or 80 (module docstring).
     """
     return fused_forward(state, upsample_factor, num_blocks,
                          semi_global_scale, dtype, fused_stack, trainable,
@@ -108,12 +102,13 @@ def fused_forward(
     """:func:`stofnet_apply_fused` as a callable of ``x`` that lays the
     kernels' weights out once, on the state's device: the forward a server
     closes over. With ``trainable`` nothing is laid out ahead: the weights
-    change every step. ``sgb_impl="dma"`` picks the SGB kernel by the shape
-    of each call's features, before any launch, so one pipeline serves
-    every length; the two kernels take different layouts, so both are laid
-    out here (``sgb_weights`` for the tile kernel, ``sgb_dma_weights`` for
-    the streamed one where the features have its 64 channels), with
-    ``stack_weights`` for the conv stack."""
+    change every step. The SGB kernel's one layout, the
+    ``sgb_dma_weights`` image, is laid out where the state lies on a CUDA
+    device and the contract conv is (5, 64, F) with F % 64 == 0; otherwise
+    nothing is, and each call runs ``sgb_contract_pool`` on (w, b): the
+    plain version on a CPU tensor, and on a CUDA tensor the kernel, which
+    raises for weights it does not take. ``stack_weights`` lays out the
+    conv stack."""
     _check_sgb_impl(sgb_impl)
     _check_scale(semi_global_scale)
     if trainable:
@@ -129,14 +124,15 @@ def fused_forward(
     sgb = stack = None
     if semi_global_scale != 1:
         kernel, b = _kernel_and_bias(state, CONTRACT)
-        wt, bias = sgb_weights(kernel, b, dt)
-        image = (sgb_dma_weights(kernel, b, dt)[0] if sgb_impl == "dma"
-                 and kernel.shape[1] == CHANNELS else None)
+        image = None
+        if (kernel.device.type != "cpu" and kernel.shape[1] == CHANNELS
+                and kernel.shape[2] % GROUP == 0):
+            image, bias = sgb_dma_weights(kernel, b, dt)
 
         def sgb(h):
-            if image is not None and dma_supported(h.shape[1], h.shape[2]):
-                return sgb_contract_pool_dma_prepared(h, image, bias)
-            return sgb_contract_pool_prepared(h, wt, bias)
+            if image is None:
+                return sgb_contract_pool(h, kernel, b)
+            return sgb_contract_pool_prepared(h, image, bias)
     if fused_stack and num_blocks == NB:
         wts = stack_weights(state, dt)
 
@@ -164,9 +160,8 @@ def stofnet_apply_reference(
     device: the same function with the same rounding points, so the two
     differ only by the order of f32 sums. The plain path the card's
     kernel path is held against; ``trainable`` runs the plain versions of
-    kernels A and B. Both SGB kernels have the one plain version, so
-    ``sgb_impl`` is only checked; ``semi_global_scale`` is refused as
-    there."""
+    kernels A and B. ``sgb_impl`` is only checked and
+    ``semi_global_scale`` refused, as there."""
     _check_sgb_impl(sgb_impl)
     _check_scale(semi_global_scale)
 

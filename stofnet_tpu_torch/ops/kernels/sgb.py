@@ -2,11 +2,15 @@
 leaky (replaces ``stofnet_tpu/ops/pallas/sgb_kernel.py:sgb_contract_pool``
 and ``sgb_contract_pool_trainable``).
 
-Serving: ``sgb_contract_pool`` launches the CUDA kernel
-``csrc/sgb_contract_pool.cu`` on a CUDA tensor and runs
-``sgb_contract_pool_reference`` on a CPU tensor. A server lays the weights
-out once (``sgb_weights``) and calls ``sgb_contract_pool_prepared`` per
-batch.
+Serving: ``sgb_contract_pool`` is the counterpart of JAX's
+``sgb_contract_pool``. On a CUDA tensor it lays the weights out in the
+image of :func:`sgb_dma_weights` and launches the serving instantiation of
+``csrc/sgb_contract_pool_dma.cu`` (the streamed kernel, at every
+L % 80 == 0); on a CPU tensor it runs ``sgb_contract_pool_reference`` on
+the plain (w, b), at any C. A server lays the image out once and calls
+``sgb_contract_pool_prepared`` per batch, whose one launch path is
+``sgb_dma.sgb_contract_pool_dma_prepared`` (that module counts the
+launches).
 
 Training: ``sgb_contract_pool_trainable`` is differentiable. Its forward
 (``sgb_contract_pool_argmax``, kernel A: the streamed kernel's ``wgmma``
@@ -17,12 +21,12 @@ the JAX kernel's ``with_argmax``; its backward (``sgb_contract_pool_bwd``,
 ``csrc/sgb_contract_pool_bwd.cu``) routes the cotangents through those
 offsets. It saves (h, pooled, offsets) and the weights. Neither pass
 allocates the (B, L, F) pre-pool tensor: only the pooled (B, L/80, F) rows
-and their offsets reach device memory. The kernels' designs and bounds are
-in the sources' headers.
+and their offsets reach device memory. On a CPU tensor both passes run
+their plain versions on (w, b), at any C and F: no image is built. The
+kernels' designs and bounds are in the sources' headers.
 
 ``sgb_dma_weights`` (undone by ``dma_weights_plain``) lives here because
-kernel A takes it; ``sgb_dma`` re-exports it for the streamed serving
-kernel.
+kernel A takes it; ``sgb_dma`` re-exports it for the serving kernel.
 """
 
 from __future__ import annotations
@@ -43,26 +47,24 @@ POOL = 80
 KSIZE = 5
 PAD = KSIZE // 2
 CHANNELS = 64
-N_TILE = 128  # output channels per CTA (both forward sources)
+N_TILE = 128  # output channels per CTA (csrc/sgb_contract_pool_dma.cu)
 GROUP = 64  # output channels of one tap block of the sgb_dma_weights image
 BWD_F_MULT = 64  # kernel B takes F % 64 == 0 (its dh pass's weight chunks)
 BWD_RUN = 8  # windows of a dh CTA's run (csrc/sgb_contract_pool_bwd.cu)
 BWD_F_TILE = 128  # output channels of a dkernel CTA (the same source)
 PLAIN_CHUNK = 8  # channels per pass of the plain backward, as JAX's scan
 
-# kernel launches since the last reset (chip_smoke.py reads them): the
-# serving kernel, kernel A (forward with argmax), kernel B (backward)
-launches = 0
+# kernel launches since the last reset (chip_smoke.py reads them): kernel
+# A (forward with argmax), kernel B (backward); sgb_dma counts the serving
+# kernel's
 argmax_launches = 0
 bwd_launches = 0
-COUNTERS = ("launches", "argmax_launches", "bwd_launches")
+COUNTERS = ("argmax_launches", "bwd_launches")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = {"sgb_contract_pool_launch": [_P, _P, _P, _P, _I, _I, _I,
-                                           ctypes.c_float, _I, _P]}
 # csrc/sgb_contract_pool_dma.cu, whichever of this module and sgb_dma loads
-# it first: the streamed serving kernel and kernel A
+# it first: the serving kernel and kernel A
 DMA_SIGNATURE = {
     "sgb_contract_pool_dma_launch": [_P, _P, _P, _P, _I, _I, _I,
                                      ctypes.c_float, _I, _P],
@@ -205,18 +207,6 @@ def bwd_launch_plan(batch: int, length: int, f: int,
     return plan, len(runs) - 1, len(groups) - 1
 
 
-def sgb_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
-    """The kernel's layout of the contract conv, built once per model: w
-    (5, C, F) -> (F, 5 * C) as [n][t * C + c] in ``dtype``, and b rounded
-    to ``dtype`` and held in f32."""
-    k, c, f = w.shape
-    if k != KSIZE or b.shape != (f,):
-        raise ValueError(f"sgb_weights: w {tuple(w.shape)}, b "
-                         f"{tuple(b.shape)}: needs w (5, C, F) and b (F,)")
-    wt = w.to(dtype).permute(2, 0, 1).reshape(f, k * c).contiguous()
-    return wt, b.to(dtype).float().contiguous()
-
-
 def sgb_dma_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
     """The layout of the contract conv that kernel A and the streamed
     serving kernel take, built once per model (each training step for
@@ -250,38 +240,32 @@ def dma_weights_plain(image: torch.Tensor) -> torch.Tensor:
 
 def sgb_contract_pool(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       negative_slope: float = 0.01) -> torch.Tensor:
-    """leaky(maxpool80(conv1d_same(h, w) + b)): :func:`sgb_weights` on
+    """leaky(maxpool80(conv1d_same(h, w) + b)). On a CPU tensor the plain
+    version on (w, b), at any C; otherwise :func:`sgb_dma_weights` on
     ``h``'s device, then :func:`sgb_contract_pool_prepared`.
 
     Args:
-        h: (B, L, 64) features, L % 80 == 0; bfloat16 on a CUDA device.
-        w: (5, 64, F) conv weights (flax layout), F % 128 == 0 on CUDA.
+        h: (B, L, C) features, L % 80 == 0; bfloat16 with C == 64 on a
+            CUDA device.
+        w: (5, C, F) conv weights (flax layout), F % 128 == 0 on CUDA.
         b: (F,) bias.
     Returns: (B, L // 80, F) in ``h.dtype``.
     """
-    wt, bias = sgb_weights(w.to(h.device), b.to(h.device), h.dtype)
-    return sgb_contract_pool_prepared(h, wt, bias, negative_slope)
-
-
-def _check_kernel_inputs(what, h, wt, bias):
-    """Shapes of every input; types and devices for the CUDA kernel."""
-    bsz, length, c = h.shape
-    f = wt.shape[0]
-    if wt.shape != (f, KSIZE * c) or bias.shape != (f,) or length % POOL:
-        raise ValueError(f"{what}: h {tuple(h.shape)}, weights "
-                         f"{tuple(wt.shape)}, bias {tuple(bias.shape)}: needs "
-                         f"weights (F, 5 * C), bias (F,) and L % 80 == 0")
     if h.device.type == "cpu":
-        return
-    if (h.device.type != "cuda" or h.dtype != torch.bfloat16
-            or wt.dtype != torch.bfloat16 or bias.dtype != torch.float32
-            or not wt.device == bias.device == h.device):
-        raise TypeError(f"{what}: the CUDA kernel takes bfloat16 "
-                        f"on a CUDA device, got {h.dtype} on {h.device} "
-                        f"with weights {wt.dtype} on {wt.device}")
-    if c != CHANNELS or f % N_TILE:
-        raise ValueError(f"{what}: the CUDA kernel takes C == 64 "
-                         f"and F % 128 == 0, got C={c}, F={f}")
+        _check_plain_inputs("sgb_contract_pool", h, w, b)
+        return sgb_contract_pool_reference(h, w, b, negative_slope)
+    image, bias = sgb_dma_weights(w.to(h.device), b.to(h.device), h.dtype)
+    return sgb_contract_pool_prepared(h, image, bias, negative_slope)
+
+
+def _check_plain_inputs(what, h, w, b):
+    """Shapes of the inputs of a plain version on (w, b), any C and F."""
+    _, length, c = h.shape
+    f = w.shape[2]
+    if w.shape != (KSIZE, c, f) or b.shape != (f,) or length % POOL:
+        raise ValueError(f"{what}: h {tuple(h.shape)}, w {tuple(w.shape)}, "
+                         f"b {tuple(b.shape)}: needs w (5, C, F), b (F,) "
+                         f"and L % 80 == 0")
 
 
 def check_image_inputs(what: str, h: torch.Tensor, image: torch.Tensor,
@@ -315,34 +299,18 @@ def check_image_inputs(what: str, h: torch.Tensor, image: torch.Tensor,
                          f"16-byte aligned, got address {h.data_ptr():#x}")
 
 
-def _plain_weights(wt, bias):
-    f, kc = wt.shape
-    return wt.reshape(f, KSIZE, kc // KSIZE).permute(1, 2, 0), bias
-
-
-def sgb_contract_pool_prepared(h: torch.Tensor, wt: torch.Tensor,
+def sgb_contract_pool_prepared(h: torch.Tensor, image: torch.Tensor,
                                bias: torch.Tensor,
                                negative_slope: float = 0.01) -> torch.Tensor:
-    """:func:`sgb_contract_pool` on weights already in the kernel's layout
-    (:func:`sgb_weights`): the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    global launches
-    _check_kernel_inputs("sgb_contract_pool", h, wt, bias)
-    if h.device.type == "cpu":
-        return sgb_contract_pool_reference(h, *_plain_weights(wt, bias),
-                                           negative_slope)
-    bsz, length, _ = h.shape
-    f = wt.shape[0]
-    h, wt, bias = h.contiguous(), wt.contiguous(), bias.contiguous()
-    out = torch.empty((bsz, length // POOL, f), dtype=torch.bfloat16,
-                      device=h.device)
-    lib = _build.load("sgb_contract_pool", _SIGNATURE)
-    err = lib.sgb_contract_pool_launch(
-        h.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz,
-        length, f, float(negative_slope), *_build.launch_args(h))
-    _build.check(lib, err, "sgb_contract_pool")
-    launches += 1
-    return out
+    """:func:`sgb_contract_pool` on weights in the :func:`sgb_dma_weights`
+    image, for every L % 80 == 0: the serving kernel on a CUDA tensor, the
+    plain version on a CPU tensor. The launch is
+    ``sgb_dma.sgb_contract_pool_dma_prepared``'s, the one launch path of
+    the serving instantiation."""
+    # sgb_dma imports this module
+    from stofnet_tpu_torch.ops.kernels import sgb_dma
+    return sgb_dma.sgb_contract_pool_dma_prepared(h, image, bias,
+                                                  negative_slope)
 
 
 def sgb_contract_pool_argmax(h: torch.Tensor, image: torch.Tensor,
@@ -439,7 +407,8 @@ class _Trainable(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w, b, negative_slope, plain):
-        if plain:
+        if plain or h.device.type == "cpu":  # no image on the CPU: any C
+            _check_plain_inputs("sgb_contract_pool_trainable", h, w, b)
             pooled, off = sgb_contract_pool_argmax_reference(
                 h, w, b, negative_slope)
         else:
@@ -465,11 +434,11 @@ class _Trainable(torch.autograd.Function):
 def sgb_contract_pool_trainable(h: torch.Tensor, w: torch.Tensor,
                                 b: torch.Tensor, negative_slope: float = 0.01,
                                 plain: bool = False) -> torch.Tensor:
-    """Differentiable :func:`sgb_contract_pool`: h (B, L, 64), w (5, 64, F)
+    """Differentiable :func:`sgb_contract_pool`: h (B, L, C), w (5, C, F)
     and b (F,), the weights in their master type (f32); returns
     (B, L/80, F) in ``h.dtype``. Gradients: dh in ``h.dtype``, dw and db in
     the weights' types. ``plain=True`` runs kernel A's and B's plain
     versions on any device (the card's plain path); otherwise a CUDA
-    tensor launches the kernels and a CPU tensor runs the plain
-    versions."""
+    tensor launches the kernels (C == 64, F % 128 == 0, or it raises) and
+    a CPU tensor runs the plain versions on (w, b) at any C and F."""
     return _Trainable.apply(h, w, b, negative_slope, plain)[0]

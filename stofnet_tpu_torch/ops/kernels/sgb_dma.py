@@ -1,16 +1,19 @@
 """SemiGlobalBlock contract path with the input streamed through a copy ring:
-conv1d(k5, 64->F) + 80x max-pool + leaky (replaces
-``stofnet_tpu/ops/pallas/sgb_dma_kernel.py:sgb_contract_pool_dma``).
+conv1d(k5, 64->F) + 80x max-pool + leaky (replaces both
+``stofnet_tpu/ops/pallas/sgb_dma_kernel.py:sgb_contract_pool_dma`` and
+``stofnet_tpu/ops/pallas/sgb_kernel.py:sgb_contract_pool``, which compute
+one function).
 
-The same function as ``sgb.sgb_contract_pool``, for the shapes of
-:func:`dma_supported`. ``sgb_contract_pool_dma`` launches the CUDA kernel
-``csrc/sgb_contract_pool_dma.cu`` on a CUDA tensor and runs
-``sgb_contract_pool_dma_reference`` on a CPU tensor. A server lays the
-weights out once with :func:`sgb_dma_weights` (the kernel's shared-memory
-image of them, undone by :func:`dma_weights_plain`; both live in ``sgb``,
-whose kernel A takes the same image) and calls
-``sgb_contract_pool_dma_prepared`` per batch. The kernel's design and
-bound are in the source's header.
+``sgb_contract_pool_dma`` launches the serving instantiation of the CUDA
+kernel ``csrc/sgb_contract_pool_dma.cu`` on a CUDA tensor and runs
+``sgb_contract_pool_dma_reference`` on a CPU tensor, for the shapes of
+:func:`dma_supported` (every L % 80 == 0). A server lays the weights out
+once with :func:`sgb_dma_weights` (the kernel's shared-memory image of
+them, undone by :func:`dma_weights_plain`; both live in ``sgb``, whose
+kernel A takes the same image) and calls ``sgb_contract_pool_dma_prepared``
+per batch: the one launch path of the serving instantiation, which
+``sgb.sgb_contract_pool_prepared`` calls too, and the one place that counts
+its launches. The kernel's design and bound are in the source's header.
 """
 
 from __future__ import annotations
@@ -24,17 +27,18 @@ from stofnet_tpu_torch.ops.kernels.sgb import (
     dma_weights_plain, sgb_contract_pool_reference, sgb_dma_weights,
 )
 
-CHUNK = 800  # samples: the JAX kernel's chunk, 10 pool windows
-
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 COUNTERS = ("launches",)
 
 
 def dma_supported(length: int, channels: int) -> bool:
-    """The shapes the streamed kernel takes, as the JAX kernel's rule:
-    L % 800 == 0, L >= 800 and C == 64. The dispatch rule of
-    ``models/fused.py``'s ``sgb_impl="dma"``."""
-    return length % CHUNK == 0 and length >= CHUNK and channels == CHANNELS
+    """The shapes the serving kernel takes: L % 80 == 0, L >= 80 and
+    C == 64. A documented departure from the JAX kernel's rule (L % 800 ==
+    0, L >= 800), which picks a TPU tiling of 800-sample chunks, not a
+    function: the two agree wherever L % 800 == 0, and the card's kernel
+    walks tiles of two windows with a masked last tile, so every
+    L % 80 == 0 is the same function."""
+    return length % POOL == 0 and length >= POOL and channels == CHANNELS
 
 
 def spike_inputs(batch: int, length: int, seed: int = 0):
@@ -68,11 +72,11 @@ def sgb_contract_pool_dma_reference(h: torch.Tensor, w: torch.Tensor,
                                     b: torch.Tensor,
                                     negative_slope: float = 0.01
                                     ) -> torch.Tensor:
-    """Plain version: the tile kernel's, at the same rounding points
-    (weights and bias rounded to ``h.dtype``, f32 sums, max, leaky, one
-    rounding to ``h.dtype``). It keeps this name so that each kernel module
-    pairs its wrapper with a ``*_reference`` of its own, as the others do;
-    the function is ``sgb.sgb_contract_pool_reference``."""
+    """Plain version at the kernel's rounding points (weights and bias
+    rounded to ``h.dtype``, f32 sums, max, leaky, one rounding to
+    ``h.dtype``). It keeps this name so that each kernel module pairs its
+    wrapper with a ``*_reference`` of its own, as the others do; the
+    function is ``sgb.sgb_contract_pool_reference``."""
     return sgb_contract_pool_reference(h, w, b, negative_slope)
 
 
@@ -99,13 +103,14 @@ def sgb_contract_pool_dma_prepared(h: torch.Tensor, image: torch.Tensor,
     """:func:`sgb_contract_pool_dma` on weights in the
     :func:`sgb_dma_weights` image: the CUDA kernel on a CUDA tensor, the
     plain version on a CPU tensor. Raises ValueError on a shape
-    :func:`dma_supported` refuses."""
+    :func:`dma_supported` refuses. The one launch path of the serving
+    instantiation."""
     global launches
     bsz, length, c = h.shape
     f = bias.shape[0]
     if not dma_supported(length, c):
         raise ValueError(f"sgb_contract_pool_dma: h {tuple(h.shape)}: "
-                         f"needs L % 800 == 0, L >= 800 and C == 64")
+                         f"needs L % 80 == 0, L >= 80 and C == 64")
     check_image_inputs("sgb_contract_pool_dma", h, image, bias)
     if h.device.type == "cpu":
         return sgb_contract_pool_dma_reference(h, dma_weights_plain(image),

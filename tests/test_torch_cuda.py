@@ -14,10 +14,11 @@ closer pair may swap under another order of f32 sums), and both its
 outputs must equal the plain version's bits on spike inputs, whose every
 f32 sum is exact; kernel B is held
 against its plain version on kernel A's own outputs, per output, and must
-give the same bits twice. The streamed SGB kernel sums in another order
-than the tile kernel, so it is held to its plain version at the tolerance
-on random inputs and bit for bit on spike inputs, whose every f32 sum is
-exact. The probe is held to its total (rtol 1e-3 of the f64 sum),
+give the same bits twice. The serving SGB kernel (the streamed kernel's
+serving instantiation, which both ``sgb.sgb_contract_pool`` and
+``sgb_dma.sgb_contract_pool_dma`` launch) is held to its plain version at
+the tolerance on random inputs and bit for bit on spike inputs, whose
+every f32 sum is exact. The probe is held to its total (rtol 1e-3 of the f64 sum),
 each element to 64 f32 epsilons of the sum of its terms' magnitudes, and
 the same bits twice; the canary to ``x * 2`` exactly.
 """
@@ -67,15 +68,16 @@ def _bf16(rng, shape, dev, scale=1.0):
 @pytest.mark.parametrize("batch,length,f", [(3, 80, 512), (2, 800, 512),
                                             (1, 2000, 128), (5, 8000, 512)])
 def test_sgb_kernel_matches_plain(cuda, batch, length, f):
-    """Odd window counts leave a tile with one window; both sequence ends
-    take the zero halo."""
+    """JAX's ``sgb_contract_pool`` counterpart launches the serving kernel
+    once at every L % 80 == 0: odd window counts leave a masked last tile
+    with one window; both sequence ends take the zero halo."""
     rng = np.random.default_rng(length)
     h = _bf16(rng, (batch, length, 64), cuda)
     w = _bf16(rng, (5, 64, f), cuda, 0.05)
     b = _bf16(rng, (f,), cuda, 0.1)
-    before = sgb.launches
+    before = sgb_dma.launches
     got = sgb.sgb_contract_pool(h, w, b)
-    assert sgb.launches == before + 1
+    assert sgb_dma.launches == before + 1
     _close(got, sgb.sgb_contract_pool_reference(h, w, b))
 
 
@@ -258,10 +260,21 @@ def test_fused_train_step_on_the_card(cuda):
 
 
 def test_kernels_refuse_float32_on_the_card(cuda):
+    """f32 raises TypeError, and C=32 (which the CPU computes) ValueError,
+    for the serving op and the trainable op, before any launch."""
     h = torch.zeros((1, 800, 64), device=cuda)
+    before = (sgb_dma.launches, sgb.argmax_launches)
     with pytest.raises(TypeError):
         sgb.sgb_contract_pool(h, torch.zeros((5, 64, 512), device=cuda),
                               torch.zeros(512, device=cuda))
+    h32 = torch.zeros((1, 160, 32), device=cuda, dtype=torch.bfloat16)
+    w32 = torch.zeros((5, 32, 128), device=cuda)
+    b32 = torch.zeros(128, device=cuda)
+    with pytest.raises(ValueError):
+        sgb.sgb_contract_pool(h32, w32, b32)
+    with pytest.raises(ValueError):
+        sgb.sgb_contract_pool_trainable(h32, w32, b32)
+    assert (sgb_dma.launches, sgb.argmax_launches) == before
 
 
 def test_image_kernels_refuse_a_misaligned_h(cuda):
@@ -288,12 +301,11 @@ def test_fused_forward_and_pipeline_on_the_card(cuda):
     x = torch.from_numpy(rng.standard_normal((2, 1, 1600)).astype(
         np.float32)).to(cuda)
     _close(stofnet_apply_fused(state, x), stofnet_apply_reference(state, x))
-    counts = (sgb_dma.launches, sgb.launches, conv_stack.launches)
+    counts = (sgb_dma.launches, conv_stack.launches)
     coords = make_pipeline(state, {}, max_echoes=8, device=cuda)(x)
     assert coords.shape == (2, 8) and coords.is_cuda
-    # L=1600 is a length dma_supported takes: the streamed SGB kernel
-    assert (sgb_dma.launches, sgb.launches, conv_stack.launches) == (
-        counts[0] + 1, counts[1], counts[2] + 1)
+    assert (sgb_dma.launches, conv_stack.launches) == (counts[0] + 1,
+                                                       counts[1] + 1)
 
 
 def test_pipeline_module_route_on_the_card(cuda):
@@ -303,9 +315,9 @@ def test_pipeline_module_route_on_the_card(cuda):
                     generator=torch.Generator().manual_seed(2)).state_dict()
     x = gate_batch(4, 1000, np.random.default_rng(3))
     pipe = make_pipeline(state, {}, max_echoes=8, device=cuda)
-    counts = (sgb_dma.launches, sgb.launches, conv_stack.launches)
+    counts = (sgb_dma.launches, conv_stack.launches)
     got = pipe(x)
-    assert (sgb_dma.launches, sgb.launches, conv_stack.launches) == counts
+    assert (sgb_dma.launches, conv_stack.launches) == counts
     assert pipe.calls == {"fused": 0, "module": 1}
     ref = module_coords(state, {}, x, torch.bfloat16, cuda, max_echoes=8)
     assert torch.equal(got.cpu(), torch.from_numpy(ref))
@@ -337,13 +349,14 @@ def test_sgb_dma_kernel_matches_plain(cuda, length, seed):
     _close(got, sgb_dma.sgb_contract_pool_dma_reference(h, w, b))
 
 
-@pytest.mark.parametrize("length", [800, 8000])
+@pytest.mark.parametrize("length", [80, 240, 800, 2000, 8000])
 def test_sgb_dma_kernel_sees_window_edges_and_halo(cuda, length):
     """Spikes at window offsets 0, 1, 78, 79 and at both sequence ends,
     one tap and one channel per output, small integers: every f32 sum is
     exact, so the kernel gives its plain version's bits, and a tap that
     reads one row off (a halo row short, a window misplaced) differs where
-    random inputs at the tolerance would hide it."""
+    random inputs at the tolerance would hide it. 1, 3 and 25 windows a
+    sequence leave a masked last tile; 10 and 100 do not."""
     h, w, b = (torch.from_numpy(a).to(cuda)
                for a in sgb_dma.spike_inputs(8, length, seed=length))
     h = h.to(torch.bfloat16)
@@ -354,21 +367,36 @@ def test_sgb_dma_kernel_sees_window_edges_and_halo(cuda, length):
     assert torch.equal(got, ref), (got != ref).sum().item()
 
 
-@pytest.mark.parametrize("length,impl,dma", [(8000, "dma", True),
-                                             (2000, "dma", False),
-                                             (8000, "tile", False)])
-def test_sgb_impl_dispatch_by_launch_count(cuda, length, impl, dma):
-    """``sgb_impl="dma"`` (the default): the streamed kernel where
-    L % 800 == 0, the tile kernel elsewhere (as the JAX function falls
-    back), decided by shape; ``"tile"``: the tile kernel at every shape."""
+def test_sgb_dma_kernel_takes_a_batch_past_the_grid_row_limit(cuda):
+    """B = 70,000 > 65,535 (the grid's y limit) at L=80, F=512: the serving
+    kernel numbers its CTAs along x, and gives its plain version's bits on
+    spike inputs."""
+    h, w, b = (torch.from_numpy(a).to(cuda)
+               for a in sgb_dma.spike_inputs(70_000, 80, seed=7))
+    h = h.to(torch.bfloat16)
+    got = sgb.sgb_contract_pool(h, w, b)
+    for s in range(0, h.shape[0], 10_000):  # the f32 plain conv in parts
+        ref = sgb.sgb_contract_pool_reference(h[s:s + 10_000], w, b)
+        torch.cuda.synchronize()
+        assert 0 < ref.float().max().item() < 32
+        assert torch.equal(got[s:s + 10_000], ref), (
+            s, (got[s:s + 10_000] != ref).sum().item())
+
+
+@pytest.mark.parametrize("impl", ["dma", "tile"])
+@pytest.mark.parametrize("length", [2000, 8000])
+def test_sgb_impl_dispatch_by_launch_count(cuda, length, impl):
+    """Both ``sgb_impl`` values launch the serving kernel once, at
+    L=2000 (a length JAX's DMA kernel refuses) as at L=8000: the argument
+    is kept for parity with the JAX function and chooses nothing."""
     state = StofNet(device=cuda,
                     generator=torch.Generator().manual_seed(2)).state_dict()
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 1, length)).astype(np.float32)).to(cuda)
-    before = (sgb_dma.launches, sgb.launches, conv_stack.launches)
+    before = (sgb_dma.launches, conv_stack.launches)
     got = stofnet_apply_fused(state, x, fused_stack=False, sgb_impl=impl)
-    after = (sgb_dma.launches, sgb.launches, conv_stack.launches)
-    assert after == (before[0] + dma, before[1] + (not dma), before[2])
+    after = (sgb_dma.launches, conv_stack.launches)
+    assert after == (before[0] + 1, before[1])
     _close(got, stofnet_apply_reference(state, x, fused_stack=False))
 
 

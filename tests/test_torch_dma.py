@@ -18,7 +18,7 @@ from stofnet_tpu.ops.pallas.sgb_dma_kernel import (
 )
 from stofnet_tpu_torch.models import stofnet_apply_fused
 from stofnet_tpu_torch.models.torch_import import params_to_state_dict
-from stofnet_tpu_torch.ops.kernels import sgb, sgb_dma
+from stofnet_tpu_torch.ops.kernels import sgb_dma
 
 
 def _inputs(rng, length):
@@ -81,44 +81,50 @@ def test_sgb_dma_plain_matches_pallas_on_spikes(length, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_sgb_dma_weight_image_is_lossless(dtype):
-    """``sgb_dma_weights`` holds ``sgb_weights``' [n][t * 64 + c] rows,
-    each (group of 64 channels, tap) block with row n's 16-byte chunk j
-    (8 channels) at chunk j ^ (n % 8), and nothing else;
+    """``sgb_dma_weights`` holds, for each group of 64 output channels and
+    each tap t, the block [n][c] = w[t, c, 64 * group + n] with row n's
+    16-byte chunk j (8 channels) at chunk j ^ (n % 8), and nothing else;
     ``dma_weights_plain`` reads the conv kernel back."""
     rng = np.random.default_rng(9)
     w = torch.from_numpy(rng.standard_normal((5, 64, 512)).astype(
         np.float32))
     b = torch.from_numpy(rng.standard_normal(512).astype(np.float32))
     image, bias = sgb_dma.sgb_dma_weights(w, b, dtype)
-    wt, bias_t = sgb.sgb_weights(w, b, dtype)
     assert image.shape == (8, 5, 64 * 64) and image.dtype == dtype
     n, c = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
     index = torch.from_numpy(n * 64 + ((c // 8) ^ (n % 8)) * 8 + c % 8)
     for group in range(8):
         for t in range(5):
-            assert torch.equal(
-                image[group, t][index],
-                wt[64 * group:64 * group + 64, 64 * t:64 * t + 64])
+            assert torch.equal(image[group, t][index],
+                               w[t, :, 64 * group:64 * group + 64].T.to(dtype))
     assert torch.equal(sgb_dma.dma_weights_plain(image), w.to(dtype))
-    assert torch.equal(bias, bias_t)
+    assert torch.equal(bias, b.to(dtype).float())
     with pytest.raises(ValueError, match="F % 64"):
         sgb_dma.sgb_dma_weights(w[:, :, :96], b[:96], dtype)
 
 
-def test_dma_supported_matches_jax():
-    for length in (0, 80, 640, 720, 800, 1600, 2000, 2400, 7200, 8000, 8800):
+def test_dma_supported_takes_every_multiple_of_80():
+    """The documented departure from JAX's rule: the serving kernel takes
+    exactly L % 80 == 0, L >= 80 and C == 64 (JAX's L % 800 picks a TPU
+    tiling, not a function); wherever L % 800 == 0 the two agree."""
+    for length in (0, 40, 80, 160, 240, 640, 720, 800, 1000, 1600, 2000,
+                   2400, 7200, 8000, 8040, 8800):
         for channels in (1, 32, 64, 128):
-            assert (sgb_dma.dma_supported(length, channels)
-                    == jax_dma_supported(length, channels)), (length, channels)
+            want = length % 80 == 0 and length >= 80 and channels == 64
+            assert sgb_dma.dma_supported(length, channels) == want, (
+                length, channels)
+            if length % 800 == 0:
+                assert want == jax_dma_supported(length, channels), (
+                    length, channels)
 
 
 def test_sgb_dma_wrapper_refuses_without_fallback(rng):
-    """A shape dma_supported refuses raises ValueError (not the tile
-    kernel); a tensor off the CPU that the CUDA kernel does not take
-    raises TypeError (not the plain version)."""
+    """A shape dma_supported refuses raises ValueError (no other route);
+    a tensor off the CPU that the CUDA kernel does not take raises
+    TypeError (not the plain version)."""
     h, w, b = (torch.from_numpy(a) for a in _inputs(rng, 800))
-    with pytest.raises(ValueError, match="L % 800"):
-        sgb_dma.sgb_contract_pool_dma(h[:, :640], w, b)
+    with pytest.raises(ValueError, match="L % 80"):
+        sgb_dma.sgb_contract_pool_dma(h[:, :600], w, b)
     with pytest.raises(TypeError, match="CUDA"):
         sgb_dma.sgb_contract_pool_dma(h.to("meta"), w, b)
 
@@ -126,8 +132,9 @@ def test_sgb_dma_wrapper_refuses_without_fallback(rng):
 @pytest.mark.parametrize("length", [800, 2000])
 def test_fused_forward_sgb_dma_matches_jax(rng, length):
     """``sgb_impl="dma"`` with the plain conv stack, as the bench runs it:
-    at L=800 both frameworks take the DMA route, at L=2000 (L % 800 != 0)
-    both fall back to the tile kernel. f32 on the CPU, at
+    at L=800 JAX takes its DMA kernel, at L=2000 (L % 800 != 0) it falls
+    back to its tile kernel, and the port runs its one serving kernel (on
+    the CPU its plain version) at both. f32 on the CPU, at
     test_torch_model.py's tolerance."""
     variables = JaxStofNet().init(jax.random.key(0),
                                   jnp.zeros((1, 1, length)))
@@ -140,6 +147,42 @@ def test_fused_forward_sgb_dma_matches_jax(rng, length):
     got = stofnet_apply_fused(state, torch.from_numpy(x), dtype=None,
                               fused_stack=False, sgb_impl="dma").numpy()
     assert got.shape == ref.shape == (2, 1, 4 * length)
+    np.testing.assert_allclose(got, ref, rtol=2e-3,
+                               atol=2e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("length", [240, 2000])
+def test_sgb_impl_tile_and_dma_give_the_same_output(rng, length):
+    """``sgb_impl`` chooses no kernel in the port: ``"tile"`` and
+    ``"dma"`` give identical outputs on the CPU, in bf16 with the fused
+    stack and in f32 with the plain one."""
+    state = {k: torch.tensor(v) for k, v in params_to_state_dict(
+        JaxStofNet().init(jax.random.key(1),
+                          jnp.zeros((1, 1, length)))).items()}
+    x = torch.from_numpy(rng.standard_normal((2, 1, length)).astype(
+        np.float32))
+    for kw in ({}, {"dtype": None, "fused_stack": False}):
+        tile = stofnet_apply_fused(state, x, sgb_impl="tile", **kw)
+        dma = stofnet_apply_fused(state, x, sgb_impl="dma", **kw)
+        assert tile.shape == (2, 1, 4 * length)
+        assert torch.equal(tile, dma), kw
+
+
+def test_fused_forward_at_32_features_matches_jax(rng):
+    """A state the serving kernel cannot take (``num_features=32``) on the
+    CPU: the fused forward lays no image out and runs the plain version on
+    (w, b), as JAX's runs its tile kernel. f32, plain conv stack, at
+    test_torch_model.py's tolerance."""
+    variables = JaxStofNet(num_features=32).init(jax.random.key(3),
+                                                 jnp.zeros((1, 1, 240)))
+    state = {k: torch.tensor(v)
+             for k, v in params_to_state_dict(variables).items()}
+    x = rng.standard_normal((2, 1, 240)).astype(np.float32)
+    ref = np.asarray(jax_fused(variables, jnp.asarray(x), dtype=None,
+                               interpret=True, fused_stack=False))
+    got = stofnet_apply_fused(state, torch.from_numpy(x), dtype=None,
+                              fused_stack=False).numpy()
+    assert got.shape == ref.shape == (2, 1, 4 * 240)
     np.testing.assert_allclose(got, ref, rtol=2e-3,
                                atol=2e-4 * np.abs(ref).max())
 

@@ -18,7 +18,7 @@ from stofnet_tpu.ops.pallas.sgb_kernel import sgb_contract_pool as jax_sgb
 from stofnet_tpu_torch.models import StofNet
 from stofnet_tpu_torch.models.torch_import import params_to_state_dict
 from stofnet_tpu_torch.ops.conv import conv1d_same
-from stofnet_tpu_torch.ops.kernels import conv_stack, sgb
+from stofnet_tpu_torch.ops.kernels import conv_stack, sgb, sgb_dma
 
 
 def _sgb_inputs(rng, length):
@@ -45,6 +45,26 @@ def test_sgb_contract_pool_plain_matches_pallas(rng, length):
     ref = np.asarray(jax_sgb(*map(jnp.asarray, (h, w, b)), interpret=True))
     assert got.shape == ref.shape == (2, length // 80, 512)
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [80, 240, 2000])
+def test_sgb_contract_pool_matches_pallas_on_spikes(length, dtype):
+    """The port's counterpart of JAX's ``sgb_contract_pool`` on
+    ``sgb_dma.spike_inputs`` (spikes at window offsets 0, 1, 78, 79 and at
+    both sequence ends, every f32 sum exact) gives the Pallas kernel's bits
+    in interpret mode, in f32 and in bf16, at 1, 3 and 25 windows: odd
+    counts, where the card's serving kernel computes a masked last tile."""
+    h, w, b = sgb_dma.spike_inputs(2, length, seed=length)
+    got = sgb.sgb_contract_pool(
+        torch.from_numpy(h).to(getattr(torch, dtype)),
+        *map(torch.from_numpy, (w, b)))
+    ref = jax_sgb(jnp.asarray(h, getattr(jnp, dtype)), jnp.asarray(w),
+                  jnp.asarray(b), interpret=True)
+    assert got.shape == ref.shape == (2, length // 80, 512)
+    assert 0 < float(got.max()) < 32
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
 
 
 def test_conv_stack_plain_matches_pallas(rng):
@@ -76,20 +96,13 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu(rng):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prepared_weight_layouts_are_lossless(dtype):
-    """The weight layouts a pipeline builds once for the kernels hold each
-    weight rounded to the compute type and nothing else: [n][t * C + c]
-    rows for the SGB kernels and conv_last, the conv stack's k7 layers as
-    swizzled 64 x 64 tap blocks, biases in f32, conv_last padded with zero
-    rows to 8."""
+    """The weight layout a pipeline builds once for the conv stack holds
+    each weight rounded to the compute type and nothing else: the k7
+    layers as swizzled 64 x 64 tap blocks, conv_last as [n][t * C + c]
+    rows padded with zero rows to 8, biases in f32. (The SGB kernel's
+    image is held in tests/test_torch_dma.py.)"""
     state = StofNet(generator=torch.Generator().manual_seed(3),
                     device="cpu").state_dict()
-    name = "semi_global_block.contract_conv"
-    w = state[f"{name}.weight"].permute(2, 1, 0)
-    b = state[f"{name}.bias"]
-    wt, bias = sgb.sgb_weights(w, b, dtype)
-    assert torch.equal(wt.reshape(512, 5, 64).permute(1, 2, 0), w.to(dtype))
-    assert torch.equal(bias, b.to(dtype).float())
-
     wts = conv_stack.stack_weights(state, dtype)
     assert wts.mid.shape == (11, 7, 64 * 64)
     # tap block [layer][t]: row n holds w[n, :, t] with its 16-byte chunk j

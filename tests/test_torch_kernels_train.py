@@ -291,12 +291,13 @@ def test_trainable_wrappers_never_fall_back_off_the_cpu(rng):
 @pytest.mark.parametrize("case", ["length", "image", "bias"])
 def test_sgb_argmax_wrapper_refuses_bad_shapes(rng, case):
     """Kernel A's wrapper checks every shape before it runs anything: an L
-    that is not a multiple of 80, an image of another layout (the old
-    [n][t * 64 + c] rows) or a bias of another width raise ValueError."""
+    that is not a multiple of 80, weights in another layout ([n][t * 64 +
+    c] rows) or a bias of another width raise ValueError."""
     h, w, b = (torch.from_numpy(a) for a in _sgb_inputs(rng, 800))
     image, bias = sgb.sgb_dma_weights(w, b, torch.float32)
+    rows = w.permute(2, 0, 1).reshape(512, 5 * 64)
     args = {"length": (h[:, :760], image, bias),
-            "image": (h, sgb.sgb_weights(w, b, torch.float32)[0], bias),
+            "image": (h, rows, bias),
             "bias": (h, image, bias[:448])}[case]
     with pytest.raises(ValueError, match="L % 80"):
         sgb.sgb_contract_pool_argmax(*args)
@@ -319,6 +320,75 @@ def test_fused_trainable_grads_match_jax(rng):
     ref = params_to_state_dict({"params": ref_grads})
     params = {k: torch.tensor(v, requires_grad=True)
               for k, v in params_to_state_dict(variables).items()}
+    loss = (stofnet_apply_fused(params, torch.from_numpy(x), dtype=None,
+                                trainable=True) ** 2).mean()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
+    assert params.keys() == ref.keys()
+    for k, p in params.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref[k], rtol=5e-3,
+                                   atol=1e-5, err_msg=k)
+
+
+def _narrow_inputs(rng, c=32, f=128, length=160):
+    h = rng.standard_normal((2, length, c)).astype(np.float32)
+    w = (rng.standard_normal((5, c, f)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal(f) * 0.1).astype(np.float32)
+    return h, w, bias
+
+
+def test_sgb_trainable_takes_any_channel_count_on_the_cpu(rng):
+    """On a CPU tensor the trainable op runs kernel A's and B's plain
+    versions on (w, b) and builds no weight image, so it computes what
+    JAX's op computes at C=32, F=128, L=160 (the image takes C == 64 only):
+    value and gradients at the tolerances of the C=64 case above."""
+    h, w, bias = _narrow_inputs(rng)
+    probe = rng.standard_normal((2, 2, 128)).astype(np.float32)
+
+    def jax_fn(h, w, bias):
+        y = jsgb.sgb_contract_pool_trainable(h, w, bias, 0.01, True)
+        return jnp.sum(y * probe)
+
+    ref_val, ref_grads = jax.value_and_grad(jax_fn, argnums=(0, 1, 2))(
+        *map(jnp.asarray, (h, w, bias)))
+    ts = [torch.tensor(a, requires_grad=True) for a in (h, w, bias)]
+    out = sgb.sgb_contract_pool_trainable(*ts)
+    assert out.shape == (2, 2, 128)
+    val = (out * torch.from_numpy(probe)).sum()
+    val.backward()
+    np.testing.assert_allclose(val.item(), float(ref_val), rtol=1e-5)
+    for t, g_ref, name in zip(ts, ref_grads, ("h", "w", "bias")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g_ref),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_sgb_trainable_refuses_c32_off_the_cpu(rng):
+    """Off the CPU the op builds the kernels' image, which takes C == 64
+    only: C=32 raises ValueError there, before any launch."""
+    h, w, bias = (torch.from_numpy(a).to("meta")
+                  for a in _narrow_inputs(rng))
+    with pytest.raises(ValueError, match="5, 64, F"):
+        sgb.sgb_contract_pool_trainable(h, w, bias)
+
+
+def test_fused_trainable_grads_match_jax_at_32_features(rng):
+    """The repair end to end: stofnet_apply_fused(trainable=True,
+    dtype=None) on a ``num_features=32`` state, at L=160, against JAX's
+    on the same weights, at the tolerances of the 64-feature case above."""
+    x = rng.standard_normal((2, 1, 160)).astype(np.float32)
+    variables = JaxStofNet(num_features=32).init(jax.random.key(2),
+                                                 jnp.asarray(x))
+
+    def jax_loss(params):
+        pred = jax_fused({"params": params}, jnp.asarray(x), dtype=None,
+                         interpret=True, trainable=True)
+        return jnp.mean(pred ** 2)
+
+    ref_loss, ref_grads = jax.value_and_grad(jax_loss)(variables["params"])
+    ref = params_to_state_dict({"params": ref_grads})
+    params = {k: torch.tensor(v, requires_grad=True)
+              for k, v in params_to_state_dict(variables).items()}
+    assert params["semi_global_block.contract_conv.weight"].shape[1] == 32
     loss = (stofnet_apply_fused(params, torch.from_numpy(x), dtype=None,
                                 trainable=True) ** 2).mean()
     loss.backward()
