@@ -109,13 +109,41 @@
    4 batches trained on again under the profiler. Last, a witness: the
    same 5 steps from the serving weights, through the kernels and through
    the plain versions, with the warm-up batch's loss before and after.
-8. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
-   launches of its paths: the serving, bench, training and probe runs,
-   each counted from 0, summed over the paths that launch it; the serving
-   instantiation's launches go to ``sgb_contract_pool`` at L_UNCHUNKED and
-   to ``sgb_contract_pool_dma`` at L and on the fused path), the card's
-   name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+8. The serving daemon (``cli/serve.build``) from a checkpoint of the
+   serving weights written by ``train/checkpoint.save_checkpoint``, at
+   L=8000, max_batch 128, max_wait_ms 2, its dtype gate left at auto
+   (the gate's agreement and verdict are printed) and every bucket warmed
+   before the server binds: 8 client threads send 64 single echo-bearing
+   waveforms each and one more client a batch of 128 over the s8c wire.
+   Every returned row must equal ``make_pipeline``'s direct coords for it
+   bit for bit (the s8c rows: on the decoded wire rows). Prints
+   requests/s, p50 and p99 single-request latency, the buckets used, the
+   client's stats query and the kernels' launches during the traffic
+   (counts set to 0 just before it). The gate must serve bf16 on these
+   weights, and the serving SGB kernel and the conv stack must both
+   launch. The daemon is shut down and drained.
+9. The int8-SGB route of ``make_pipeline``, calibrated on a (128, 1,
+   8000) gate batch, the launch counts set to 0 before the phase and held
+   at 0 after it: served in bf16 and in f32 over a warm-up batch and 4
+   timed batches (ms per batch, peak memory; device time by kernel of the
+   bf16 route under the profiler). The bf16 route must equal the same
+   forward with the s8 conv as K shifted products on the card bit for
+   bit, and move no more rows against its CPU twin (the same bf16 int8
+   forward on the CPU on the card's calibration) than twice what
+   summation order moves in the bf16 ``StofNet`` module (card against
+   CPU) plus 4;
+   the f32 route to the f32 module on >= 0.99 of the slots (the bench's
+   gate, as the JAX package's int8 test holds it). Then
+   ``bench_paths.try_int8_pipeline`` must return a pipe gated against the
+   twin on the calibration batch, whose coords equal the served bf16
+   route's bit for bit; it prints its s8 conv's form.
+10. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+   launches of its paths: the serving, bench, training, probe and daemon
+   runs, each counted from 0, summed over the paths that launch it; the
+   serving instantiation's launches go to ``sgb_contract_pool`` at
+   L_UNCHUNKED and to ``sgb_contract_pool_dma`` at L, on the fused path
+   and through the daemon), the card's name and power limit, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero. It exits non-zero
 without a CUDA device too.
@@ -123,10 +151,15 @@ without a CUDA device too.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -134,11 +167,15 @@ import torch.nn.functional as F
 
 from stofnet_tpu_torch.bench_paths import (
     AGREE_MIN, coord_agreement, make_xla_pipeline, try_fused_pipeline,
-    try_packed_pipeline,
+    try_int8_pipeline, try_packed_pipeline,
 )
+from stofnet_tpu_torch.cli import serve as serve_cli
 from stofnet_tpu_torch.data.synthetic import gate_batch
 from stofnet_tpu_torch.models import (
     StofNet, stofnet_apply_fused, stofnet_apply_reference,
+)
+from stofnet_tpu_torch.models.int8 import (
+    quantize_stofnet, stofnet_apply_int8,
 )
 from stofnet_tpu_torch.ops.kernels import (
     KERNEL_MODULES, SOURCES, _build, conv_stack, dma_probe,
@@ -149,9 +186,15 @@ from stofnet_tpu_torch.ops.conv import conv1d_same
 from stofnet_tpu_torch.ops.peaks import mask2coords
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
 from stofnet_tpu_torch.serve import make_pipeline, module_coords
+from stofnet_tpu_torch.serving import (
+    ServingClient, decode_payload, encode_rows,
+)
+from stofnet_tpu_torch.serving.codecs import DEFAULT_CHUNKS
+from stofnet_tpu_torch.serving.tcp import WIRE_INT8C
 from stofnet_tpu_torch.train import (
     LossConfig, fused_loss, make_fused_train_step, make_optimizer,
 )
+from stofnet_tpu_torch.train.checkpoint import save_checkpoint
 
 B, L, UP = 128, 8000, 4
 L_UNCHUNKED = 2000  # a serving length JAX's dma_supported refuses (L % 800)
@@ -179,6 +222,9 @@ N_STEPS = 4  # timed training steps, after one warm-up step
 DMA_SEEDS = 3  # seeds of the streamed SGB kernel's check at L=800
 HOST_CALLS = 1000  # back-to-back calls of the canary's host-time reading
 PROFILE_CALLS = 100  # calls of the canary's device-time reading
+DAEMON_CLIENTS = 8  # client threads of single-waveform requests
+DAEMON_REQUESTS = 64  # single-waveform requests per client
+DAEMON_ECHOES = 64  # cli/serve.py's default max_echoes
 
 
 def log(msg: str) -> None:
@@ -1091,6 +1137,243 @@ def seed_witness(dev, cfg, frames, gt) -> dict:
     return out
 
 
+def daemon_path(dev, state) -> dict:
+    """The serving daemon (``cli/serve.build``) from a checkpoint of the
+    seeded weights, its dtype gate left at auto, every bucket warmed
+    before the server binds, under :func:`daemon_traffic`. On these
+    weights the gate serves bf16, whose fused route runs the kernels: the
+    phase fails where it chose f32 (the ``StofNet`` module, no kernel) or
+    where a kernel of the fused route did not launch. Returns the launches
+    of the traffic by kernels-line row."""
+    rng = np.random.default_rng(SEED + 3)
+    rows = gate_batch(DAEMON_CLIENTS * DAEMON_REQUESTS, L, rng)[:, 0]
+    batch = gate_batch(B, L, rng)[:, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(Path(tmp) / "armadillo-seed0.pt", state)
+        args = {"model_file": "armadillo", "ckpt_dir": tmp, "length": L,
+                "max_batch": B, "max_wait_ms": 2, "port": 0}
+        dtype, launches = daemon_traffic("daemon (dtype=auto)", args, state,
+                                         dev, rows, batch)
+    if dtype != torch.bfloat16 or not all(launches.values()):
+        raise AssertionError(f"daemon: served {dtype}, not bf16 on the fused "
+                             f"route, or a kernel did not launch: {launches}")
+    return launches
+
+
+def daemon_traffic(name, args, state, dev, rows, batch):
+    """Build the daemon of ``args``; DAEMON_CLIENTS clients send
+    DAEMON_REQUESTS single waveforms each from ``rows`` and one more
+    client ``batch`` over the s8c wire, the launch counts set to 0 just
+    before the traffic and read just after; every returned row must equal
+    ``make_pipeline``'s direct coords for it bit for bit (the s8c rows: on
+    the decoded wire rows). Shuts the daemon down and drains it. Returns
+    the daemon's dtype and the traffic's launches by kernels-line row."""
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        hostd, server, port = serve_cli.build(args)
+    build_s = time.perf_counter() - t0
+    for line in err.getvalue().splitlines():
+        log(f"{name} build: {line}")
+    dtype = (torch.bfloat16 if args.get("dtype") == "bfloat16"
+             or "bf16 OK" in err.getvalue() else torch.float32)
+    got = np.zeros((len(rows), DAEMON_ECHOES), np.float32)
+    lat = np.zeros(len(rows))
+    box = {}
+
+    def single(c: int) -> None:
+        with ServingClient(("127.0.0.1", port)) as cli:
+            for i in range(c * DAEMON_REQUESTS, (c + 1) * DAEMON_REQUESTS):
+                t = time.perf_counter()
+                got[i] = cli.infer(rows[i])
+                lat[i] = time.perf_counter() - t
+
+    def wire() -> None:
+        with ServingClient(("127.0.0.1", port), wire="s8c") as cli:
+            box["s8c"] = cli.infer(batch)
+            box["stats"] = cli.stats()
+
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=single, args=(c,))
+                   for c in range(DAEMON_CLIENTS)]
+        threads.append(threading.Thread(target=wire))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300.0)
+        wall = time.perf_counter() - t0
+        c = counts()
+        if any(t.is_alive() for t in threads) or "stats" not in box:
+            raise AssertionError(f"{name}: a client did not finish")
+    finally:
+        server.shutdown()
+        server.server_close()
+        hostd.close()
+    stats = hostd.stats()
+    launches = {"sgb_contract_pool_dma": c["sgb_dma.launches"],
+                "conv_stack_fused": c["conv_stack.launches"]}
+
+    direct = make_pipeline(state, {"upsample_factor": UP}, dtype=dtype,
+                           device=dev)
+    want = np.concatenate([direct(rows[i:i + B, None]).cpu().numpy()
+                           for i in range(0, len(rows), B)])
+    wire_rows = decode_payload(encode_rows(batch, WIRE_INT8C, DEFAULT_CHUNKS),
+                               WIRE_INT8C, B, L, DEFAULT_CHUNKS)
+    want_s8c = direct(wire_rows).cpu().numpy()
+    out = dict(build_s=build_s, dtype=str(dtype),
+               route=hostd._pipeline.route(L), route_calls=direct.calls,
+               requests=len(rows) + 1, waveforms=len(rows) + B, wall_s=wall,
+               requests_per_s=(len(rows) + 1) / wall,
+               waveforms_per_s=(len(rows) + B) / wall,
+               single_latency_p50_ms=float(np.percentile(lat, 50) * 1e3),
+               single_latency_p99_ms=float(np.percentile(lat, 99) * 1e3),
+               buckets_used={k: v for k, v in
+                             stats["bucket_counts"].items() if v},
+               rows_differing=int((got != want).any(1).sum()),
+               s8c_rows_differing=int((box["s8c"] != want_s8c).any(1).sum()),
+               launches=launches, client_stats=box["stats"])
+    log(f"{name}: {json.dumps(out)}")
+    if out["rows_differing"] or out["s8c_rows_differing"]:
+        raise AssertionError(f"{name}: rows differ from make_pipeline's "
+                             f"direct coords: {out['rows_differing']} single"
+                             f", {out['s8c_rows_differing']} s8c")
+    if stats["errors"] or stats["pending"]:
+        raise AssertionError(f"{name}: errors or undrained work: {stats}")
+    return dtype, launches
+
+
+def int8_path(dev, state) -> None:
+    """The int8-SGB route of ``make_pipeline``, calibrated on a (B, 1, L)
+    gate batch, the launch counts set to 0 just before the phase and held
+    at 0 just after (no kernel of the port launches: its s8 product is
+    ``torch._int_mm``):
+
+    - served in bf16 (its default) and in f32, each over one warm-up
+      batch and N_BATCHES fresh batches: ms per batch, peak memory;
+    - the bf16 route held to two twins, as the main path holds the
+      kernels to the plain path and its CPU witness: bit for bit to the
+      same forward on the card with the s8 conv as K shifted products
+      (``impl="dots"``; s32 sums are exact, so the codes are the same),
+      and to the same bf16 int8 forward on the CPU on the card's
+      calibration (the same codes and scales, another order of float
+      sums) on moved rows: no more than twice what summation order alone
+      moves in a bf16 forward (the bf16 ``StofNet`` module on the card
+      against it on the CPU) plus ROW_NOISE. Its slots against the CPU
+      twin are printed: bf16 summation order moves more than 1 % of them
+      on these weights, in the module as in the int8 route;
+    - the f32 route held to the f32 module on >= AGREE_MIN of the slots,
+      the bench's gate, as the JAX package's own int8 test holds it: what
+      the quantization alone moves (the bf16 route's agreement with the
+      f32 and bf16 modules printed beside it; bf16 alone moves more on
+      these weights);
+    - ``bench_paths.try_int8_pipeline`` on the calibration batch, gated
+      against the twin's coords on it: it must return a pipe, which must
+      equal the served bf16 route's coords there bit for bit."""
+    rng = np.random.default_rng(SEED + 4)
+    ov = {"upsample_factor": UP}
+    calib = gate_batch(B, L, rng)
+    batches = [gate_batch(B, L, rng) for _ in range(N_BATCHES)]
+    decode = dict(window_size=DECODE["window_size"],
+                  threshold=DECODE["threshold"],
+                  max_echoes=DECODE["max_echoes"])
+    reset_launch_counts()
+    out, got = {}, {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        t0 = time.perf_counter()
+        pipe = make_pipeline(state, ov, device=dev, int8_calib=calib,
+                             dtype=dtype, **decode)
+        calib_s = time.perf_counter() - t0
+
+        def run(x, pipe=pipe):
+            return pipe(x).cpu()
+
+        run(gate_batch(B, L, rng))  # cuDNN's algorithm choice, not timed
+        torch.cuda.reset_peak_memory_stats()
+        got[name], batch_ms = serve_timed(f"int8 route {name}", run,
+                                          batches, {})
+        peak = torch.cuda.max_memory_allocated()
+        ms = float(np.median(batch_ms))
+        if pipe.calls["int8"] != 1 + N_BATCHES:
+            raise AssertionError(f"int8 route {name}: calls {pipe.calls}")
+        out[name] = dict(calibration_s=calib_s, ms_per_batch=ms,
+                         batch_ms=batch_ms, waveforms_per_s=B / ms * 1e3,
+                         peak_memory_gb=peak / 1e9)
+        if name == "bf16":
+            served = pipe
+            prof = profile_runs(run, batches)
+            prof["idle_share_derived"] = 1.0 - prof["device_busy_ms"] / ms
+            log(f"int8 route bf16 profile: {json.dumps(prof)}")
+
+    t0 = time.perf_counter()
+    q = quantize_stofnet(state, calib)  # the card's calibration
+    q_cpu = to_cpu(q)
+    with torch.inference_mode():
+        dots = torch.cat([mask2coords(stofnet_apply_int8(
+            q, torch.from_numpy(x).to(dev), impl="dots"), **DECODE).cpu()
+            for x in batches])
+        twin = [mask2coords(stofnet_apply_int8(
+            q_cpu, torch.from_numpy(x)), **DECODE) for x in [calib] + batches]
+    twin_calib, twin = twin[0], torch.cat(twin[1:])
+    ref = {(dt, where): torch.from_numpy(np.concatenate([module_coords(
+        state, ov, x, dt, where, **decode) for x in batches]))
+        for dt, where in ((torch.float32, dev), (torch.bfloat16, dev),
+                          (torch.bfloat16, "cpu"))}
+    m16, m16_cpu, m32 = (ref[torch.bfloat16, dev], ref[torch.bfloat16, "cpu"],
+                         ref[torch.float32, dev])
+
+    def pair(a, b):
+        return dict(slots=coord_agreement(a, b), moved=row_agreement(a, b)[1])
+
+    out.update(references_s=time.perf_counter() - t0,
+               bf16_dots_equal=bool(torch.equal(got["bf16"], dots)),
+               bf16_twin=pair(got["bf16"], twin),
+               module_bf16_card_cpu=pair(m16, m16_cpu),
+               bf16_module_f32=pair(got["bf16"], m32),
+               bf16_module_bf16=pair(got["bf16"], m16),
+               f32_module_f32=pair(got["f32"], m32))
+    log(f"int8 route: {json.dumps(out)}")
+    if not out["bf16_dots_equal"]:
+        raise AssertionError("int8 route bf16: its coords differ from the "
+                             "same forward's with the s8 conv as K shifted "
+                             "products on the card (exact s32 sums)")
+    moved, base = out["bf16_twin"]["moved"], out["module_bf16_card_cpu"][
+        "moved"]
+    if moved > 2 * base + ROW_NOISE:
+        raise AssertionError(
+            f"int8 route bf16: moves {moved} rows against its CPU twin, more "
+            f"than twice the {base} that summation order moves in the bf16 "
+            f"module (card against CPU) plus {ROW_NOISE}")
+    if out["f32_module_f32"]["slots"] < AGREE_MIN:
+        raise AssertionError(f"int8 route f32: {out['f32_module_f32']} of "
+                             f"the f32 module's slots (< {AGREE_MIN})")
+
+    xg = torch.from_numpy(calib).to(dev)
+    gated = try_int8_pipeline(state, ov, xg, twin_calib)
+    if gated is None:
+        raise AssertionError("try_int8_pipeline: the gate refused the int8 "
+                             "path against its CPU twin")
+    card = gated(state, xg).cpu()
+    same = bool(torch.equal(card, served(calib).cpu()))
+    log(f"try_int8_pipeline: gated pipe, impl {gated.impl}, "
+        f"{coord_agreement(card, twin_calib):.6f} of the slots of the CPU "
+        f"twin, {row_agreement(card, twin_calib)[1]} rows moved; equal to "
+        f"the served bf16 route: {same}")
+    if not same:
+        raise AssertionError("try_int8_pipeline: its coords differ from the "
+                             "served bf16 int8 route's on the same batch")
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"int8 phase: a kernel launched: {launched}")
+
+
+def to_cpu(tree):
+    """A nested dict of tensors, copied to the CPU."""
+    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1127,7 +1410,8 @@ def main() -> int:
 
     paths = [probe_launches, main_path(dev, state, rng),
              bench_paths(dev, state, rng_new)["launches"],
-             train_path(dev)["launches"]]
+             train_path(dev)["launches"], daemon_path(dev, state)]
+    int8_path(dev, state)
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

@@ -1,5 +1,6 @@
 """The bench's compute paths (replaces ``bench.py:make_decoder``,
-``make_xla_pipeline``, ``try_packed_pipeline`` and ``try_fused_pipeline``).
+``make_xla_pipeline``, ``try_packed_pipeline``, ``try_fused_pipeline`` and
+``try_int8_pipeline``).
 
 Each path is a callable ``pipe(state, x) -> coords``: the StofNet forward
 of one design over a state dict (reference torch names, on ``x``'s device)
@@ -14,6 +15,9 @@ judges coords, nothing else.
   bench names) and the conv stack as plain convs, as the bench composes
   it.
 - packed: ``stofnet_apply_packed(dtype=bf16, pack=2)``, plain PyTorch.
+- int8: ``stofnet_apply_int8(dtype=bf16)`` on the state ``quantize_stofnet``
+  calibrates on the gate batch: the SGB's contract conv as an s8 product
+  (``torch._int_mm``), its pre-pool tensor requantized to s8.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ import torch
 from stofnet_tpu_torch import DeviceLike, resolve_device
 from stofnet_tpu_torch.models.fused import (
     stofnet_apply_fused, stofnet_apply_packed,
+)
+from stofnet_tpu_torch.models.int8 import (
+    quantize_stofnet, stofnet_apply_int8,
 )
 from stofnet_tpu_torch.models.stofnet import StofNet
 from stofnet_tpu_torch.ops.peaks import mask2coords
@@ -103,6 +110,35 @@ def try_fused_pipeline(state: Mapping[str, torch.Tensor],
         return decode(stofnet_apply_fused(state, xb, dtype=torch.bfloat16,
                                           fused_stack=False, **kw))
     return _gate(pipe, state, x, coords_ref)
+
+
+def try_int8_pipeline(state: Mapping[str, torch.Tensor],
+                      overrides: Dict[str, Any], x: torch.Tensor,
+                      coords_ref) -> Optional[Pipe]:
+    """The int8-SGB path, calibrated on the gate batch ``x`` and gated on
+    ``coords_ref`` over it. The s8 conv's ``"conv"`` form (one product
+    over an im2col) first; where the backend refuses that product
+    (``RuntimeError``, as JAX's bench falls back when the backend rejects
+    an integer conv), the ``"dots"`` form (K shifted products). The gate's
+    verdict does not depend on the form, so a refused gate ends the try.
+    The returned pipe names its form in ``pipe.impl``."""
+    kw = _fused_kwargs(overrides)
+    decode = make_decoder(overrides)
+    q = quantize_stofnet(state, x, **kw)
+
+    def make_pipe(impl: str) -> Pipe:
+        @torch.inference_mode()
+        def pipe(state: Mapping[str, torch.Tensor],
+                 xb: torch.Tensor) -> torch.Tensor:
+            return decode(stofnet_apply_int8(
+                q, xb, dtype=torch.bfloat16, impl=impl, **kw))
+        pipe.impl = impl
+        return pipe
+
+    try:
+        return _gate(make_pipe("conv"), state, x, coords_ref)
+    except RuntimeError:
+        return _gate(make_pipe("dots"), state, x, coords_ref)
 
 
 def _gate(pipe: Pipe, state, x, coords_ref) -> Optional[Pipe]:

@@ -323,6 +323,40 @@ def test_pipeline_module_route_on_the_card(cuda):
     assert torch.equal(got.cpu(), torch.from_numpy(ref))
 
 
+def test_pipeline_float32_takes_the_module_route_on_the_card(cuda):
+    """The kernels take bfloat16 only: an f32 pipeline on the card serves
+    the f32 StofNet module (no launch) and gives its coords."""
+    state = StofNet(device=cuda,
+                    generator=torch.Generator().manual_seed(2)).state_dict()
+    x = gate_batch(4, 800, np.random.default_rng(4))
+    pipe = make_pipeline(state, {}, max_echoes=8, device=cuda,
+                         dtype=torch.float32)
+    assert pipe.route(800) == "module"
+    counts = (sgb_dma.launches, conv_stack.launches)
+    got = pipe(x)
+    assert (sgb_dma.launches, conv_stack.launches) == counts
+    ref = module_coords(state, {}, x, torch.float32, cuda, max_echoes=8)
+    assert torch.equal(got.cpu(), torch.from_numpy(ref))
+
+
+@pytest.mark.parametrize("impl", ["conv", "dots"])
+@pytest.mark.parametrize("batch,length,k", [(1, 8000, 5), (3, 840, 7)])
+def test_int8_conv_on_the_card(cuda, impl, batch, length, k):
+    """The int8 route's s8 conv (``torch._int_mm`` on the codes
+    ``quantize_weight`` lays out column-major) gives the CPU's exact
+    int32 sums on the card, B=1 included."""
+    from stofnet_tpu_torch.ops.int8 import conv1d_same_int8, quantize_weight
+
+    rng = np.random.default_rng(k)
+    xq = torch.from_numpy(rng.integers(-127, 128, (batch, length, 64))
+                          .astype(np.int8))
+    wq, _ = quantize_weight(torch.from_numpy(
+        rng.standard_normal((k, 64, 512)).astype(np.float32)))
+    want = conv1d_same_int8(xq, wq, impl)
+    got = conv1d_same_int8(xq.to(cuda), wq.to(cuda), impl)
+    assert torch.equal(got.cpu(), want)
+
+
 def test_canary_on_the_card(cuda):
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (8, 128)).astype(np.float32)).to(cuda)

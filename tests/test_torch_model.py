@@ -127,18 +127,27 @@ def test_overrides_infer_architecture():
 
 def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py) leaves JAX,
-    flax and the JAX package out of sys.modules."""
+    flax, the JAX package and PyYAML (absent on the machine with the card)
+    out of sys.modules."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "stofnet_tpu_torch").rglob("*.py"))
     assert {"stofnet_tpu_torch.train.steps", "stofnet_tpu_torch.train.loss",
             "stofnet_tpu_torch.train.checkpoint",
-            "stofnet_tpu_torch.ops.gaussian"} <= set(modules)
+            "stofnet_tpu_torch.ops.gaussian",
+            "stofnet_tpu_torch.serving.codecs",
+            "stofnet_tpu_torch.serving.host",
+            "stofnet_tpu_torch.serving.router",
+            "stofnet_tpu_torch.serving.tcp",
+            "stofnet_tpu_torch.cli.serve", "stofnet_tpu_torch.cli.export",
+            "stofnet_tpu_torch.utils.config",
+            "stofnet_tpu_torch.ops.int8",
+            "stofnet_tpu_torch.models.int8"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m.removesuffix('.__init__'))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'stofnet_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'stofnet_tpu', 'yaml')]\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -148,10 +157,10 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No import of JAX, flax or the JAX package anywhere in the port's
-    sources, lazy imports inside functions included."""
-    banned = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|stofnet_tpu)"
-                        r"(\.|\s|$)")
+    """No import of JAX, flax, the JAX package or PyYAML anywhere in the
+    port's sources, lazy imports inside functions included."""
+    banned = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|stofnet_tpu"
+                        r"|yaml)(\.|\s|$)")
     files = list((REPO / "stofnet_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     for f in files:

@@ -170,3 +170,26 @@ def test_entry_points_raise_without_a_card(weights):
         StofNet()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         default_device()
+
+
+def test_f32_on_the_card_takes_the_module_route(weights):
+    """Repair: the fused route's CUDA kernels take bfloat16 only, so
+    ``make_pipeline(dtype=float32)`` on the card launched them and raised
+    TypeError where JAX's f32 pipeline serves (the daemon's dtype gate
+    chooses f32 when bf16 moves decodes). The route rule now sends f32 on
+    a CUDA device to the StofNet module, and keeps the fused route for
+    bf16 on the card and for any dtype on the CPU; JAX serves f32 at the
+    operating shape's length, as the port's module route does."""
+    from stofnet_tpu_torch.serve import fused_takes
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert not fused_takes({}, torch.float32, cuda)
+    assert fused_takes({}, torch.bfloat16, cuda)
+    assert fused_takes({"upsample_factor": 4}, torch.float32, cpu)
+    assert not fused_takes({"num_features": 32}, torch.bfloat16, cuda)
+    assert not fused_takes({"semi_global_scale": 40}, torch.bfloat16, cpu)
+    variables, state = weights
+    x = gate_batch(2, 800, np.random.default_rng(11))
+    ref = _jax_coords(variables, {}, x)
+    got = module_coords(state, {}, x, torch.float32, "cpu", max_echoes=8)
+    assert np.all(np.abs(got - ref) <= 1.0)
