@@ -109,6 +109,15 @@
    4 batches trained on again under the profiler. Last, a witness: the
    same 5 steps from the serving weights, through the kernels and through
    the plain versions, with the warm-up batch's loss before and after.
+From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
+   on, cuBLAS's off), as a daemon process serves; each plain reference
+   these phases compare with computes in its own TF32-off scope
+   (``ops/conv.full_f32``). First what TF32 moves: the daemon gate's batch
+   (16 echo rows at L=8000, seed 3008) through the f32 ``StofNet`` module
+   and the f32 int8 route with TF32 on and off (the ``tf32 rows`` line:
+   rows that differ, rows moved by more than 1 sample); ``make_pipeline``
+   in f32 must give the module's TF32-off coords bit for bit and leave the
+   caller's flag on.
 8. The serving daemon (``cli/serve.build``) from a checkpoint of the
    serving weights written by ``train/checkpoint.save_checkpoint``, at
    L=8000, max_batch 128, max_wait_ms 2, its dtype gate left at auto
@@ -119,9 +128,9 @@
    bit for bit (the s8c rows: on the decoded wire rows). Prints
    requests/s, p50 and p99 single-request latency, the buckets used, the
    client's stats query and the kernels' launches during the traffic
-   (counts set to 0 just before it). The gate must serve bf16 on these
-   weights, and the serving SGB kernel and the conv stack must both
-   launch. The daemon is shut down and drained.
+   (counts set to 0 just before it), each kernel once a batch. The gate
+   must serve bf16 on these weights, and the serving SGB kernel and the
+   conv stack must both launch. The daemon is shut down and drained.
 9. The int8-SGB route of ``make_pipeline``, calibrated on a (128, 1,
    8000) gate batch, the launch counts set to 0 before the phase and held
    at 0 after it: served in bf16 and in f32 over a warm-up batch and 4
@@ -137,12 +146,25 @@
    ``bench_paths.try_int8_pipeline`` must return a pipe gated against the
    twin on the calibration batch, whose coords equal the served bf16
    route's bit for bit; it prints its s8 conv's form.
-10. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
-   launches of its paths: the serving, bench, training, probe and daemon
-   runs, each counted from 0, summed over the paths that launch it; the
-   serving instantiation's launches go to ``sgb_contract_pool`` at
+10. The export phase: ``serve.export_pipeline`` at B=128, L=8000, bf16 on
+   the seeded weights, a batch-polymorphic artifact (``batch="b"``), one
+   at the fixed batch 128 and a weightless one (the state from its
+   ``.weights.npz`` sidecar), each exported, saved and loaded on the card
+   (export and load seconds, file size): on 4 fresh gate batches each must
+   launch the serving SGB kernel and the conv stack once a batch through
+   their custom ops and give ``make_pipeline``'s direct coords bit for
+   bit; ms per batch (median of 4) beside the direct pipeline's, and the
+   device time of the weight layouts the weightless program runs on every
+   call. Then the daemon from two artifacts (``artifact=``, L=8000 and
+   L=2000, both batch-polymorphic) under the daemon phase's traffic, half
+   the clients at each length: every row bit for bit ``make_pipeline``'s,
+   each kernel once a batch.
+11. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+   launches of its paths: the serving, bench, training, probe, daemon and
+   export runs, each counted from 0, summed over the paths that launch
+   it; the serving instantiation's launches go to ``sgb_contract_pool`` at
    L_UNCHUNKED and to ``sgb_contract_pool_dma`` at L, on the fused path
-   and through the daemon), the card's name and power limit, and as the
+   and through the daemons), the card's name and power limit, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero. It exits non-zero
@@ -182,10 +204,13 @@ from stofnet_tpu_torch.ops.kernels import (
     reset_launch_counts, sgb, sgb_dma,
 )
 from stofnet_tpu_torch.ops.kernels._timing import time_ms
-from stofnet_tpu_torch.ops.conv import conv1d_same
+from stofnet_tpu_torch.ops.conv import conv1d_same, full_f32
 from stofnet_tpu_torch.ops.peaks import mask2coords
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
-from stofnet_tpu_torch.serve import make_pipeline, module_coords
+from stofnet_tpu_torch.serve import (
+    export_pipeline, export_pipeline_weightless, load_pipeline, make_pipeline,
+    module_coords, save_pipeline,
+)
 from stofnet_tpu_torch.serving import (
     ServingClient, decode_payload, encode_rows,
 )
@@ -225,6 +250,7 @@ PROFILE_CALLS = 100  # calls of the canary's device-time reading
 DAEMON_CLIENTS = 8  # client threads of single-waveform requests
 DAEMON_REQUESTS = 64  # single-waveform requests per client
 DAEMON_ECHOES = 64  # cli/serve.py's default max_echoes
+GATE_ROWS, GATE_SEED = 16, 3008  # the daemon's dtype gate batch (L=8000)
 
 
 def log(msg: str) -> None:
@@ -1146,7 +1172,7 @@ def daemon_path(dev, state) -> dict:
     where a kernel of the fused route did not launch. Returns the launches
     of the traffic by kernels-line row."""
     rng = np.random.default_rng(SEED + 3)
-    rows = gate_batch(DAEMON_CLIENTS * DAEMON_REQUESTS, L, rng)[:, 0]
+    rows = list(gate_batch(DAEMON_CLIENTS * DAEMON_REQUESTS, L, rng)[:, 0])
     batch = gate_batch(B, L, rng)[:, 0]
     with tempfile.TemporaryDirectory() as tmp:
         save_checkpoint(Path(tmp) / "armadillo-seed0.pt", state)
@@ -1160,14 +1186,19 @@ def daemon_path(dev, state) -> dict:
     return launches
 
 
-def daemon_traffic(name, args, state, dev, rows, batch):
+def daemon_traffic(name, args, state, dev, rows, batch, dtype=None):
     """Build the daemon of ``args``; DAEMON_CLIENTS clients send
-    DAEMON_REQUESTS single waveforms each from ``rows`` and one more
-    client ``batch`` over the s8c wire, the launch counts set to 0 just
-    before the traffic and read just after; every returned row must equal
-    ``make_pipeline``'s direct coords for it bit for bit (the s8c rows: on
-    the decoded wire rows). Shuts the daemon down and drains it. Returns
-    the daemon's dtype and the traffic's launches by kernels-line row."""
+    DAEMON_REQUESTS single waveforms each from the list ``rows`` (client c
+    the c-th run of them; their lengths are those the daemon serves) and
+    one more client the (B, L) ``batch`` over the s8c wire, the launch
+    counts set to 0 just before the traffic and read just after; every
+    returned row must equal ``make_pipeline``'s direct coords for it bit
+    for bit (the s8c rows: on the decoded wire rows), in ``dtype`` or, when
+    None, the one the daemon's dtype gate chose. The route is read from the
+    launch counts: on the fused route every batch launches both kernels
+    once. Shuts the daemon down and drains it. Returns the daemon's dtype
+    and the traffic's launches by kernels-line row, the serving SGB
+    kernel's by the length of their batches."""
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
@@ -1175,9 +1206,10 @@ def daemon_traffic(name, args, state, dev, rows, batch):
     build_s = time.perf_counter() - t0
     for line in err.getvalue().splitlines():
         log(f"{name} build: {line}")
-    dtype = (torch.bfloat16 if args.get("dtype") == "bfloat16"
-             or "bf16 OK" in err.getvalue() else torch.float32)
-    got = np.zeros((len(rows), DAEMON_ECHOES), np.float32)
+    if dtype is None:
+        dtype = (torch.bfloat16 if args.get("dtype") == "bfloat16"
+                 or "bf16 OK" in err.getvalue() else torch.float32)
+    got = [None] * len(rows)
     lat = np.zeros(len(rows))
     box = {}
 
@@ -1212,26 +1244,45 @@ def daemon_traffic(name, args, state, dev, rows, batch):
         server.server_close()
         hostd.close()
     stats = hostd.stats()
-    launches = {"sgb_contract_pool_dma": c["sgb_dma.launches"],
-                "conv_stack_fused": c["conv_stack.launches"]}
+    per_length = (stats["per_length"] if "per_length" in stats
+                  else {hostd.length: stats})
+    batches = {n: s["batches"] for n, s in per_length.items()}
+    fused = c["sgb_dma.launches"] > 0
+    if (c["sgb_dma.launches"] != c["conv_stack.launches"]
+            or (fused and c["sgb_dma.launches"] != sum(batches.values()))):
+        raise AssertionError(f"{name}: launches {c} on {batches} batches, "
+                             f"not both kernels once a batch")
+    launches = {"conv_stack_fused": c["conv_stack.launches"]}
+    for n, k in batches.items():
+        launches[SGB_ROW[n]] = k if fused else 0
 
     direct = make_pipeline(state, {"upsample_factor": UP}, dtype=dtype,
                            device=dev)
-    want = np.concatenate([direct(rows[i:i + B, None]).cpu().numpy()
-                           for i in range(0, len(rows), B)])
+    want = [None] * len(rows)
+    for n in batches:
+        idx = [i for i, r in enumerate(rows) if len(r) == n]
+        xs = np.stack([rows[i] for i in idx])[:, None]
+        coords = np.concatenate([direct(xs[j:j + B]).cpu().numpy()
+                                 for j in range(0, len(idx), B)])
+        for i, row in zip(idx, coords):
+            want[i] = row
     wire_rows = decode_payload(encode_rows(batch, WIRE_INT8C, DEFAULT_CHUNKS),
                                WIRE_INT8C, B, L, DEFAULT_CHUNKS)
     want_s8c = direct(wire_rows).cpu().numpy()
     out = dict(build_s=build_s, dtype=str(dtype),
-               route=hostd._pipeline.route(L), route_calls=direct.calls,
+               route="fused" if fused else "module", route_calls=direct.calls,
                requests=len(rows) + 1, waveforms=len(rows) + B, wall_s=wall,
                requests_per_s=(len(rows) + 1) / wall,
                waveforms_per_s=(len(rows) + B) / wall,
                single_latency_p50_ms=float(np.percentile(lat, 50) * 1e3),
                single_latency_p99_ms=float(np.percentile(lat, 99) * 1e3),
-               buckets_used={k: v for k, v in
-                             stats["bucket_counts"].items() if v},
-               rows_differing=int((got != want).any(1).sum()),
+               buckets_used={n: {k: v for k, v in s["bucket_counts"].items()
+                                 if v} for n, s in per_length.items()},
+               rows_differing=sum(not np.array_equal(g, w)
+                                  for g, w in zip(got, want)),
+               rows_differing_by_length={n: sum(
+                   not np.array_equal(g, w) for g, w, r in
+                   zip(got, want, rows) if len(r) == n) for n in batches},
                s8c_rows_differing=int((box["s8c"] != want_s8c).any(1).sum()),
                launches=launches, client_stats=box["stats"])
     log(f"{name}: {json.dumps(out)}")
@@ -1242,6 +1293,55 @@ def daemon_traffic(name, args, state, dev, rows, batch):
     if stats["errors"] or stats["pending"]:
         raise AssertionError(f"{name}: errors or undrained work: {stats}")
     return dtype, launches
+
+
+def tf32_rows(dev, state) -> None:
+    """What TF32 moves, measured before its repair was trusted: the daemon
+    gate's batch (GATE_ROWS echo rows at L, seed GATE_SEED) through the f32
+    ``StofNet`` module and the f32 int8 route (calibrated on the int8
+    phase's batch), each with cuDNN's TF32 on (PyTorch's default) and off;
+    prints the rows whose coords differ, those that move by more than 1
+    sample, and the largest change of the heatmap beside its largest
+    value. Then the repair: ``make_pipeline`` in f32 under PyTorch's
+    default flags must give the module's TF32-off coords bit for bit, and
+    leave the flag on."""
+    x = gate_batch(GATE_ROWS, L, np.random.default_rng(GATE_SEED))
+    ov = {"upsample_factor": UP}
+    decode = dict(window_size=DECODE["window_size"],
+                  threshold=DECODE["threshold"], max_echoes=DAEMON_ECHOES)
+    q = quantize_stofnet(state, gate_batch(B, L, np.random.default_rng(
+        SEED + 4)))
+    model = StofNet(device=dev)
+    model.load_state_dict(state)
+    xd = torch.from_numpy(x).to(dev)
+    forwards = {"module_f32": model,
+                "int8_f32": lambda xb: stofnet_apply_int8(
+                    q, xb, dtype=torch.float32)}
+    out, off = {}, {}
+    for name, forward in forwards.items():
+        heat, coords = {}, {}
+        for tf32 in (True, False):
+            with torch.inference_mode(), (contextlib.nullcontext() if tf32
+                                          else full_f32()):
+                heat[tf32] = forward(xd)
+                coords[tf32] = mask2coords(
+                    heat[tf32], DECODE["window_size"], DECODE["threshold"],
+                    UP, DAEMON_ECHOES).cpu()
+        on, off[name] = coords[True], coords[False]
+        out[name] = dict(
+            rows=GATE_ROWS, rows_differing=int((on != off[name]).any(1).sum()),
+            rows_moved=row_agreement(on, off[name])[1],
+            heat_max_abs_diff=float((heat[True] - heat[False]).abs().max()),
+            heat_max_abs=float(heat[False].abs().max()))
+    pipe = make_pipeline(state, ov, dtype=torch.float32, device=dev, **decode)
+    out["pipeline_f32_equals_module_without_tf32"] = bool(torch.equal(
+        pipe(x).cpu(), off["module_f32"]))
+    out["cudnn_allow_tf32_after"] = torch.backends.cudnn.allow_tf32
+    log(f"tf32 rows: {json.dumps(out)}")
+    if not (out["pipeline_f32_equals_module_without_tf32"]
+            and out["cudnn_allow_tf32_after"]):
+        raise AssertionError(f"tf32: the f32 pipeline computes in TF32 or "
+                             f"changes the caller's flag: {out}")
 
 
 def int8_path(dev, state) -> None:
@@ -1309,17 +1409,17 @@ def int8_path(dev, state) -> None:
     t0 = time.perf_counter()
     q = quantize_stofnet(state, calib)  # the card's calibration
     q_cpu = to_cpu(q)
-    with torch.inference_mode():
+    with torch.inference_mode(), full_f32():  # the references without TF32
         dots = torch.cat([mask2coords(stofnet_apply_int8(
             q, torch.from_numpy(x).to(dev), impl="dots"), **DECODE).cpu()
             for x in batches])
         twin = [mask2coords(stofnet_apply_int8(
             q_cpu, torch.from_numpy(x)), **DECODE) for x in [calib] + batches]
+        ref = {(dt, where): torch.from_numpy(np.concatenate([module_coords(
+            state, ov, x, dt, where, **decode) for x in batches]))
+            for dt, where in ((torch.float32, dev), (torch.bfloat16, dev),
+                              (torch.bfloat16, "cpu"))}
     twin_calib, twin = twin[0], torch.cat(twin[1:])
-    ref = {(dt, where): torch.from_numpy(np.concatenate([module_coords(
-        state, ov, x, dt, where, **decode) for x in batches]))
-        for dt, where in ((torch.float32, dev), (torch.bfloat16, dev),
-                          (torch.bfloat16, "cpu"))}
     m16, m16_cpu, m32 = (ref[torch.bfloat16, dev], ref[torch.bfloat16, "cpu"],
                          ref[torch.float32, dev])
 
@@ -1368,6 +1468,121 @@ def int8_path(dev, state) -> None:
         raise AssertionError(f"int8 phase: a kernel launched: {launched}")
 
 
+def export_path(dev, state) -> dict:
+    """The artifacts of ``serve.export_pipeline`` at B, L, bf16 on the
+    seeded weights, exported, saved, loaded and served on the card: a
+    batch-polymorphic one (``batch="b"``), one at the fixed batch B and a
+    weightless one (its state from the ``.weights.npz`` sidecar). Each
+    prints its export and load seconds and its size, serves a warm-up
+    batch and N_BATCHES fresh gate batches, each launching the serving SGB
+    kernel and the conv stack once through their custom ops (counts set to
+    0 before each artifact's batches), and must give ``make_pipeline``'s
+    direct coords on them bit for bit; ms per batch (median) beside the
+    direct pipeline's, and the device time of the weight layouts that the
+    weightless program runs on every call. Then the daemon from two
+    artifacts (``artifact=``, L and L_UNCHUNKED) under
+    :func:`daemon_traffic`, half its clients at each length. Returns the
+    phase's launches by kernels-line row."""
+    rng = np.random.default_rng(SEED + 5)
+    ov = {"upsample_factor": UP}
+    decode = dict(window_size=DECODE["window_size"],
+                  threshold=DECODE["threshold"],
+                  max_echoes=DECODE["max_echoes"])
+    warm = gate_batch(B, L, rng)
+    batches = [gate_batch(B, L, rng) for _ in range(N_BATCHES)]
+    direct = make_pipeline(state, ov, device=dev, **decode)
+
+    def run_direct(x):
+        return direct(x).cpu()
+
+    run_direct(warm)  # cuDNN's algorithm choice, not timed
+    want, direct_ms = serve_timed("export phase direct", run_direct, batches,
+                                  SERVE[L])
+    out = {"direct_ms_per_batch": float(np.median(direct_ms))}
+    launches = {"sgb_contract_pool_dma": 0, "conv_stack_fused": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for kind, batch in (("b", "b"), ("fixed", B), ("weightless", "b")):
+            t0 = time.perf_counter()
+            if kind == "weightless":
+                program, weights = export_pipeline_weightless(
+                    state, ov, batch, L, device=dev, **decode)
+            else:
+                program = export_pipeline(state, ov, batch, L, device=dev,
+                                          **decode)
+                weights = None
+            export_s = time.perf_counter() - t0
+            paths[kind] = path = save_pipeline(Path(tmp) / f"{kind}.pt2",
+                                               program, weights)
+            sidecar = Path(str(path) + ".weights.npz")
+            t0 = time.perf_counter()
+            served = load_pipeline(path)
+            load_s = time.perf_counter() - t0
+
+            def run(x, served=served):
+                return served(x).cpu()
+
+            run(warm)
+            reset_launch_counts()
+            got, batch_ms = serve_timed(f"export {kind}", run, batches,
+                                        SERVE[L])
+            c = counts()
+            launches["sgb_contract_pool_dma"] += c["sgb_dma.launches"]
+            launches["conv_stack_fused"] += c["conv_stack.launches"]
+            out[kind] = dict(
+                export_s=export_s, load_s=load_s,
+                file_mb=path.stat().st_size / 1e6,
+                sidecar_mb=(sidecar.stat().st_size / 1e6
+                            if sidecar.exists() else 0.0),
+                in_spec=[str(d) for d in served.in_specs[0].shape],
+                equal_to_direct=bool(torch.equal(got, want)),
+                ms_per_batch=float(np.median(batch_ms)), batch_ms=batch_ms)
+        kernel, bias = contract_bf16(state)
+        out["weightless_layout_ms"] = time_ms(lambda: (
+            sgb.sgb_dma_weights(kernel, bias, torch.bfloat16),
+            conv_stack.stack_weights(state, torch.bfloat16)), [()])
+        log(f"export phase: {json.dumps(out)}")
+        bad = [k for k in ("b", "fixed", "weightless")
+               if not out[k]["equal_to_direct"]]
+        if bad:
+            raise AssertionError(f"export phase: artifacts {bad} differ from "
+                                 f"make_pipeline's direct coords")
+
+        paths["l2000"] = save_pipeline(Path(tmp) / "l2000.pt2",
+                                       export_pipeline(
+                                           state, ov, "b", L_UNCHUNKED,
+                                           device=dev,
+                                           max_echoes=DAEMON_ECHOES))
+        paths["l8000"] = save_pipeline(Path(tmp) / "l8000.pt2",
+                                       export_pipeline(
+                                           state, ov, "b", L, device=dev,
+                                           max_echoes=DAEMON_ECHOES))
+        half = DAEMON_CLIENTS // 2 * DAEMON_REQUESTS
+        rows = (list(gate_batch(half, L, rng)[:, 0])
+                + list(gate_batch(half, L_UNCHUNKED, rng)[:, 0]))
+        args = {"artifact": f"{paths['l8000']},{paths['l2000']}",
+                "max_batch": B, "max_wait_ms": 2, "port": 0}
+        _, served = daemon_traffic(f"daemon (artifacts L={L}, "
+                                   f"{L_UNCHUNKED})", args,
+                                   state, dev, rows,
+                                   gate_batch(B, L, rng)[:, 0],
+                                   dtype=torch.bfloat16)
+    if not all(served.values()):
+        raise AssertionError(f"daemon from artifacts: a kernel did not "
+                             f"launch: {served}")
+    for k, v in served.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def default_flags() -> None:
+    """PyTorch's own TF32 defaults (cuDNN's on, cuBLAS's off), which a
+    daemon process serves under: the phases after the kernel checks run
+    with them, their plain references in their own TF32-off scope."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def to_cpu(tree):
     """A nested dict of tensors, copied to the CPU."""
     return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
@@ -1410,8 +1625,12 @@ def main() -> int:
 
     paths = [probe_launches, main_path(dev, state, rng),
              bench_paths(dev, state, rng_new)["launches"],
-             train_path(dev)["launches"], daemon_path(dev, state)]
+             train_path(dev)["launches"]]
+    default_flags()
+    tf32_rows(dev, state)
+    paths.append(daemon_path(dev, state))
     int8_path(dev, state)
+    paths.append(export_path(dev, state))
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

@@ -103,12 +103,14 @@ def fused_forward(
     kernels' weights out once, on the state's device: the forward a server
     closes over. With ``trainable`` nothing is laid out ahead: the weights
     change every step. The SGB kernel's one layout, the
-    ``sgb_dma_weights`` image, is laid out where the state lies on a CUDA
-    device and the contract conv is (5, 64, F) with F % 64 == 0; otherwise
-    nothing is, and each call runs ``sgb_contract_pool`` on (w, b): the
-    plain version on a CPU tensor, and on a CUDA tensor the kernel, which
-    raises for weights it does not take. ``stack_weights`` lays out the
-    conv stack."""
+    ``sgb_dma_weights`` image, is laid out on every device where the
+    contract conv is (5, 64, F) with F % 64 == 0, so the forward calls the
+    same two custom ops on the CPU (their plain versions, which round the
+    weights where the plain version on (w, b) does) and on the card (the
+    kernels): one traced graph for both. Otherwise nothing is laid out, and
+    each call runs ``sgb_contract_pool`` on (w, b): the plain version on a
+    CPU tensor, and on a CUDA tensor the kernel, which raises for weights
+    it does not take. ``stack_weights`` lays out the conv stack."""
     _check_sgb_impl(sgb_impl)
     _check_scale(semi_global_scale)
     if trainable:
@@ -125,8 +127,7 @@ def fused_forward(
     if semi_global_scale != 1:
         kernel, b = _kernel_and_bias(state, CONTRACT)
         image = None
-        if (kernel.device.type != "cpu" and kernel.shape[1] == CHANNELS
-                and kernel.shape[2] % GROUP == 0):
+        if kernel.shape[1] == CHANNELS and kernel.shape[2] % GROUP == 0:
             image, bias = sgb_dma_weights(kernel, b, dt)
 
         def sgb(h):

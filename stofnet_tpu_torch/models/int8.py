@@ -33,7 +33,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from stofnet_tpu_torch.ops.conv import conv1d_same
+from stofnet_tpu_torch.ops.conv import conv1d_same, full_f32
 from stofnet_tpu_torch.ops.int8 import (
     INT8_MAX, absmax_scale, conv1d_same_int8, quantize, quantize_weight,
 )
@@ -158,6 +158,7 @@ def _norm_stack_layers(quant_stack: bool, stack_layers: Optional[Sequence],
 
 
 @torch.inference_mode()
+@full_f32()
 def quantize_stofnet(state: Mapping[str, torch.Tensor], calib_x,
                      upsample_factor: int = 4, num_blocks: int = 13,
                      semi_global_scale: int = 80, quant_stack: bool = False,
@@ -179,6 +180,9 @@ def quantize_stofnet(state: Mapping[str, torch.Tensor], calib_x,
     input absmax, ``wmax`` the kernel's per-Cin absmax): the conv computes
     ``conv(h / s, w * s)``. ``bias_correct`` adds each quantized stack
     conv's calibrated mean rounding error to its bias.
+
+    The calibration's f32 forwards run without TF32 (``full_f32``), as
+    JAX's sum in full f32.
     """
     q: Dict[str, Any] = {"f32": {}}
     for name in ["conv1", "conv_last"] + [f"conv{i}" for i in

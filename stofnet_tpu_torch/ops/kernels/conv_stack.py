@@ -4,7 +4,11 @@
 ``conv_stack_fused`` launches the CUDA kernel ``csrc/conv_stack.cu`` on a
 CUDA tensor and runs ``conv_stack_fused_reference`` on a CPU tensor. A
 server lays the weights out once (``stack_weights``) and calls
-``conv_stack_fused_prepared`` per batch. The
+``conv_stack_fused_prepared`` per batch, which calls the custom op
+``stofnet_torch::conv_stack_fused_prepared`` (registered when this module
+is imported): its CUDA implementation is the launch, its CPU
+implementation the plain version, its fake implementation the output's
+shape for ``torch.export``. The
 kernel keeps every intermediate activation on the chip; its design and its
 bound are in the source's header. Two pieces of that design live here in
 plain Python, where the CPU tests reach them: the tile plan
@@ -190,32 +194,77 @@ def conv_stack_fused(h0: torch.Tensor,
 
 def conv_stack_fused_prepared(h0: torch.Tensor,
                               wts: StackWeights) -> torch.Tensor:
-    """:func:`conv_stack_fused` on weights already in the kernel's layout:
-    the CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    global launches
+    """:func:`conv_stack_fused` on weights already in the kernel's layout,
+    through the custom op ``stofnet_torch::conv_stack_fused_prepared``
+    (the NamedTuple passed as its four tensors and ``r``): the CUDA kernel
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    return torch.ops.stofnet_torch.conv_stack_fused_prepared(
+        h0, wts.mid, wts.mid_bias, wts.last, wts.last_bias, wts.r)
+
+
+def _check(h0: torch.Tensor, mid: torch.Tensor, last: torch.Tensor) -> None:
+    """What the CUDA kernel takes, checked for a CUDA (or fake CUDA)
+    tensor without reading storage; the plain version takes the rest."""
     if h0.device.type == "cpu":
-        return _plain(h0, wts)
-    bsz, length, c = h0.shape
+        return
+    c = h0.shape[2]
     if (h0.device.type != "cuda" or h0.dtype != torch.bfloat16
-            or wts.mid.dtype != torch.bfloat16
-            or wts.mid.device != h0.device):
+            or mid.dtype != torch.bfloat16 or mid.device != h0.device):
         raise TypeError("conv_stack_fused: the CUDA kernel takes bfloat16 "
                         f"on a CUDA device, got {h0.dtype} on {h0.device} "
-                        f"with weights {wts.mid.dtype} on {wts.mid.device}")
-    if (c != CHANNELS or wts.mid.shape != (NB - 2, KMID, c * c)
-            or wts.last.shape != (MAX_OUT, KLAST * c)):
+                        f"with weights {mid.dtype} on {mid.device}")
+    if (c != CHANNELS or mid.shape != (NB - 2, KMID, c * c)
+            or last.shape != (MAX_OUT, KLAST * c)):
         raise ValueError("conv_stack_fused: the CUDA kernel takes 64 "
                          "channels, k7 conv2..conv12 and a k3 conv_last with "
                          f"at most {MAX_OUT} outputs")
-    out = torch.empty((bsz, length, wts.r), dtype=torch.float32,
+
+
+# The stack kernel as a custom op, so that torch.export traces it and a
+# saved program names it. Registering builds nothing: nvcc runs at the
+# first launch.
+@torch.library.custom_op("stofnet_torch::conv_stack_fused_prepared",
+                         mutates_args=(), device_types="cpu")
+def _stack_op(h0: torch.Tensor, mid: torch.Tensor, mid_bias: torch.Tensor,
+              last: torch.Tensor, last_bias: torch.Tensor,
+              r: int) -> torch.Tensor:
+    """The CPU implementation: the plain version, contiguous as the
+    kernel's output."""
+    return _plain(h0, StackWeights(mid, mid_bias, last, last_bias,
+                                   r)).contiguous()
+
+
+@_stack_op.register_kernel("cuda")
+def _stack_cuda(h0: torch.Tensor, mid: torch.Tensor, mid_bias: torch.Tensor,
+                last: torch.Tensor, last_bias: torch.Tensor,
+                r: int) -> torch.Tensor:
+    """The CUDA implementation: the kernel's launch, which counts."""
+    global launches
+    _check(h0, mid, last)
+    bsz, length, _ = h0.shape
+    # the copies stay referenced until the launch is queued: a copy freed
+    # before it could be handed to another thread's work, queued first
+    h0, mid, mid_bias, last, last_bias = (
+        t.contiguous() for t in (h0, mid, mid_bias, last, last_bias))
+    out = torch.empty((bsz, length, r), dtype=torch.float32,
                       device=h0.device)
     plan = launch_plan(length, h0.device)
     lib = _build.load("conv_stack", _SIGNATURE)
     err = lib.conv_stack_launch(
-        h0.contiguous().data_ptr(), wts.mid.data_ptr(),
-        wts.mid_bias.data_ptr(), wts.last.data_ptr(),
-        wts.last_bias.data_ptr(), out.data_ptr(), plan.data_ptr(),
-        plan.shape[0], bsz, length, wts.r, *_build.launch_args(h0))
+        h0.data_ptr(), mid.data_ptr(), mid_bias.data_ptr(), last.data_ptr(),
+        last_bias.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.shape[0],
+        bsz, length, r, *_build.launch_args(h0))
     _build.check(lib, err, "conv_stack_fused")
     launches += 1
     return out
+
+
+@_stack_op.register_fake
+def _stack_fake(h0: torch.Tensor, mid: torch.Tensor, mid_bias: torch.Tensor,
+                last: torch.Tensor, last_bias: torch.Tensor,
+                r: int) -> torch.Tensor:
+    """The shape of the output, (B, L, r) f32, after the same checks, so
+    that a program the kernel would refuse fails at export."""
+    _check(h0, mid, last)
+    bsz, length, _ = h0.shape
+    return h0.new_empty((bsz, length, r), dtype=torch.float32)

@@ -272,9 +272,9 @@ def check_image_inputs(what: str, h: torch.Tensor, image: torch.Tensor,
                        bias: torch.Tensor) -> None:
     """Shapes of every input of a kernel on the :func:`sgb_dma_weights`
     image (L % 80 == 0, image (F / 64, 5, 64 * C), bias (F,)); for the
-    CUDA kernel also types and devices, C == 64, F % 128 == 0 and, where
-    ``h`` is contiguous (the wrapper copies it otherwise), a 16-byte
-    aligned base, which the kernel's tensor map needs."""
+    CUDA kernel also types and devices, C == 64 and F % 128 == 0. It reads
+    no storage, so a fake tensor (a traced program's) is checked too; the
+    launch checks the base address (:func:`check_aligned`)."""
     _, length, c = h.shape
     f = bias.shape[0]
     if (length % POOL or f % GROUP or bias.shape != (f,)
@@ -294,6 +294,11 @@ def check_image_inputs(what: str, h: torch.Tensor, image: torch.Tensor,
     if c != CHANNELS or f % N_TILE:
         raise ValueError(f"{what}: the CUDA kernel takes C == 64 and "
                          f"F % 128 == 0, got C={c}, F={f}")
+
+
+def check_aligned(what: str, h: torch.Tensor) -> None:
+    """Where ``h`` is contiguous (the wrapper copies it otherwise), a
+    16-byte aligned base, which the kernel's tensor map needs."""
     if h.is_contiguous() and h.data_ptr() % 16:
         raise ValueError(f"{what}: the CUDA kernel's tensor map needs h "
                          f"16-byte aligned, got address {h.data_ptr():#x}")
@@ -325,6 +330,7 @@ def sgb_contract_pool_argmax(h: torch.Tensor, image: torch.Tensor,
     if h.device.type == "cpu":
         return sgb_contract_pool_argmax_reference(
             h, dma_weights_plain(image), bias, negative_slope)
+    check_aligned("sgb_contract_pool_argmax", h)
     bsz, length, _ = h.shape
     f = bias.shape[0]
     h, image, bias = h.contiguous(), image.contiguous(), bias.contiguous()

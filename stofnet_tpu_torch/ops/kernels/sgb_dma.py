@@ -12,8 +12,12 @@ once with :func:`sgb_dma_weights` (the kernel's shared-memory image of
 them, undone by :func:`dma_weights_plain`; both live in ``sgb``, whose
 kernel A takes the same image) and calls ``sgb_contract_pool_dma_prepared``
 per batch: the one launch path of the serving instantiation, which
-``sgb.sgb_contract_pool_prepared`` calls too, and the one place that counts
-its launches. The kernel's design and bound are in the source's header.
+``sgb.sgb_contract_pool_prepared`` calls too. It calls the custom op
+``stofnet_torch::sgb_contract_pool_prepared`` (registered when this module
+is imported), whose CUDA implementation is the launch and the one place
+that counts it, whose CPU implementation is the plain version, and whose
+fake implementation gives ``torch.export`` the output's shape. The
+kernel's design and bound are in the source's header.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from stofnet_tpu_torch.ops.kernels import _build
 from stofnet_tpu_torch.ops.kernels.sgb import (
-    CHANNELS, DMA_SIGNATURE, KSIZE, POOL, check_image_inputs,
+    CHANNELS, DMA_SIGNATURE, KSIZE, POOL, check_aligned, check_image_inputs,
     dma_weights_plain, sgb_contract_pool_reference, sgb_dma_weights,
 )
 
@@ -101,20 +105,48 @@ def sgb_contract_pool_dma_prepared(h: torch.Tensor, image: torch.Tensor,
                                    negative_slope: float = 0.01
                                    ) -> torch.Tensor:
     """:func:`sgb_contract_pool_dma` on weights in the
-    :func:`sgb_dma_weights` image: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor. Raises ValueError on a shape
-    :func:`dma_supported` refuses. The one launch path of the serving
-    instantiation."""
-    global launches
-    bsz, length, c = h.shape
-    f = bias.shape[0]
+    :func:`sgb_dma_weights` image, through the custom op
+    ``stofnet_torch::sgb_contract_pool_prepared``: the CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor. Raises ValueError on a
+    shape :func:`dma_supported` refuses. The one launch path of the
+    serving instantiation."""
+    return torch.ops.stofnet_torch.sgb_contract_pool_prepared(
+        h, image, bias, float(negative_slope))
+
+
+def _check(h: torch.Tensor, image: torch.Tensor, bias: torch.Tensor) -> None:
+    """The op's shape, type and device checks, storage not read (a fake
+    tensor of a traced program is checked as a real one)."""
+    _, length, c = h.shape
     if not dma_supported(length, c):
         raise ValueError(f"sgb_contract_pool_dma: h {tuple(h.shape)}: "
                          f"needs L % 80 == 0, L >= 80 and C == 64")
     check_image_inputs("sgb_contract_pool_dma", h, image, bias)
-    if h.device.type == "cpu":
-        return sgb_contract_pool_dma_reference(h, dma_weights_plain(image),
-                                               bias, negative_slope)
+
+
+# The serving kernel as a custom op, so that torch.export traces it (a fake
+# tensor has no storage for the ctypes launch) and a saved program names
+# it. Registering builds nothing: nvcc runs at the first launch.
+@torch.library.custom_op("stofnet_torch::sgb_contract_pool_prepared",
+                         mutates_args=(), device_types="cpu")
+def _sgb_op(h: torch.Tensor, image: torch.Tensor, bias: torch.Tensor,
+            negative_slope: float) -> torch.Tensor:
+    """The CPU implementation: the plain version on the image's weights,
+    laid out as the kernel's output (contiguous)."""
+    _check(h, image, bias)
+    return sgb_contract_pool_dma_reference(h, dma_weights_plain(image),
+                                           bias, negative_slope).contiguous()
+
+
+@_sgb_op.register_kernel("cuda")
+def _sgb_cuda(h: torch.Tensor, image: torch.Tensor, bias: torch.Tensor,
+              negative_slope: float) -> torch.Tensor:
+    """The CUDA implementation: the kernel's launch, which counts."""
+    global launches
+    _check(h, image, bias)
+    check_aligned("sgb_contract_pool_dma", h)
+    bsz, length, _ = h.shape
+    f = bias.shape[0]
     h, image, bias = h.contiguous(), image.contiguous(), bias.contiguous()
     out = torch.empty((bsz, length // POOL, f), dtype=torch.bfloat16,
                       device=h.device)
@@ -125,3 +157,13 @@ def sgb_contract_pool_dma_prepared(h: torch.Tensor, image: torch.Tensor,
     _build.check(lib, err, "sgb_contract_pool_dma")
     launches += 1
     return out
+
+
+@_sgb_op.register_fake
+def _sgb_fake(h: torch.Tensor, image: torch.Tensor, bias: torch.Tensor,
+              negative_slope: float) -> torch.Tensor:
+    """The shape of the output, after the same checks, so that a program
+    the kernel would refuse fails at export."""
+    _check(h, image, bias)
+    bsz, length, _ = h.shape
+    return h.new_empty((bsz, length // POOL, bias.shape[0]))

@@ -11,11 +11,31 @@ weights laid out once per pipeline), through the int8-SGB forward
 (``models/int8.py``) when it is given a calibration batch, and through the
 ``StofNet`` module elsewhere, then the protocol decode
 ``ops/peaks.mask2coords`` in the checkpoint's own upsample units.
+
+The exporter's half (replaces ``stofnet_tpu/serve.py:50-69,275-464``):
+``export_pipeline`` traces that callable with ``torch.export`` into one
+program per static length, the weights and the kernels' weight layouts
+baked in (the two kernels are custom ops, ``ops/kernels``);
+``export_pipeline_weightless`` takes the state dict as the program's
+inputs instead; ``save_pipeline`` / ``load_pipeline`` write and serve the
+file with no model code. Departure from JAX, whose artifacts are lowered
+for ``platforms=("cpu", "tpu")``: a program serves on the device it was
+exported for, because the device chooses the route (``fused_takes``: f32
+on the card takes the module route, on the CPU the fused forward).
+
+Every f32 route computes without TF32 (``ops/conv.full_f32``), as the JAX f32
+pipeline sums in full f32, whatever the caller's flags.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+import contextlib
+import functools
+from pathlib import Path
+from typing import (
+    Any, Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple,
+    Union,
+)
 
 import numpy as np
 import torch
@@ -27,6 +47,7 @@ from stofnet_tpu_torch.models.int8 import (
     QCONFIG, quantize_stofnet, stofnet_apply_int8,
 )
 from stofnet_tpu_torch.models.stofnet import StofNet
+from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.kernels.sgb import POOL
 from stofnet_tpu_torch.ops.peaks import mask2coords
 from stofnet_tpu_torch.serving.codecs import (
@@ -36,6 +57,16 @@ from stofnet_tpu_torch.serving.codecs import (
 # the architecture arguments stofnet_apply_fused takes; the fused path has
 # the default widths and kernel sizes
 FUSED_OVERRIDES = ("upsample_factor", "num_blocks", "semi_global_scale")
+# the example batch a batch-polymorphic export traces with: at least 2, so
+# that the batch is not specialized to a constant
+EXAMPLE_BATCH = 2
+
+
+class TensorSpec(NamedTuple):
+    """An input of an exported program: its shape, the batch an int or,
+    in a batch-polymorphic program, the name of its symbol, and dtype."""
+    shape: Tuple[Union[int, str], ...]
+    dtype: torch.dtype
 
 
 def parse_input_enc(enc: Optional[str]) -> Tuple[str, int]:
@@ -135,9 +166,14 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
       module's function (:func:`fused_takes`: no overrides beyond
       ``FUSED_OVERRIDES``, ``semi_global_scale`` 1 or 80, bfloat16 on a
       CUDA device) and L % 80 == 0 when there is a SemiGlobalBlock;
-    - **module**: the ``StofNet(dtype=dtype, **overrides)`` module with
-      the state loaded, everywhere else, as JAX's ``make_pipeline`` serves
-      every checkpoint. It is built at the first call that needs it.
+    - **module**: the ``StofNet(dtype=dtype, **overrides)`` module on the
+      state, everywhere else, as JAX's ``make_pipeline`` serves every
+      checkpoint: a skeleton without data (:func:`_skeleton`), built with
+      the pipeline, runs on the state through ``functional_call``, so that
+      a traced pipeline builds no module inside the trace.
+
+    An f32 pipeline runs its forward under ``full_f32`` (no TF32), on
+    every device.
 
     ``pipe.route(length)`` names the route a length takes; ``pipe.calls``
     counts the calls served by each route the pipeline has (``int8``, or
@@ -174,7 +210,15 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     elif fused_takes(overrides, dtype, device):
         forward = fused_forward(params, dtype=dtype,
                                 **{k: int(v) for k, v in overrides.items()})
-    module = None  # the StofNet module, once a call needs it
+    module = None
+    if int8 is None:
+        module, want = _skeleton(dtype, overrides)
+        got = {k: tuple(v.shape) for k, v in params.items()}
+        if want != got:
+            raise ValueError(f"make_pipeline: the state does not fit "
+                             f"StofNet(**{overrides}): "
+                             f"{sorted(set(want.items()) ^ set(got.items()))}")
+    precision = full_f32 if dtype == torch.float32 else contextlib.nullcontext
 
     def route(length: int) -> str:
         if int8 is not None:
@@ -185,18 +229,18 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
 
     @torch.inference_mode()
     def pipe(x) -> torch.Tensor:
-        nonlocal module
         x = torch.as_tensor(x).to(device).to(torch.float32)
         r = route(x.shape[-1])
         pipe.calls[r] += 1
-        if r == "int8":
-            heat = int8(x)
-        elif r == "fused":
-            heat = forward(x)
-        else:
-            if module is None:
-                module = _module(params, overrides, dtype, device)
-            heat = module(x)
+        # TF32's flags are process-wide: full_f32 holds them off while any
+        # thread (a daemon's dispatcher of each length) is inside it
+        with precision():
+            if r == "int8":
+                heat = int8(x)
+            elif r == "fused":
+                heat = forward(x)
+            else:
+                heat = torch.func.functional_call(module, params, (x,))
         return mask2coords(heat, window_size=window_size,
                            threshold=threshold, upsample_factor=up,
                            max_echoes=max_echoes)
@@ -272,6 +316,26 @@ def module_coords(state: Mapping[str, Any], overrides: Dict[str, Any], x,
     return coords.cpu().numpy()
 
 
+def _skeleton(dtype: torch.dtype, overrides: Mapping[str, Any]
+              ) -> Tuple[StofNet, Dict[str, tuple]]:
+    """``StofNet(dtype=dtype, **overrides)`` on the meta device, the module
+    route's structure without data, and the shapes of its state. Cached
+    per type and architecture, so that a pipeline built inside a trace
+    (the weightless export) finds the one built before it: a module cannot
+    be built, nor its parameters read, inside a trace."""
+    return _meta_module(dtype, tuple(sorted(
+        (k, tuple(v) if isinstance(v, (list, tuple)) else v)
+        for k, v in overrides.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _meta_module(dtype: torch.dtype, arch: tuple
+                 ) -> Tuple[StofNet, Dict[str, tuple]]:
+    with torch.device("meta"):
+        module = StofNet(dtype=dtype, device="meta", **dict(arch))
+    return module, {k: tuple(v.shape) for k, v in module.state_dict().items()}
+
+
 def _module(state: Mapping[str, Any], overrides: Dict[str, Any],
             dtype: torch.dtype, device: DeviceLike) -> StofNet:
     """``StofNet(dtype=dtype, **overrides)`` on ``device`` with ``state``
@@ -284,3 +348,225 @@ def _module(state: Mapping[str, Any], overrides: Dict[str, Any],
 def _tensor(v) -> torch.Tensor:
     """A state entry as a tensor (numpy arrays are copied)."""
     return v if isinstance(v, torch.Tensor) else torch.tensor(v)
+
+
+def encoded_input_specs(enc: Optional[str], batch: Union[int, str],
+                        length: int, device: DeviceLike = "cpu"
+                        ) -> Tuple[Tuple[torch.Tensor, ...], tuple]:
+    """The example inputs a program of ``input_enc=enc`` is traced with,
+    on ``device``, and their dynamic shapes: the (batch, 1, length)
+    waveform in f32 (or bf16), or the codes and their scales. ``batch`` as
+    an int pins it; as a name (``"b"``) it becomes one ``torch.export.Dim``
+    (min 1), traced at EXAMPLE_BATCH."""
+    kind, n = parse_input_enc(enc)
+    poly = isinstance(batch, str)
+    b = EXAMPLE_BATCH if poly else int(batch)
+    wave = (b, 1, length)
+    if kind in ("f32", "bf16"):
+        specs = [(wave, torch.float32 if kind == "f32" else torch.bfloat16)]
+    elif kind == "s16":
+        specs = [(wave, torch.int16), ((b, 1, 1), torch.float32)]
+    else:
+        chunk_len(length, n)  # the chunk count divides the length
+        specs = [(wave, torch.int8), ((b, 1, n), torch.float32)]
+    examples = tuple(torch.zeros(shape, dtype=dt, device=device)
+                     for shape, dt in specs)
+    dim = torch.export.Dim(batch, min=1) if poly else None
+    return examples, tuple({0: dim} if poly else None for _ in examples)
+
+
+class _Program(torch.nn.Module):
+    """A serving callable as the module ``torch.export`` traces."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *inputs):
+        return self.fn(*inputs)
+
+
+def _trace(fn: Callable, inputs: tuple,
+           dynamic: tuple) -> torch.export.ExportedProgram:
+    """``fn`` traced on ``inputs``; the program keeps no example inputs,
+    which ``torch.export.save`` would write beside it (a weightless
+    program's would be its weights)."""
+    program = torch.export.export(_Program(fn), inputs,
+                                  dynamic_shapes=(dynamic,))
+    program.example_inputs = None
+    return program
+
+
+def export_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
+                    batch: Union[int, str], length: int, *,
+                    device: DeviceLike = None,
+                    **pipe_kwargs) -> torch.export.ExportedProgram:
+    """``make_pipeline(state, overrides, device=device, **pipe_kwargs)``
+    traced for a (batch, 1, length) input (the inputs of
+    :func:`encoded_input_specs` with ``input_enc=``) on ``device`` (the
+    card when None). The length is static; ``batch`` an int or a name
+    (one batch-polymorphic program). The weights, the int8 route's
+    calibrated state and the kernels' weight layouts are baked in as
+    constants; the kernels appear as their custom ops."""
+    device = resolve_device(device)
+    examples, dynamic = encoded_input_specs(pipe_kwargs.get("input_enc"),
+                                            batch, length, device)
+    pipe = make_pipeline(state, overrides, device=device, **pipe_kwargs)
+    return _trace(pipe, examples, dynamic)
+
+
+def export_pipeline_weightless(
+        state: Mapping[str, Any], overrides: Dict[str, Any],
+        batch: Union[int, str], length: int, *, device: DeviceLike = None,
+        **pipe_kwargs) -> Tuple[torch.export.ExportedProgram,
+                                Dict[str, np.ndarray]]:
+    """:func:`export_pipeline` with the state dict (reference torch names)
+    as the program's first input instead of constants: returns the program
+    and the weights to save as its sidecar (``save_pipeline(path, program,
+    weights=...)``). The kernels' weight layouts are then traced into the
+    program and run on every call. int8 is refused, as in JAX: its
+    calibrated state is baked by design."""
+    if (pipe_kwargs.get("int8_calib") is not None
+            or pipe_kwargs.get("int8_stack_layers")):
+        raise ValueError("bake_weights=False does not compose with int8 "
+                         "exports (the quantized state is baked by "
+                         "design); drop int8_calib or bake the weights")
+    device = resolve_device(device)
+    weights = {k: _tensor(v).to(device) for k, v in state.items()}
+    # checks the state and builds the module route's skeleton outside the
+    # trace, where the pipeline traced below finds it
+    make_pipeline(weights, overrides, device=device, **pipe_kwargs)
+    examples, dynamic = encoded_input_specs(pipe_kwargs.get("input_enc"),
+                                            batch, length, device)
+
+    def pipe_w(weights, *data):
+        return make_pipeline(weights, overrides, device=device,
+                             **pipe_kwargs)(*data)
+
+    program = _trace(pipe_w, (weights, *examples),
+                     (dict.fromkeys(weights), *dynamic))
+    return program, {k: v.cpu().numpy() for k, v in weights.items()}
+
+
+def _flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested mapping of arrays -> flat ``a/b/c`` keys (the sidecar's
+    layout); a state dict is flat already."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if hasattr(v, "items"):
+            out.update(_flatten_tree(v, key + "/"))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _unflatten_tree(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key in flat:
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = flat[key]
+    return out
+
+
+def save_pipeline(path: Union[str, Path],
+                  program: torch.export.ExportedProgram,
+                  weights: Optional[Mapping[str, Any]] = None) -> Path:
+    """Write the program (``torch.export.save``); with ``weights`` (a
+    weightless export's) also the ``<path>.weights.npz`` sidecar that
+    :func:`load_pipeline` finds."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.export.save(program, str(path))
+    if weights is not None:
+        np.savez(str(path) + ".weights.npz", **_flatten_tree(weights))
+    return path
+
+
+def _detect_input_enc(specs: Sequence[Any]) -> Tuple[str, int]:
+    """The ``input_enc`` of a program from its trailing inputs (anything
+    with ``dtype`` and ``shape``): int8 codes with (b, 1, n) f32 scales
+    -> ``s8c<n>``; int16 codes with (b, 1, 1) f32 scales -> ``s16``; a
+    bf16 waveform -> ``bf16``; else ``f32``. Returns (enc, number of data
+    inputs), as JAX's does from its avals."""
+    if len(specs) >= 2:
+        codes, scales = specs[-2], specs[-1]
+        if codes.dtype == torch.int8 and scales.dtype == torch.float32:
+            return f"s8c{int(scales.shape[-1])}", 2
+        if (codes.dtype == torch.int16 and scales.dtype == torch.float32
+                and int(scales.shape[-1]) == 1):
+            return "s16", 2
+    if specs[-1].dtype == torch.bfloat16:
+        return "bf16", 1
+    return "f32", 1
+
+
+def _spec(val: torch.Tensor) -> TensorSpec:
+    """A traced input's spec: a symbolic size by its symbol's name."""
+    return TensorSpec(tuple(d if isinstance(d, int) else str(d)
+                            for d in val.shape), val.dtype)
+
+
+def load_pipeline(path: Union[str, Path], device: DeviceLike = None
+                  ) -> Callable:
+    """Load a program of :func:`save_pipeline`; returns ``f(x) -> coords``
+    on the program's device, with no model code or checkpoint. A
+    ``<path>.weights.npz`` sidecar (a weightless export's) is found and
+    copied to the device once. Host arrays are copied onto the device
+    before each call (the program asserts its inputs' device and type),
+    and the call runs under ``full_f32`` (no TF32) and inference mode.
+
+    An encoded-input program (``input_enc=``) is recognized from its
+    inputs (:func:`_detect_input_enc`): ``f`` still takes f32 waveforms
+    and encodes them on the host. Attributes as JAX's, under torch names:
+    ``in_specs`` (the waveform input; its batch an int or a symbol's
+    name), ``input_enc``, ``encode``, ``raw_call`` (the program on the
+    encoded inputs), ``raw_in_specs`` and ``device``.
+
+    A program serves on the device it was exported for: ``device=``
+    another one raises (a departure from JAX's artifacts, lowered for the
+    CPU and the TPU at once)."""
+    # the custom ops a program names are registered on import
+    import stofnet_tpu_torch.ops.kernels  # noqa: F401
+    program = torch.export.load(str(path))
+    user = set(program.graph_signature.user_inputs)
+    vals = [n.meta["val"] for n in program.graph.nodes
+            if n.op == "placeholder" and n.name in user]
+    enc, n_data = _detect_input_enc(vals)
+    data = vals[-n_data:]
+    where = data[0].device
+    if device is not None and torch.device(device) != where:
+        raise ValueError(f"load_pipeline: {path} was exported for {where} "
+                         f"and serves there, not on {torch.device(device)}; "
+                         f"export it again with device={torch.device(device)}")
+    sidecar = Path(str(path) + ".weights.npz")
+    weights = ()
+    if sidecar.exists():
+        with np.load(sidecar) as z:
+            weights = (_unflatten_tree({k: torch.from_numpy(z[k]).to(where)
+                                        for k in z.files}),)
+    module = program.module()
+    specs = [_spec(v) for v in data]
+
+    def raw_call(*inputs) -> torch.Tensor:
+        inputs = [torch.as_tensor(a).to(device=where, dtype=s.dtype)
+                  for a, s in zip(inputs, specs)]
+        with torch.inference_mode(), full_f32():
+            return module(*weights, *inputs)
+
+    encode = make_input_encoder(enc)
+    if enc == "f32":
+        call = raw_call
+    else:
+        def call(x):
+            return raw_call(*encode(x))
+    call.in_specs = tuple(specs[:1])
+    call.input_enc = enc
+    call.encode = encode
+    call.raw_call = raw_call
+    call.raw_in_specs = tuple(specs)
+    call.device = where
+    return call

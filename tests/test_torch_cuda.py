@@ -339,6 +339,84 @@ def test_pipeline_float32_takes_the_module_route_on_the_card(cuda):
     assert torch.equal(got.cpu(), torch.from_numpy(ref))
 
 
+def test_f32_pipeline_computes_without_tf32_on_the_card(cuda):
+    """Repair: PyTorch leaves cuDNN's TF32 on by default, and the f32
+    route's convs rounded their products to TF32. With the caller's flags
+    at PyTorch's default, an f32 pipeline gives the coords it gives with
+    TF32 off (the fixture's setting), bit for bit, and leaves the flag
+    on."""
+    state = StofNet(device=cuda,
+                    generator=torch.Generator().manual_seed(2)).state_dict()
+    x = gate_batch(16, 8000, np.random.default_rng(3008))
+    want = make_pipeline(state, {}, max_echoes=8, device=cuda,
+                         dtype=torch.float32)(x)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        pipe = make_pipeline(state, {}, max_echoes=8, device=cuda,
+                             dtype=torch.float32)
+        got = pipe(x)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert pipe.route(8000) == "module"
+    assert torch.equal(got, want)
+
+
+def test_pipelines_in_two_threads_give_their_own_bits(cuda):
+    """Repair: the conv stack's wrapper let its contiguous copy of the
+    input go before the launch was queued, so another thread serving at
+    the same time (a daemon runs one dispatcher a length) could be handed
+    that memory and write it first: 1-2 rows of 60 batches differed from
+    the pipeline's own coords served alone. Two threads, L=8000 and 2000,
+    40 batches of 1-8 rows each, give the coords of one thread."""
+    import threading
+
+    state = StofNet(device=cuda,
+                    generator=torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(0)
+    pipes = {n: make_pipeline(state, {}, max_echoes=64, device=cuda)
+             for n in (8000, 2000)}
+    data = {n: [gate_batch(int(b), n, rng) for b in rng.integers(1, 9, 40)]
+            for n in pipes}
+    alone = {n: [pipes[n](x).cpu() for x in data[n]] for n in pipes}
+    differing = {}
+
+    def serve(n):
+        differing[n] = sum(int((pipes[n](x).cpu() != want).any(1).sum())
+                           for x, want in zip(data[n], alone[n]))
+
+    threads = [threading.Thread(target=serve, args=(n,)) for n in pipes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120.0)
+    assert not any(t.is_alive() for t in threads)
+    assert differing == {8000: 0, 2000: 0}
+
+
+def test_artifact_on_the_card(cuda, tmp_path):
+    """A batch-polymorphic artifact exported and loaded on the card gives
+    make_pipeline's coords bit for bit, and launches the serving SGB
+    kernel and the conv stack once a batch through their custom ops."""
+    from stofnet_tpu_torch.serve import (
+        export_pipeline, load_pipeline, save_pipeline,
+    )
+    state = StofNet(device=cuda,
+                    generator=torch.Generator().manual_seed(2)).state_dict()
+    program = export_pipeline(state, {}, "b", 1600, device=cuda,
+                              max_echoes=8)
+    served = load_pipeline(save_pipeline(tmp_path / "a.pt2", program))
+    assert served.device.type == "cuda"
+    live = make_pipeline(state, {}, max_echoes=8, device=cuda)
+    for b in (1, 3):
+        x = gate_batch(b, 1600, np.random.default_rng(b))
+        counts = (sgb_dma.launches, conv_stack.launches)
+        got = served(x)
+        assert (sgb_dma.launches, conv_stack.launches) == (counts[0] + 1,
+                                                           counts[1] + 1)
+        assert torch.equal(got, live(x))
+
+
 @pytest.mark.parametrize("impl", ["conv", "dots"])
 @pytest.mark.parametrize("batch,length,k", [(1, 8000, 5), (3, 840, 7)])
 def test_int8_conv_on_the_card(cuda, impl, batch, length, k):

@@ -193,3 +193,38 @@ def test_f32_on_the_card_takes_the_module_route(weights):
     ref = _jax_coords(variables, {}, x)
     got = module_coords(state, {}, x, torch.float32, "cpu", max_echoes=8)
     assert np.all(np.abs(got - ref) <= 1.0)
+
+
+@pytest.mark.parametrize("route,length", [("fused", 800), ("module", 1000),
+                                          ("int8", 800)])
+def test_f32_routes_compute_without_tf32(weights, monkeypatch, route,
+                                         length):
+    """Repair: on the card PyTorch leaves cuDNN's TF32 on by default, so
+    an f32 pipeline's convs rounded their products to TF32 where JAX's f32
+    pipeline sums in full f32. Every f32 route now runs its forward with
+    ``torch.backends.cudnn.allow_tf32`` (and the matmul flag) False, and
+    gives the caller's flags back: a spy on ``F.conv1d`` sees both off at
+    every conv of the forward, after the caller set them on."""
+    from stofnet_tpu_torch.ops import conv as conv_mod
+
+    _, state = weights
+    seen = []
+    conv1d = conv_mod.F.conv1d
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return conv1d(*args, **kwargs)
+
+    x = gate_batch(2, length, np.random.default_rng(12))
+    kw = {"int8_calib": x} if route == "int8" else {}
+    pipe = make_pipeline(state, {}, dtype=torch.float32, device="cpu",
+                         max_echoes=8, **kw)
+    assert pipe.route(length) == route
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(conv_mod.F, "conv1d", spy)
+    pipe(x)
+    assert seen and set(seen) == {(False, False)}
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
