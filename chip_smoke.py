@@ -115,7 +115,9 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    (``ops/conv.full_f32``). First what TF32 moves: the daemon gate's batch
    (16 echo rows at L=8000, seed 3008) through the f32 ``StofNet`` module
    and the f32 int8 route with TF32 on and off (the ``tf32 rows`` line:
-   rows that differ, rows moved by more than 1 sample); ``make_pipeline``
+   rows that differ, rows moved by more than 1 sample; and one f32
+   training step of the module at B, L, its loss and the relative L2 of
+   each gradient with TF32 on against off); ``make_pipeline``
    in f32 must give the module's TF32-off coords bit for bit and leave the
    caller's flag on.
 8. The serving daemon (``cli/serve.build``) from a checkpoint of the
@@ -159,7 +161,41 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    L=2000, both batch-polymorphic) under the daemon phase's traffic, half
    the clients at each length: every row bit for bit ``make_pipeline``'s,
    each kernel once a batch.
-11. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+11. Train and evaluate from data through the driver a user calls,
+   ``cli/main.run`` (``python -m stofnet_tpu_torch.cli.main``), under
+   PyTorch's default flags, the launch counts set to 0 before the phase
+   and held at 0 after it (the driver trains and evaluates the ``StofNet``
+   module and the int8 route: no kernel of the port, as JAX's driver
+   reaches no Pallas kernel). It writes a chirp stand-in with
+   ``data/synthetic.generate_chirp_dataset`` under the gitignored
+   ``build/`` (2 classes, 16 positions, 40 train and 8 test measurements
+   a position, 800 IQ samples: L=8000 at the config's rf_scale_factor 10;
+   1,024 train, 256 val and 256 test items; the seconds it took), and
+   requires the native text loader to be built. Then, at B=128 and the
+   config's defaults otherwise (f32, crop 0.75, SNR 30, th 0.5, 64 echoes,
+   4 loader threads), with ``profile_dir=``: 2 epochs in f32 with
+   ``export_pth=True``, the loader alone over the train split (4 threads
+   and 1), 2 epochs with ``amp=True``, and ``evaluate=True`` from the f32
+   run's checkpoint over the 2 test batches in f32 and with ``int8=True
+   compute_dtype=bfloat16``. The readings come from outside the driver
+   (``DriverProbe``). The profiler traces steps 2..6, all in the first
+   epoch, so the times are the second epoch's, which runs with the
+   profiler off: ms a train step (median), training waveforms/s end to
+   end (steps x B over the loop's wall time, validation left out) and of
+   the bare step, the loader's wait a step. Beside them, the median step
+   by state: profiled, and unprofiled with the loader busy (its last
+   batch not yet read) or idle (the last steps of an epoch). The device
+   idle share and device ms by kernel come from the profiled window (the
+   driver's Chrome trace); then peak memory and the summary; for
+   evaluation the summary, the forward's ms a batch (the driver's own
+   reading) and ``find_threshold``'s. Every loss must be finite, the
+   checkpoint and the ``.pth`` written, the ``.pth`` read by
+   ``load_stofnet`` equal to the run's final parameters bit for bit, and
+   the first logged loss within 1e-6 relative of the same loss on the
+   CPU in f32 (the initial weights on the first batch of a second loader
+   with the same seed, the whole batch): the two agree exactly, and TF32
+   in the step moves this loss by about 3e-5.
+12. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
    launches of its paths: the serving, bench, training, probe, daemon and
    export runs, each counted from 0, summed over the paths that launch
    it; the serving instantiation's launches go to ``sgb_contract_pool`` at
@@ -176,6 +212,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -191,8 +228,13 @@ from stofnet_tpu_torch.bench_paths import (
     AGREE_MIN, coord_agreement, make_xla_pipeline, try_fused_pipeline,
     try_int8_pipeline, try_packed_pipeline,
 )
+from stofnet_tpu_torch import native
+from stofnet_tpu_torch.cli import main as cli_main
 from stofnet_tpu_torch.cli import serve as serve_cli
-from stofnet_tpu_torch.data.synthetic import gate_batch
+from stofnet_tpu_torch.data.loader import (
+    DataLoader, default_num_workers, split_dataset,
+)
+from stofnet_tpu_torch.data.synthetic import gate_batch, generate_chirp_dataset
 from stofnet_tpu_torch.models import (
     StofNet, stofnet_apply_fused, stofnet_apply_reference,
 )
@@ -204,7 +246,9 @@ from stofnet_tpu_torch.ops.kernels import (
     reset_launch_counts, sgb, sgb_dma,
 )
 from stofnet_tpu_torch.ops.kernels._timing import time_ms
+from stofnet_tpu_torch.models.torch_import import load_stofnet
 from stofnet_tpu_torch.ops.conv import conv1d_same, full_f32
+from stofnet_tpu_torch.ops.gaussian import gaussian_kernel
 from stofnet_tpu_torch.ops.peaks import mask2coords
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
 from stofnet_tpu_torch.serve import (
@@ -217,9 +261,11 @@ from stofnet_tpu_torch.serving import (
 from stofnet_tpu_torch.serving.codecs import DEFAULT_CHUNKS
 from stofnet_tpu_torch.serving.tcp import WIRE_INT8C
 from stofnet_tpu_torch.train import (
-    LossConfig, fused_loss, make_fused_train_step, make_optimizer,
+    LossConfig, fused_loss, heatmap_loss, make_eval_step,
+    make_fused_train_step, make_optimizer,
 )
 from stofnet_tpu_torch.train.checkpoint import save_checkpoint
+from stofnet_tpu_torch.utils.config import load_config, merge_cli
 
 B, L, UP = 128, 8000, 4
 L_UNCHUNKED = 2000  # a serving length JAX's dma_supported refuses (L % 800)
@@ -251,6 +297,12 @@ DAEMON_CLIENTS = 8  # client threads of single-waveform requests
 DAEMON_REQUESTS = 64  # single-waveform requests per client
 DAEMON_ECHOES = 64  # cli/serve.py's default max_echoes
 GATE_ROWS, GATE_SEED = 16, 3008  # the daemon's dtype gate batch (L=8000)
+# the data phase's stand-in: 2 classes x 16 positions, 40 train and 8 test
+# measurements a position, 800 IQ samples -> L=8000 at rf_scale_factor 10:
+# 1,280 train-split items (1,024 train, 256 val), 256 test items
+DRIVER_DATA = dict(n_positions=16, n_train_per_pos=40, n_test_per_pos=8,
+                   sample_num=800)
+PROFILE_STEPS = 5  # the driver's profile_steps default
 
 
 def log(msg: str) -> None:
@@ -1333,6 +1385,7 @@ def tf32_rows(dev, state) -> None:
             rows_moved=row_agreement(on, off[name])[1],
             heat_max_abs_diff=float((heat[True] - heat[False]).abs().max()),
             heat_max_abs=float(heat[False].abs().max()))
+    out["train_step_f32"] = tf32_train_step(dev, state)
     pipe = make_pipeline(state, ov, dtype=torch.float32, device=dev, **decode)
     out["pipeline_f32_equals_module_without_tf32"] = bool(torch.equal(
         pipe(x).cpu(), off["module_f32"]))
@@ -1342,6 +1395,28 @@ def tf32_rows(dev, state) -> None:
             and out["cudnn_allow_tf32_after"]):
         raise AssertionError(f"tf32: the f32 pipeline computes in TF32 or "
                              f"changes the caller's flag: {out}")
+
+
+def tf32_train_step(dev, state) -> dict:
+    """What TF32 moves in one f32 training step of the ``StofNet`` module at
+    B, L (the train path's noise frames and GT): the loss and its backward
+    with cuDNN's TF32 on (PyTorch's default) and off; the two losses and
+    the relative L2 of each gradient, on against off."""
+    frames, gt = train_batches(np.random.default_rng(SEED + 5), 1, dev)
+    model = StofNet(device=dev)
+    model.load_state_dict(state)
+    kernel = gaussian_kernel(7, 1.0, device=dev)
+    loss, grads = {}, {}
+    for tf32 in (True, False):
+        model.zero_grad(set_to_none=True)
+        with contextlib.nullcontext() if tf32 else full_f32():
+            value = heatmap_loss(model(frames[0]), gt, kernel=kernel)[0]
+            value.backward()
+        loss[tf32] = float(value.detach())
+        grads[tf32] = {k: p.grad for k, p in model.named_parameters()}
+    rel = {k: rel_l2(g, grads[False][k]) for k, g in grads[True].items()}
+    return dict(loss_tf32=loss[True], loss_f32=loss[False],
+                grad_rel_l2_max=max(rel.values()), grad_rel_l2=rel)
 
 
 def int8_path(dev, state) -> None:
@@ -1575,6 +1650,302 @@ def export_path(dev, state) -> dict:
     return launches
 
 
+class DriverProbe:
+    """Readings of ``cli/main.py``'s runs taken from outside the driver: it
+    wraps the ``make_train_step``, ``pipeline_batches`` and
+    ``find_threshold`` that the driver's module calls, and changes nothing
+    they compute. Each train step is timed on the host clock up to the
+    card's end (the driver's next line copies the loss to the host, which
+    waits for the card anyway) and its start kept; each batch the training
+    loop takes from its iterator is timed from the request to its arrival
+    (the loader's wait, the copy's issue included). Each training loop
+    keeps its wall time from its first request to its end, its steps'
+    range, its waits and the time its last host batch arrived (the
+    loader's threads have no item left to read after it);
+    ``find_threshold`` is timed on the host. The train step's model and
+    its weights before the first step are kept."""
+
+    def __init__(self):
+        self.step_ms, self.step_t0, self.th_ms = [], [], []
+        self.loops = []  # dicts: s, steps (a range), wait_ms, loader_done
+        self.steps = 0
+        self.model = self.init_state = None
+        self._saved = {}
+
+    def __enter__(self):
+        self._saved = {k: getattr(cli_main, k) for k in (
+            "make_train_step", "pipeline_batches", "find_threshold")}
+        make_step = self._saved["make_train_step"]
+        pipeline = self._saved["pipeline_batches"]
+        find = self._saved["find_threshold"]
+
+        def make_train_step(model, *args, **kwargs):
+            self.model = model
+            self.init_state = {k: v.detach().cpu().clone()
+                               for k, v in model.state_dict().items()}
+            step = make_step(model, *args, **kwargs)
+
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                out = step(*a, **kw)
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                self.step_t0.append(t0)
+                self.steps += 1
+                return out
+            return timed
+
+        def pipeline_batches(host_iter, put):
+            steps0, waits, arrived = self.steps, [], []
+
+            def host():
+                for batch in host_iter:
+                    arrived.append(time.perf_counter())
+                    yield batch
+            it = pipeline(host(), put)
+            t_first = time.perf_counter()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    break
+                waits.append((time.perf_counter() - t0) * 1e3)
+                yield item
+            if self.steps > steps0:  # a training loop, not validation
+                self.loops.append(dict(
+                    s=time.perf_counter() - t_first,
+                    steps=range(steps0, self.steps), wait_ms=waits,
+                    loader_done=arrived[-1]))
+
+        def find_threshold(*a, **kw):
+            t0 = time.perf_counter()
+            out = find(*a, **kw)
+            self.th_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        cli_main.make_train_step = make_train_step
+        cli_main.pipeline_batches = pipeline_batches
+        cli_main.find_threshold = find_threshold
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self._saved.items():
+            setattr(cli_main, k, v)
+
+
+def trace_summary(trace_dir: Path, steps: int) -> dict:
+    """The profiled window of a driver run from its Chrome trace: its wall
+    time (first to last event), the card's busy time (the union of its
+    kernels, copies and sets) and idle share, and device ms a step by
+    kernel name (the 8 largest)."""
+    (path,) = Path(trace_dir).glob("trace_*.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev_events = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev_events:
+        raise AssertionError(f"{path}: no device activity in the trace")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, t0
+    for e in sorted(dev_events, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        if b > a:
+            busy += b - a
+            end = b
+    by_name: dict = {}
+    for e in dev_events:
+        name = e["name"][:60]
+        by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(window_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3,
+                idle_share=1.0 - busy / (t1 - t0),
+                device_ms_per_step=dict(top))
+
+
+def driver_train(name: str, work: Path, data: str, argv) -> dict:
+    """One ``cli/main.run`` training from ``data`` (the config's defaults
+    and ``argv``, 2 epochs or more) under a :class:`DriverProbe`; prints
+    and returns its readings. The profiler traces steps 2..6, so the step
+    time, the rates and the loader's wait are the last epoch's, which the
+    profiler does not slow; every step after the first is also read by
+    its state: profiled, or unprofiled with the loader busy or idle."""
+    prof_dir = work / f"profile_{name}"
+    cfg = merge_cli(load_config(cli_main.DEFAULT_CONFIG), [
+        "model=stofnet", f"batch_size={B}", f"data_dir={data}",
+        f"run_dir={work / 'runs'}", f"ckpt_dir={work / 'ckpts'}",
+        f"profile_dir={prof_dir}", f"profile_steps={PROFILE_STEPS}", *argv])
+    torch.cuda.reset_peak_memory_stats()
+    with DriverProbe() as probe:
+        t0 = time.perf_counter()
+        summary = cli_main.run(cfg)
+        wall = time.perf_counter() - t0
+    log_path = Path(cfg.run_dir) / f"{summary['run_name']}.jsonl"
+    events = [json.loads(line) for line in log_path.read_text().splitlines()]
+    losses = [e["train_loss"] for e in events if e["event"] == "train"]
+    last = probe.loops[-1]
+    if last["steps"].start <= PROFILE_STEPS:
+        raise AssertionError(f"{name} training: the last epoch holds a "
+                             f"profiled step")
+    by_state: dict = {"profiled": [], "loader busy": [], "loader idle": []}
+    for loop in probe.loops:
+        for i in loop["steps"]:
+            if i == 0:  # the first step's one-time work
+                continue
+            state = ("profiled" if i <= PROFILE_STEPS else "loader busy"
+                     if probe.step_t0[i] < loop["loader_done"]
+                     else "loader idle")
+            by_state[state].append(probe.step_ms[i])
+    ms = float(np.median([probe.step_ms[i] for i in last["steps"]]))
+    out = dict(
+        run_s=wall, steps=len(losses), epochs=summary["epochs"],
+        val_loss=summary["val_loss"], first_loss=losses[0],
+        ms_per_step=ms, ms_per_step_by_state={
+            k: dict(median=float(np.median(v)), n=len(v))
+            for k, v in by_state.items() if v},
+        step_ms=probe.step_ms,
+        train_waveforms_per_s=len(last["steps"]) * B / last["s"],
+        train_waveforms_per_s_by_epoch=[
+            len(loop["steps"]) * B / loop["s"] for loop in probe.loops],
+        bare_step_waveforms_per_s=B / ms * 1e3,
+        loader_wait_ms_per_step=dict(
+            median=float(np.median(last["wait_ms"])),
+            mean=float(np.mean(last["wait_ms"])), max=max(last["wait_ms"])),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profile=trace_summary(prof_dir, PROFILE_STEPS),
+        summary={k: v for k, v in summary.items() if k != "run_name"})
+    log(f"data phase, {name} training: {json.dumps(out)}")
+    if len(losses) != probe.steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name} training: a loss is not finite or a "
+                             f"step went unlogged: {losses}")
+    return dict(out, probe=probe, cfg=cfg, summary=summary)
+
+
+def first_loss_on_cpu(cfg, init_state) -> float:
+    """The first step's loss of a training run recomputed on the CPU in
+    f32: the initial weights on the first batch of a second loader built
+    like the driver's (same seed, split and epoch), the forward in chunks
+    of 16 rows, the loss over the whole batch."""
+    cfg = cfg.copy()
+    ds, _ = cli_main.build_dataset(cfg)
+    train_idx, _ = split_dataset(len(ds), 0.2, seed=int(cfg.seed))
+    loader = DataLoader(ds, train_idx, batch_size=B, shuffle=True,
+                        drop_last=True, seed=int(cfg.seed))
+    loader.set_epoch(0)
+    frame, gt = cli_main.batch_to_arrays(next(iter(loader)))
+    gt_true = np.round(gt[:, None, :] * UP).astype(np.int32)
+    model = StofNet(device="cpu")
+    model.load_state_dict(init_state)
+    step = make_eval_step(model, cli_main._loss_config(cfg))
+    with torch.no_grad():
+        pred = torch.cat([model(torch.from_numpy(f))
+                          for f in np.split(frame, B // 16)])
+    out = step.finish(pred, torch.from_numpy(gt), torch.from_numpy(gt_true))
+    return float(out["loss"])
+
+
+def loader_alone(cfg) -> dict:
+    """The training loader's own rate, with no device work: one pass over
+    the train split of a fresh dataset built like the driver's, at the
+    driver's default thread count and with one thread."""
+    out = {}
+    for workers in (default_num_workers(), 0):
+        ds, _ = cli_main.build_dataset(cfg.copy())
+        train_idx, _ = split_dataset(len(ds), 0.2, seed=int(cfg.seed))
+        loader = DataLoader(ds, train_idx, batch_size=B, shuffle=True,
+                            drop_last=True, seed=int(cfg.seed),
+                            num_workers=workers)
+        t0 = time.perf_counter()
+        items = sum(len(batch[1]) for batch in loader)
+        dt = time.perf_counter() - t0
+        out[f"threads_{max(workers, 1)}"] = dict(
+            items_per_s=items / dt, ms_per_batch=dt / len(loader) * 1e3)
+    log(f"data phase, the loader alone: {json.dumps(out)}")
+    return out
+
+
+def driver_eval(name: str, work: Path, data: str, model_file: str,
+                argv=()) -> dict:
+    """``cli/main.run`` with ``evaluate=True`` from ``model_file`` on the
+    test split; prints the summary, the forward's ms a batch (the driver's
+    own reading: the first batch's is NaN, so the second batch's) and
+    ``find_threshold``'s ms a batch."""
+    cfg = merge_cli(load_config(cli_main.DEFAULT_CONFIG), [
+        "model=stofnet", f"batch_size={B}", f"data_dir={data}",
+        f"run_dir={work / 'runs'}", f"ckpt_dir={work / 'ckpts'}",
+        f"model_file={model_file}", "evaluate=True", *argv])
+    with DriverProbe() as probe:
+        summary = cli_main.run(cfg)
+    log_path = Path(cfg.run_dir) / f"{summary['run_name']}.jsonl"
+    events = [json.loads(line) for line in log_path.read_text().splitlines()]
+    forward_ms = [e["inference_time"] * B * 1e3 for e in events
+                  if e["event"] == "val"]
+    out = dict(summary={k: v for k, v in summary.items()
+                        if k != "run_name"},
+               forward_ms_per_batch=forward_ms,
+               find_threshold_ms_per_batch=probe.th_ms)
+    log(f"data phase, {name} evaluation: {json.dumps(out)}")
+    # the Jaccard index and the distance are NaN where nothing is detected
+    # (the weights train for 2 epochs): printed, not held
+    if summary.get("random_init") or not all(np.isfinite([
+            summary["val_loss"], summary["total_inference_time"]])):
+        raise AssertionError(f"{name} evaluation: {summary}")
+    return out
+
+
+def data_path(dev) -> None:
+    """The data phase (item 11 of the module docstring): train and
+    evaluate through ``cli/main.py`` from a generated chirp stand-in, the
+    launch counts set to 0 before the phase and held at 0 after it: the
+    driver's path runs no kernel of the port."""
+    t_phase = time.perf_counter()
+    work = Path("build") / "chip_smoke_driver"  # a relative path: the
+    # driver picks the dataset's class by words in the path
+    shutil.rmtree(work, ignore_errors=True)
+    data = str(work / "stof_chirp101_dataset")
+    try:
+        t0 = time.perf_counter()
+        generate_chirp_dataset(data, **DRIVER_DATA)
+        log(f"data phase: generated {data} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if cli_main.dataset_kind(data) != "chirp" or not native.available():
+            raise AssertionError(f"data phase: the native loader is not "
+                                 f"built (g++), or {data} is not chirp data")
+        reset_launch_counts()
+        f32 = driver_train("f32", work, data, ["epochs=2", "export_pth=True"])
+        model, summary = f32["probe"].model, f32["summary"]
+        pth, _ = load_stofnet(summary["export_pth"])
+        final = {k: v.cpu() for k, v in model.state_dict().items()}
+        if not (Path(summary["checkpoint"]).is_file()
+                and pth.keys() == final.keys()
+                and all(torch.equal(pth[k], v) for k, v in final.items())):
+            raise AssertionError("data phase: the checkpoint is missing or "
+                                 "the exported .pth is not the run's final "
+                                 "parameters")
+        t0 = time.perf_counter()
+        cpu = first_loss_on_cpu(f32["cfg"], f32["probe"].init_state)
+        rel = abs(f32["first_loss"] - cpu) / abs(cpu)
+        log(f"data phase: first loss {f32['first_loss']!r} on the card, "
+            f"{cpu!r} on the CPU, relative {rel:.3e} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not rel <= 1e-6:  # measured: exact; TF32 moves it by 3.3e-5
+            raise AssertionError(f"data phase: the first loss is {rel:.3e} "
+                                 f"from the CPU's, beyond 1e-6")
+        loader_alone(f32["cfg"])
+        driver_train("amp", work, data, ["epochs=2", "amp=True"])
+        name = Path(summary["checkpoint"]).name
+        driver_eval("f32", work, data, name)
+        driver_eval("int8 bf16", work, data, name,
+                    ["int8=True", "compute_dtype=bfloat16"])
+        launched = {k: v for k, v in counts().items() if v}
+        if launched:
+            raise AssertionError(f"data phase: a kernel launched: {launched}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"data phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def default_flags() -> None:
     """PyTorch's own TF32 defaults (cuDNN's on, cuBLAS's off), which a
     daemon process serves under: the phases after the kernel checks run
@@ -1631,6 +2002,7 @@ def main() -> int:
     paths.append(daemon_path(dev, state))
     int8_path(dev, state)
     paths.append(export_path(dev, state))
+    data_path(dev)
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

@@ -1,0 +1,554 @@
+"""Train / evaluate driver (replaces ``stofnet_tpu/cli/main.py`` for
+``model=stofnet`` on chirp data)::
+
+    python -m stofnet_tpu_torch.cli.main key=value ...
+
+with the JAX driver's config (``cli/config.yaml``, the port's copy) and
+semantics: ``evaluate=True`` runs the benchmark protocol over the test
+split (``int8=True`` scores the int8-SGB forward), otherwise the training
+recipe (80/20 split, AdamW with the per-epoch cosine, early stopping, a
+non-finite check after every step, a rolling ``_last`` checkpoint each
+epoch, ``resume=``, ``export_pth=``). The host loop feeds batches through
+``data/loader.DevicePut`` (pinned staging, a side-stream copy) and logs
+JSONL through ``utils/logging.MetricsLogger``.
+
+Departures from the JAX driver:
+
+- ``device=`` (new): the card (``cuda``) by default, as every entry point
+  of the port; ``device=cpu`` runs on the CPU. Without a card and without
+  ``device=cpu``, ``setup`` raises.
+- Refused, with ``SystemExit`` naming the slice that brings them: any
+  ``model=`` but ``stofnet`` (the model zoo), PALA and rat data paths (the
+  PALA data slice) and ``mesh=True`` (the mesh slice).
+- ``compile_cache=`` is accepted and does nothing (eager PyTorch compiles
+  nothing to cache); a line on stderr says so.
+- A fresh model is drawn from ``torch.Generator().manual_seed(seed)``:
+  flax's init distribution, not its bits. ``model_file=`` is searched in
+  ``ckpt_dir=`` only.
+- A checkpoint is one ``torch.save`` file (``train/checkpoint.py``), not
+  an orbax directory; ``resume=`` names that file.
+"""
+
+from __future__ import annotations
+
+import random as pyrandom
+import sys
+import time
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from stofnet_tpu_torch import resolve_device
+from stofnet_tpu_torch.data.loader import (
+    DataLoader, DevicePut, default_num_workers, pipeline_batches,
+    split_dataset,
+)
+from stofnet_tpu_torch.models.stofnet import StofNet
+from stofnet_tpu_torch.ops.conv import full_f32
+from stofnet_tpu_torch.ops.peaks import coords2mask
+from stofnet_tpu_torch.train.checkpoint import (
+    find_checkpoint, load_checkpoint, load_model_variables, save_checkpoint,
+)
+from stofnet_tpu_torch.train.early_stop import EarlyStopping
+from stofnet_tpu_torch.train.steps import (
+    LossConfig, make_eval_step, make_optimizer, make_train_step,
+    resume_optimizer,
+)
+from stofnet_tpu_torch.train.threshold import find_threshold
+from stofnet_tpu_torch.utils.config import Config, load_config, merge_cli
+from stofnet_tpu_torch.utils.logging import MetricsLogger, make_run_name
+from stofnet_tpu_torch.utils.profiling import StepTraceProfiler, count_params
+
+DEFAULT_CONFIG = Path(__file__).parent / "config.yaml"
+
+# what the port does not run yet, and the slice (ROADMAP queue A) that
+# brings it
+_LATER = {"model": "A.3, the model zoo", "pala": "A.4, PALA data",
+          "mesh": "A.6, parallel/mesh.py"}
+
+
+def _nanmean(x) -> float:
+    x = np.asarray(x, dtype=np.float64)
+    ok = ~np.isnan(x)
+    return float(x[ok].mean()) if ok.any() else float("nan")
+
+
+def _save_channel_overview(path: Path, frame: np.ndarray, gt: np.ndarray,
+                           es: np.ndarray, logger: MetricsLogger) -> None:
+    """Channel-overview panel, saved locally, mirrored to W&B when enabled;
+    nothing where matplotlib is missing."""
+    try:
+        import matplotlib.pyplot as plt
+
+        from stofnet_tpu_torch.utils.plotting import plot_channel_overview
+    except ImportError:
+        return
+    fig = plot_channel_overview(frame[:, 0], gt, echoes=es)
+    logger.log_figure("channel_overview", fig, path=path)
+    plt.close(fig)
+
+
+def _save_comparison(path: Path, frame: np.ndarray, es: np.ndarray,
+                     gt: np.ndarray, label: str,
+                     logger: MetricsLogger) -> None:
+    """Per-eval-sample comparison figure; nothing where matplotlib is
+    missing."""
+    try:
+        import matplotlib.pyplot as plt
+
+        from stofnet_tpu_torch.utils.plotting import plot_comparison
+    except ImportError:
+        return
+    fig = plot_comparison(frame[0, 0], [np.asarray(es[0])], [label],
+                          gt_samples=gt[0])
+    logger.log_figure("comparison", fig, path=path)
+    plt.close(fig)
+
+
+def dataset_kind(data_dir: str) -> str:
+    d = str(data_dir).lower()
+    if "pala" in d:
+        return "pala"
+    if "rat" in d:
+        return "rat"
+    if "chirp" in d:
+        return "chirp"
+    raise ValueError(f"no dataset class for data path {data_dir!r}")
+
+
+def build_dataset(cfg: Config):
+    """Instantiate the dataset + transforms; returns (dataset, info dict)."""
+    from stofnet_tpu_torch.data.chirp import ChirpDataset
+    from stofnet_tpu_torch.data.transforms import (
+        AddNoise, Compose, CropChannelData, NormalizeVol,
+    )
+
+    kind = dataset_kind(cfg.data_dir)
+    if kind != "chirp":
+        raise SystemExit(f"{kind} data ({cfg.data_dir}): the port's driver "
+                         f"reads chirp data; {kind} comes with "
+                         f"{_LATER['pala']}")
+    rng = np.random.default_rng(cfg.seed)
+    tf = [NormalizeVol()]
+    if str(cfg.data_dir).lower().endswith(".zip"):
+        from stofnet_tpu_torch.utils.zip_extract import zip_extract
+
+        cfg.data_dir = str(zip_extract(cfg.data_dir))
+    if not cfg.evaluate:
+        tf += [CropChannelData(ratio=cfg.crop_ratio, rng=rng),
+               AddNoise(snr=cfg.snr_db, rng=rng)]
+    ds = ChirpDataset(
+        root_dir=cfg.data_dir,
+        split_dirname="test" if cfg.evaluate else "train",
+        rf_scale_factor=cfg.rf_scale_factor,
+        transforms=Compose(tf),
+        seed=int(cfg.seed),
+    )
+    info = {"kind": kind, "fs": float(ds.cfg["fhz_sample"]),
+            "c": float(ds.cfg["speed_of_sound"]),
+            "channel_num": ds.get_channel_num(),
+            "sample_num": ds.get_sample_num()}
+    return ds, info
+
+
+def batch_to_arrays(batch) -> Tuple[np.ndarray, np.ndarray]:
+    """(frame (B, 1, L), gt_sample (B, 1)) of a chirp batch, invalid GT
+    (NaN or <= 0) as 0."""
+    _, rf, _, gt_sample, _, _ = batch
+    frame = rf[:, None, :].astype(np.float32)
+    gt = gt_sample.reshape(-1, 1).astype(np.float32)
+    gt = np.where(np.isnan(gt) | (gt <= 0), 0.0, gt)
+    return frame, gt
+
+
+def _host_batches(loader, up: int):
+    for batch in loader:
+        frame, gt = batch_to_arrays(batch)
+        gt_true = np.round(gt[:, None, :] * up).astype(np.int32)
+        yield frame, gt, gt_true
+
+
+def _loss_config(cfg: Config) -> LossConfig:
+    return LossConfig(
+        kernel_size=int(cfg.kernel_size), sigma=float(cfg.sigma),
+        mask_amplitude=float(cfg.mask_amplitude),
+        lambda_value=float(cfg.lambda_value),
+        nms_win_size=int(cfg.nms_win_size),
+        th=None if cfg.th in (None, "Null") else float(cfg.th),
+        etol=float(cfg.etol), upsample_factor=int(cfg.upsample_factor),
+        max_echoes=int(cfg.get("max_echoes", 64)),
+    )
+
+
+def setup(cfg: Config) -> Dict[str, Any]:
+    """Common setup: seeds, dataset, model (fresh or from ``model_file=``)
+    on the device. Returns a dict."""
+    if str(cfg.model).lower() != "stofnet":
+        raise SystemExit(f"model={cfg.model}: the port's driver runs "
+                         f"model=stofnet; the others come with "
+                         f"{_LATER['model']}")
+    if cfg.get("mesh"):
+        raise SystemExit(f"mesh=True comes with {_LATER['mesh']}")
+    device = resolve_device(cfg.get("device"))
+    pyrandom.seed(cfg.seed)
+    np.random.seed(cfg.seed)
+
+    ds, info = build_dataset(cfg)
+    dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
+    model = StofNet(upsample_factor=int(cfg.upsample_factor),
+                    semi_global_scale=int(cfg.get("semi_global_scale", 80)),
+                    dtype=dtype,
+                    generator=torch.Generator().manual_seed(int(cfg.seed)),
+                    device=device)
+
+    random_init = True
+    if cfg.model_file:
+        path = find_checkpoint(cfg.ckpt_dir, cfg.model_file)
+        if path is not None:
+            model.load_state_dict(load_model_variables(cfg.model, path))
+            random_init = False
+            print(f"loaded checkpoint {path}", file=sys.stderr)
+        else:
+            # the reference runs the fresh init on a prefix it does not
+            # find; keep that, and say so loudly
+            print(f"WARNING: checkpoint prefix {cfg.model_file!r} not found "
+                  f"in {cfg.ckpt_dir}: continuing with RANDOM INIT; metrics "
+                  f"will not reflect trained weights", file=sys.stderr)
+    return {"dataset": ds, "info": info, "model": model, "device": device,
+            "cfg": cfg, "random_init": random_init}
+
+
+def _loader_workers(cfg: Config) -> int:
+    nw = cfg.get("num_workers")
+    return default_num_workers() if nw is None else int(nw)
+
+
+def _int8_eval_step(ctx: Dict[str, Any], loader, finish):
+    """The eval step with the int8-SGB forward (``models/int8.py``),
+    calibrated on up to 8 batches; decode, loss and metrics unchanged."""
+    from stofnet_tpu_torch.models.int8 import (
+        quantize_stofnet, stofnet_apply_int8,
+    )
+
+    cfg, model = ctx["cfg"], ctx["model"]
+    # per-channel absmax over up to 8 batches: one quiet first batch must
+    # not set a scale the rest of the split saturates
+    calib = []
+    for batch in loader:
+        calib.append(batch_to_arrays(batch)[0])
+        if len(calib) >= 8:
+            break
+    if not calib:
+        raise ValueError("int8=True needs at least one eval batch for the "
+                         "pre-pool requantization calibration")
+    ov = {"upsample_factor": int(model.upsample_factor),
+          "num_blocks": int(model.num_blocks),
+          "semi_global_scale": int(model.semi_global_scale)}
+    q = quantize_stofnet(model.state_dict(), torch.from_numpy(
+        np.concatenate(calib)).to(ctx["device"]), **ov)
+    dtype = (torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16"
+             else None)
+
+    @torch.no_grad()
+    def forward(frame):
+        with full_f32():
+            pred = stofnet_apply_int8(q, frame, dtype=dtype, **ov)
+        return pred, pred.float().sum()
+
+    def step(frame, gt_sample, gt_true):
+        return finish(forward(frame)[0], gt_sample, gt_true)
+
+    step.forward, step.finish = forward, finish
+    print(f"int8 serving path: s8 SGB contract conv + s8 pre-pool tensor, "
+          f"calibrated on {sum(c.shape[0] for c in calib)} waveforms "
+          f"(weights/decode unchanged)", file=sys.stderr)
+    return step
+
+
+def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
+    """Benchmark protocol: whole test split, metrics per frame."""
+    cfg = ctx["cfg"]
+    profiler = StepTraceProfiler(cfg.get("profile_dir"),
+                                 cfg.get("profile_steps") or 5)
+    ds = ctx["dataset"]
+    eval_step = make_eval_step(ctx["model"], _loss_config(cfg))
+    loader = DataLoader(ds, batch_size=int(cfg.batch_size), drop_last=True,
+                        num_workers=_loader_workers(cfg))
+    up = int(cfg.upsample_factor)
+
+    use_int8 = bool(cfg.get("int8"))
+    if use_int8:
+        eval_step = _int8_eval_step(ctx, loader, eval_step.finish)
+
+    put = DevicePut(ctx["device"])
+    total = {"loss": [], "distance": [], "jaccard": [], "time": []}
+    val_step = 0
+    # find_threshold runs on every eval batch like the reference;
+    # th_search_interval > 1 thins the (host-side) search
+    th_every = int(cfg.get("th_search_interval", 1))
+    for batch_idx, (host, dev) in enumerate(
+            pipeline_batches(_host_batches(loader, up), put)):
+        frame, gt, gt_true = host
+        frame_d, gt_d, gt_true_d = dev
+
+        # time the bare forward like the reference; the checksum's copy to
+        # the host waits for the card
+        tic = time.perf_counter()
+        pred, checksum = eval_step.forward(frame_d)
+        float(checksum)
+        toc_fwd = time.perf_counter() - tic
+        out = eval_step.finish(pred, gt_d, gt_true_d)
+        metrics = out["toa_metrics"].cpu().numpy()
+        toc = time.perf_counter() - tic
+        profiler.step()  # no-op unless profile_dir= is set
+
+        loss = float(out["loss"])
+        val_step += 1
+        # the first batch's time holds one-time work (cuDNN's algorithm
+        # search): NaN, so the nan-mean summary is the steady state. The
+        # denominator is cfg.batch_size, like the reference
+        bs = int(cfg.batch_size)
+        infer_time = (toc_fwd / bs) if batch_idx > 0 else float("nan")
+        step_time = (toc / bs) if batch_idx > 0 else float("nan")
+
+        ideal_th = 0.0
+        if batch_idx % th_every == 0:
+            pred_np = out["masks_pred"].float().cpu().numpy()
+            masks_true = coords2mask(torch.from_numpy(gt_true),
+                                     pred_np.shape[-1]).numpy()
+            ideal_th = find_threshold(pred_np, masks_true)
+
+        # per-frame data artifact + comparison figure every 100th batch
+        if batch_idx % 100 == 1 and cfg.get("save_artifacts", True):
+            art_dir = Path(logger.run_dir) / f"{logger.run_name}_frames"
+            art_dir.mkdir(parents=True, exist_ok=True)
+            es = out["es_sample"].cpu().numpy()
+            np.savez_compressed(
+                art_dir / f"frame_{batch_idx:05d}.npz",
+                data=frame, toa=es, gt=gt)
+            _save_comparison(art_dir / f"frame_{batch_idx:05d}.png",
+                             frame, es, gt, str(cfg.model), logger)
+
+        for row in metrics:
+            total["distance"].append(row[0])
+            total["jaccard"].append(row[3])
+            total["time"].append(infer_time)
+        total["loss"].append(loss)
+
+        logger.log({"event": "val", "val_step": val_step, "val_loss": loss,
+                    "val_ideal_threshold": ideal_th,
+                    "inference_time": infer_time,
+                    "eval_step_time": step_time,
+                    "val_toa_distance": _nanmean(metrics[:, 0]),
+                    "val_toa_precision": _nanmean(metrics[:, 1]),
+                    "val_toa_recall": _nanmean(metrics[:, 2]),
+                    "val_toa_jaccard": _nanmean(metrics[:, 3])})
+
+    profiler.close()  # write an unfinished trace window (short splits)
+    if val_step == 0:
+        raise ValueError(
+            f"evaluation produced no batches: the eval split has "
+            f"{len(ds)} item(s) and batch_size={cfg.batch_size} with "
+            f"drop_last; lower batch_size or enlarge the split")
+
+    dist = np.asarray(total["distance"], dtype=np.float64)
+    summary = {
+        "model_name": cfg.model,
+        "total_jaccard": _nanmean(total["jaccard"]),
+        "total_inference_time": _nanmean(total["time"]),
+        "total_distance_mean": _nanmean(dist),
+        "total_distance_std": float(np.std(dist[~np.isnan(dist)]))
+        if (~np.isnan(dist)).any() else float("nan"),
+        "val_loss": float(np.mean(total["loss"])) if total["loss"] else 0.0,
+    }
+    if use_int8:
+        summary["int8"] = True
+    logger.set_summary(**summary)
+    return summary
+
+
+def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
+    cfg = ctx["cfg"]
+    model = ctx["model"]
+    profiler = StepTraceProfiler(cfg.get("profile_dir"),
+                                 cfg.get("profile_steps") or 5)
+    ds = ctx["dataset"]
+    up = int(cfg.upsample_factor)
+
+    nw = _loader_workers(cfg)
+    train_idx, val_idx = split_dataset(len(ds), 0.2, seed=int(cfg.seed))
+    train_loader = DataLoader(ds, train_idx, batch_size=int(cfg.batch_size),
+                              shuffle=True, drop_last=True, seed=int(cfg.seed),
+                              num_workers=nw)
+    val_loader = DataLoader(ds, val_idx, batch_size=int(cfg.batch_size),
+                            drop_last=True, num_workers=nw)
+
+    if int(cfg.epochs) > 0 and len(train_loader) == 0:
+        raise ValueError(
+            f"training would run zero steps: the train split has "
+            f"{len(train_idx)} item(s) and batch_size={cfg.batch_size} "
+            f"with drop_last; lower batch_size or enlarge the dataset")
+    if int(cfg.epochs) > 0 and len(val_loader) == 0:
+        raise ValueError(
+            f"validation split is empty ({len(val_idx)} item(s) < "
+            f"batch_size={cfg.batch_size} with drop_last): val_loss and "
+            f"early stopping would run on zero batches")
+
+    lcfg = _loss_config(cfg)
+    optimizer, scheduler = make_optimizer(
+        model.parameters(), lr=float(cfg.lr),
+        weight_decay=float(cfg.weight_decay), epochs=int(cfg.epochs),
+        steps_per_epoch=max(1, len(train_loader)))
+    train_step = make_train_step(model, optimizer, scheduler, lcfg,
+                                 remat=bool(cfg.get("remat", False)),
+                                 amp=bool(cfg.get("amp", False)),
+                                 accum=int(cfg.get("accum", 1) or 1))
+    eval_step = make_eval_step(model, lcfg)
+
+    start_epoch = 0
+    if cfg.get("resume"):
+        ckpt = load_checkpoint(cfg.resume, model.state_dict())
+        resume_optimizer(optimizer, scheduler, ckpt["optimizer"],
+                         ckpt["step"])
+        start_epoch = int(ckpt["epoch"])
+        print(f"resumed from {cfg.resume} at epoch {start_epoch}",
+              file=sys.stderr)
+    early = EarlyStopping(patience=int(cfg.patience), delta=float(cfg.delta))
+
+    # in-loop figure panels every N train batches, saved next to the JSONL
+    plot_every = int(cfg.get("plot_interval", 800))
+    plot_dir = Path(logger.run_dir) / f"{logger.run_name}_figs"
+    put = DevicePut(ctx["device"])
+
+    def lr_now() -> float:
+        return float(optimizer.param_groups[0]["lr"])
+
+    def save_ckpt(tag: str, epoch_count: int) -> Path:
+        ckpt_dir = Path(cfg.ckpt_dir)
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        return save_checkpoint(ckpt_dir / tag, model.state_dict(), optimizer,
+                               scheduler, step=scheduler.last_epoch,
+                               epoch=epoch_count)
+
+    train_global = int(scheduler.last_epoch)
+    epochs_run = start_epoch
+    val_loss = float("inf")
+    for epoch in range(start_epoch, int(cfg.epochs)):
+        # epoch e's batch order is a function of (seed, e): resumed runs
+        # replay the order the uninterrupted run would have used
+        train_loader.set_epoch(epoch)
+        lr_epoch = lr_now()  # the lr this epoch's steps use
+        epoch_loss = 0.0
+        for host, dev in pipeline_batches(_host_batches(train_loader, up),
+                                          put):
+            frame, gt, gt_true = host
+            frame_d, gt_d, gt_true_d = dev
+            aux = train_step(frame_d, gt_d, gt_true_d)
+            loss = float(aux["loss"])
+            profiler.step()  # no-op unless profile_dir= is set
+            if not np.isfinite(loss):
+                # stop at the poisoned step with enough context to resume
+                # from the last checkpoint
+                raise RuntimeError(
+                    f"non-finite train loss {loss} at step {train_global + 1}"
+                    f" (epoch {epoch}, lr {lr_now():.2e});"
+                    " resume from the last checkpoint with a lower lr")
+            epoch_loss += loss  # sum of per-batch means
+            train_global += 1
+            logger.log({"event": "train", "train_step": train_global,
+                        "train_loss": loss})
+            if plot_every and train_global % plot_every == 0:
+                out = eval_step(frame_d, gt_d, gt_true_d)
+                _save_channel_overview(
+                    plot_dir / f"train_{train_global:06d}.png", frame, gt,
+                    out["es_sample"].cpu().numpy(), logger)
+        epochs_run = epoch + 1
+
+        # validation: loss + tolerance-matched ToA metrics
+        vlosses, vmetrics = [], []
+        for _, dev in pipeline_batches(_host_batches(val_loader, up), put):
+            out = eval_step(*dev)
+            vlosses.append(float(out["loss"]))
+            vmetrics.append(out["toa_metrics"].cpu().numpy())
+        val_loss = float(np.sum(vlosses))
+        vm = (np.concatenate(vmetrics) if vmetrics
+              else np.full((1, 7), np.nan))
+        # the epoch's train_loss is the reference's sum(batch means) /
+        # len(train split); per-batch means are in the 'train' events
+        logger.log({"event": "epoch", "epoch": epoch,
+                    "train_loss": epoch_loss / max(len(train_idx), 1),
+                    "val_loss": val_loss,
+                    "val_toa_distance": _nanmean(vm[:, 0]),
+                    "val_toa_jaccard": _nanmean(vm[:, 3]),
+                    "lr": lr_epoch})
+
+        # a rolling 'last' checkpoint each epoch, so the non-finite
+        # check's resume guidance has something to resume from
+        save_ckpt(f"{logger.run_name}_last", epochs_run)
+
+        if early(val_loss):
+            print(f"Finished at epoch: {epoch}", file=sys.stderr)
+            break
+
+    profiler.close()  # write an unfinished trace window (short runs)
+    name = (f"{logger.run_name}_rf-scale{cfg.rf_scale_factor}"
+            f"_epoch_{epochs_run}")
+    path = save_ckpt(name, epochs_run)
+    logger.log_artifact(path, name)  # W&B mirror
+    summary = {"val_loss": val_loss, "checkpoint": str(path),
+               "epochs": epochs_run}
+    if cfg.get("export_pth"):
+        # a reference-compatible .pth beside the checkpoint
+        from stofnet_tpu_torch.models.torch_import import (
+            save_torch_state_dict,
+        )
+
+        pth = Path(cfg.ckpt_dir) / f"{name}.pth"
+        save_torch_state_dict(model.state_dict(), str(pth))
+        summary["export_pth"] = str(pth)
+    logger.set_summary(final_val_loss=val_loss, **summary)
+    return summary
+
+
+def run(cfg: Config) -> Dict[str, Any]:
+    if cfg.get("int8") and not cfg.evaluate:
+        raise ValueError("int8=True is a SERVING path (evaluate=True only):"
+                         " training runs full-precision — drop the flag or"
+                         " add evaluate=True")
+    if cfg.get("compile_cache"):
+        print(f"compile_cache={cfg.compile_cache}: ignored, the port runs "
+              f"eager PyTorch and compiles nothing to cache", file=sys.stderr)
+    ctx = setup(cfg)
+    # trainable parameters only, like the reference's torchinfo count
+    n_params = count_params(dict(ctx["model"].named_parameters()))
+    run_name = make_run_name(int(cfg.seed) + int(time.time()) % 100000)
+    logger = MetricsLogger(cfg.get("run_dir", "runs"), run_name,
+                           config=dict(cfg),
+                           wandb_group=cfg.logging if cfg.logging else None)
+    logger.set_summary(model_name=cfg.model, total_parameters=n_params)
+    try:
+        if cfg.evaluate:
+            result = evaluate(ctx, logger)
+            if ctx["random_init"]:
+                # the protocol ran on fresh weights: tables downstream must
+                # say so, not just the stderr line
+                result["random_init"] = True
+                logger.set_summary(random_init=True)
+        else:
+            result = train(ctx, logger)
+    finally:
+        logger.finish()
+    print(f"run {run_name}: " + ", ".join(
+        f"{k}={v}" for k, v in result.items()), file=sys.stderr)
+    return {"run_name": run_name, **result}
+
+
+def main(argv: Optional[list] = None) -> None:
+    cfg = merge_cli(load_config(DEFAULT_CONFIG), argv)
+    run(cfg)
+
+
+if __name__ == "__main__":
+    main()

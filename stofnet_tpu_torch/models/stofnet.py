@@ -76,7 +76,12 @@ class StofNet(nn.Module):
     ``generator`` re-draws every parameter from PyTorch's default Conv1d
     distribution, U(-1/sqrt(fan_in), 1/sqrt(fan_in)), on the CPU before the
     module moves to ``device``; without it the layers keep PyTorch's own
-    initialisation.
+    initialisation. ``weights_init=True`` then draws the (semi-)orthogonal
+    weights of the JAX module's option of that name (off by default, as
+    there): gain sqrt(2) on the activation layers, 1 on the residual
+    schedule's layers (conv3, conv5, ..., conv{nb-1}) and on
+    ``conv_last``; biases and the SemiGlobalBlock keep their draw. The
+    distribution is the JAX module's, not its bits.
     """
 
     def __init__(self, upsample_factor: int = 4, num_features: int = 64,
@@ -84,7 +89,7 @@ class StofNet(nn.Module):
                  semi_global_scale: int = 80, in_channels: int = 1,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None,
-                 device: DeviceLike = None):
+                 weights_init: bool = False, device: DeviceLike = None):
         super().__init__()
         device = resolve_device(device)
         k1, k_mid, k_last = (int(k) for k in kernel_sizes)
@@ -108,6 +113,13 @@ class StofNet(nn.Module):
                                                 * m.kernel_size[0])
                         m.weight.uniform_(-bound, bound, generator=generator)
                         m.bias.uniform_(-bound, bound, generator=generator)
+        if weights_init:
+            residual = set(range(3, num_blocks - 1, 2)) | {num_blocks - 1}
+            layers = [(i, getattr(self, f"conv{i}"))
+                      for i in range(1, num_blocks)]
+            for i, conv in layers + [(num_blocks, self.conv_last)]:
+                gain = 1.0 if i in residual | {num_blocks} else math.sqrt(2)
+                nn.init.orthogonal_(conv.weight, gain, generator=generator)
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

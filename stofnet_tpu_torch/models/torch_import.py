@@ -1,7 +1,7 @@
 """Weights between the JAX package's flax trees, reference ``.pth`` files and
 the port (replaces ``stofnet_tpu/models/torch_import.py``: its own copy of
-``params_to_state_dict`` and of the StofNet architecture inference of
-``import_stofnet``).
+``params_to_state_dict``, ``save_torch_state_dict`` and of the StofNet
+architecture inference of ``import_stofnet``).
 
 Key mapping is structural: a flax ``params[a][b]['kernel']`` of shape
 (K, I, O) is torch ``a.b.weight`` (O, I, K); ``bias`` copies through.
@@ -56,6 +56,19 @@ def params_to_state_dict(
         sd[f"{mod}.{name}"] = np.asarray(val)
         sd.setdefault(f"{mod}.num_batches_tracked", np.asarray(0))
     return sd
+
+
+def save_torch_state_dict(sd: Dict[str, Any], path: str) -> None:
+    """Write a state dict (tensors or arrays, reference names) as a
+    ``.pth`` that the reference's ``torch.load`` reads: f32 tensors on the
+    CPU, 0-d entries as int tensors."""
+    out = {}
+    for k, v in sd.items():
+        a = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                       else v)
+        out[k] = (torch.from_numpy(np.array(a, np.float32, copy=True))
+                  if a.ndim else torch.tensor(int(a)))
+    torch.save(out, path)
 
 
 def stofnet_overrides(sd: Dict[str, Any]) -> Dict[str, Any]:

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -77,6 +78,19 @@ def batch_mask2coords(scores: torch.Tensor, window_size: int,
     flat = mask2coords(scores.reshape(b * c, length), window_size, threshold,
                        upsample_factor, max_echoes)
     return flat.reshape(b, c, max_echoes)
+
+
+def coords_to_nested_list(coords) -> list:
+    """Ragged python lists of the valid (nonzero) detections of each row
+    (the reference's mask2nested_list output shape; a reporting
+    convenience). ``coords`` is (B, K) or (B, C, K), a tensor or an
+    array."""
+    if isinstance(coords, torch.Tensor):
+        coords = coords.detach().cpu().numpy()
+    coords = np.asarray(coords)
+    if coords.ndim == 2:
+        coords = coords[:, None, :]
+    return [[row[row != 0].tolist() for row in frame] for frame in coords]
 
 
 def coords2mask(samples: torch.Tensor, length: int) -> torch.Tensor:

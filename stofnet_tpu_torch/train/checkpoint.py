@@ -3,8 +3,10 @@ training state in one ``torch.save`` file, for mid-run resume, and the
 import of reference StofNet ``.pth`` files.
 
 A checkpoint holds ``model`` (name -> tensor), ``optimizer`` and
-``scheduler`` (their ``state_dict``s) and ``step``; it loads with
-``torch.load(weights_only=True)``.
+``scheduler`` (their ``state_dict``s), ``step`` and ``epoch`` (the epochs
+run, where ``cli/main.py``'s ``resume=`` starts); it loads with
+``torch.load(weights_only=True)``. A file written before ``epoch`` was
+stored loads with ``epoch`` 0.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from stofnet_tpu_torch.models.torch_import import load_stofnet
 
 def save_checkpoint(path: str | Path, params: Mapping[str, torch.Tensor],
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    scheduler=None, step: int = 0) -> Path:
+                    scheduler=None, step: int = 0, epoch: int = 0) -> Path:
     """Write the training state to ``path``; returns its absolute path."""
     path = Path(path).absolute()
     torch.save({
@@ -27,6 +29,7 @@ def save_checkpoint(path: str | Path, params: Mapping[str, torch.Tensor],
         "optimizer": None if optimizer is None else optimizer.state_dict(),
         "scheduler": None if scheduler is None else scheduler.state_dict(),
         "step": int(step),
+        "epoch": int(epoch),
     }, path)
     return path
 
@@ -40,6 +43,7 @@ def load_checkpoint(path: str | Path,
     ``state_dict()``), ``optimizer`` and ``scheduler`` that is given,
     restore it. Returns the checkpoint."""
     ckpt = torch.load(Path(path), map_location="cpu", weights_only=True)
+    ckpt.setdefault("epoch", 0)
     if params is not None:
         with torch.no_grad():
             for k, v in params.items():

@@ -11,14 +11,16 @@ conv + pool runs as the trainable SGB kernels on the card.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Iterable, Mapping, NamedTuple, Optional
+from typing import Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from stofnet_tpu_torch.models.fused import stofnet_apply_fused
+from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.gaussian import gaussian_kernel
 from stofnet_tpu_torch.ops.peaks import mask2coords
 from stofnet_tpu_torch.train.loss import blurred_mask, heatmap_loss
@@ -59,6 +61,23 @@ def make_optimizer(params: Iterable[torch.Tensor], lr: float = 5e-4,
     optimizer = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
                                   eps=1e-8, weight_decay=weight_decay)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+
+
+def resume_optimizer(optimizer: torch.optim.Optimizer, scheduler,
+                     saved: Mapping, step: int) -> None:
+    """Resume ``optimizer`` and ``scheduler`` of :func:`make_optimizer` at
+    update ``step`` with the moments of ``saved`` (an optimizer's
+    ``state_dict``). The hyperparameters and the schedule stay this run's,
+    as the JAX package restores optax's state under the optimizer built
+    from the run's config: the learning rate is this schedule's at
+    ``step``, also where the saved run annealed over other epochs."""
+    sd = optimizer.state_dict()
+    sd["state"] = saved["state"]
+    optimizer.load_state_dict(sd)
+    scheduler.last_epoch = int(step)
+    for g, base, factor in zip(optimizer.param_groups, scheduler.base_lrs,
+                               scheduler.lr_lambdas):
+        g["lr"] = base * factor(int(step))
 
 
 def _update(optimizer, scheduler, update_scale) -> None:
@@ -102,6 +121,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     micro-batch, so the step equals the full-batch step up to the order of
     sums. ``gt_sample`` is unused by the heatmap loss and kept for the
     signature of the JAX step.
+
+    The f32 step (``amp=False``) runs under ``ops/conv.full_f32``: every
+    conv of the forward, of ``remat``'s recomputed forward and of the
+    backward of each micro-batch computes without TF32, as JAX's f32 step
+    sums, and the caller's flags come back after the update. cuDNN reads
+    the flags when each call is launched, so the block holds the backward
+    too.
     """
     device = next(model.parameters()).device
     kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
@@ -121,6 +147,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         return loss_fn(pred, gt_true, norm_max)
 
     def train_step(frame, gt_sample, gt_true, update_scale=None):
+        with contextlib.nullcontext() if amp else full_f32():
+            return step(frame, gt_true, update_scale)
+
+    def step(frame, gt_true, update_scale):
         model.train()
         optimizer.zero_grad(set_to_none=True)
         if accum <= 1:
@@ -148,24 +178,46 @@ def make_eval_step(model: nn.Module, cfg: LossConfig):
     """``eval_step(frame, gt_sample, gt_true) -> dict`` of ``loss``,
     ``es_sample`` (decoded ToAs), ``toa_metrics`` ((B, 7), ``toa_rmse``)
     and ``masks_pred``: forward -> ``mask2coords`` -> loss -> ``toa_rmse``,
-    without gradients."""
+    without gradients, its convs under ``ops/conv.full_f32`` (an f32
+    module without TF32; a bf16 one computes the same under it).
+
+    The step also exposes its two halves, which ``cli/main.py`` times
+    apart, as the JAX step does:
+
+    - ``eval_step.forward(frame) -> (pred, checksum)``: the checksum is
+      the heatmap's f32 sum, whose copy to the host waits for the forward;
+    - ``eval_step.finish(pred, gt_sample, gt_true) -> dict``: decode, loss
+      and metrics of a computed heatmap.
+    """
     device = next(model.parameters()).device
     kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
     loss_fn = _heatmap_loss(cfg, kernel)
 
     @torch.no_grad()
-    def eval_step(frame, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
+    def forward(frame) -> Tuple[torch.Tensor, torch.Tensor]:
         model.eval()
-        pred = model(frame)
+        with full_f32():
+            pred = model(frame)
+        return pred, pred.float().sum()
+
+    @torch.no_grad()
+    def finish(pred, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
         es_sample = mask2coords(pred, window_size=cfg.nms_win_size,
                                 threshold=cfg.th,
                                 upsample_factor=cfg.upsample_factor,
                                 max_echoes=cfg.max_echoes)
         gs = gt_sample.reshape(gt_sample.shape[0], -1)
-        return {"loss": loss_fn(pred, gt_true), "es_sample": es_sample,
+        with full_f32():
+            loss = loss_fn(pred, gt_true)
+        return {"loss": loss, "es_sample": es_sample,
                 "toa_metrics": toa_rmse(gs, es_sample, tol=cfg.etol),
                 "masks_pred": pred}
 
+    def eval_step(frame, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
+        return finish(forward(frame)[0], gt_sample, gt_true)
+
+    eval_step.forward = forward
+    eval_step.finish = finish
     return eval_step
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from stofnet_tpu_torch.data.loader import DevicePut, pipeline_batches
 from stofnet_tpu_torch.data.synthetic import gate_batch
 from stofnet_tpu_torch.models import (
     StofNet, stofnet_apply_fused, stofnet_apply_reference,
@@ -36,7 +37,7 @@ from stofnet_tpu_torch.ops.kernels import conv_stack, dma_probe, sgb, sgb_dma
 from stofnet_tpu_torch.scripts.dma_probe import ELEM_TOL
 from stofnet_tpu_torch.serve import make_pipeline, module_coords
 from stofnet_tpu_torch.train import (
-    LossConfig, make_fused_train_step, make_optimizer,
+    LossConfig, make_fused_train_step, make_optimizer, make_train_step,
 )
 
 pytestmark = pytest.mark.cuda
@@ -527,3 +528,60 @@ def test_probe_on_the_card(cuda, chunk_rows, n_buffers):
     assert np.isclose(float(got.double().sum()), total, rtol=1e-3)
     mag = torch.sum(x.abs().view(-1, 8, 128), dim=0, dtype=torch.float32)
     assert bool(((got - plain).abs() <= ELEM_TOL * mag).all())
+
+
+def test_f32_module_step_computes_without_tf32_on_the_card(cuda,
+                                                           monkeypatch):
+    """Repair: one f32 module train step under PyTorch's default flags
+    (cuDNN's TF32 on) gives the loss and every gradient of the same step
+    with TF32 turned off by hand, bit for bit, and leaves the caller's flag
+    on. cuDNN is set deterministic on both sides: its backward algorithms
+    need not repeat their own bits otherwise."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    state = StofNet(generator=torch.Generator().manual_seed(5),
+                    device="cpu").state_dict()
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(gate_batch(8, 8000, rng)).to(cuda)
+    gs = np.stack([rng.uniform(500, 7500, 8)], -1).astype(np.float32)
+    gt = torch.from_numpy(np.round(gs[:, None, :] * 4).astype(
+        np.int32)).to(cuda)
+    runs = []
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        model = StofNet(device=cuda)
+        model.load_state_dict(state)
+        opt, sched = make_optimizer(model.parameters())
+        step = make_train_step(model, opt, sched,
+                               LossConfig(upsample_factor=4, max_echoes=8))
+        loss = step(x, torch.from_numpy(gs).to(cuda), gt)["loss"]
+        runs.append((loss.cpu(), {k: p.grad.cpu()
+                                  for k, p in model.named_parameters()}))
+        assert torch.backends.cudnn.allow_tf32 == tf32
+    (loss_on, grads_on), (loss_off, grads_off) = runs
+    assert torch.equal(loss_on, loss_off)
+    for k, g in grads_off.items():
+        assert torch.equal(grads_on[k], g), k
+
+
+def test_device_put_copies_equal_plain_copies(cuda):
+    """20 batches through ``DevicePut`` (pinned staging, a side-stream
+    copy, three sets of staging buffers used in turn) and
+    ``pipeline_batches`` equal ``torch.from_numpy(x).to(dev)`` bit for bit
+    while a long kernel holds the compute stream: each batch is read
+    (cloned) on the compute stream behind that kernel, after the copies
+    of later batches have been issued, so a staging buffer refilled too
+    early or device memory handed to a later copy shows."""
+    rng = np.random.default_rng(21)
+    batches = [(rng.standard_normal((128, 1, 8000)).astype(np.float32),
+                rng.random((128, 1)).astype(np.float32),
+                rng.integers(0, 32000, (128, 1, 1)).astype(np.int32))
+               for _ in range(20)]
+    put = DevicePut(cuda)
+    torch.cuda._sleep(int(2e9))  # about a second on the compute stream
+    got = [tuple(t.clone() for t in dev)
+           for _, dev in pipeline_batches(iter(batches), put)]
+    torch.cuda.synchronize()
+    assert len(got) == 20
+    for host, dev in zip(batches, got):
+        for h, d in zip(host, dev):
+            assert torch.equal(d, torch.from_numpy(h).to(cuda))

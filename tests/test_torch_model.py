@@ -16,11 +16,13 @@ import torch
 from stofnet_tpu.models import StofNet as JaxStofNet
 from stofnet_tpu.models.fused import stofnet_apply_fused as jax_fused
 from stofnet_tpu.models.torch_import import (
-    params_to_state_dict as jax_params_to_state_dict, state_dict_to_params,
+    import_stofnet, params_to_state_dict as jax_params_to_state_dict,
+    state_dict_to_params,
 )
 from stofnet_tpu_torch.models import StofNet, stofnet_apply_fused
 from stofnet_tpu_torch.models.torch_import import (
-    load_stofnet, params_to_state_dict, stofnet_overrides,
+    load_stofnet, params_to_state_dict, save_torch_state_dict,
+    stofnet_overrides,
 )
 
 from tests import reference
@@ -142,7 +144,18 @@ def test_port_imports_no_jax():
             "stofnet_tpu_torch.cli.serve", "stofnet_tpu_torch.cli.export",
             "stofnet_tpu_torch.utils.config",
             "stofnet_tpu_torch.ops.int8",
-            "stofnet_tpu_torch.models.int8"} <= set(modules)
+            "stofnet_tpu_torch.models.int8",
+            "stofnet_tpu_torch.cli.main", "stofnet_tpu_torch.data.chirp",
+            "stofnet_tpu_torch.data.loader",
+            "stofnet_tpu_torch.data.transforms",
+            "stofnet_tpu_torch.data.synthetic",
+            "stofnet_tpu_torch.native.__init__",
+            "stofnet_tpu_torch.train.threshold",
+            "stofnet_tpu_torch.utils.logging",
+            "stofnet_tpu_torch.utils.plotting",
+            "stofnet_tpu_torch.utils.profiling",
+            "stofnet_tpu_torch.utils.natsort",
+            "stofnet_tpu_torch.utils.zip_extract"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m.removesuffix('.__init__'))\n"
@@ -166,3 +179,50 @@ def test_port_sources_name_no_jax():
     for f in files:
         for line in f.read_text().splitlines():
             assert not banned.match(line), (f, line)
+
+
+@pytest.mark.parametrize("num_blocks", [13, 6])
+def test_weights_init_is_orthogonal_with_jax_gains(num_blocks):
+    """``weights_init=True``: each conv weight, flattened to (O, I*K), has
+    orthonormal rows (or columns, where O > I*K) scaled by sqrt(2) on the
+    activation layers and 1 on the residual schedule and conv_last, as
+    JAX's module draws them (JAX's own draw is held to the same gains);
+    biases and the SemiGlobalBlock keep the plain draw. Off by default."""
+    gen = lambda: torch.Generator().manual_seed(1)  # noqa: E731
+    model = StofNet(num_blocks=num_blocks, weights_init=True,
+                    generator=gen(), device="cpu")
+    plain = StofNet(num_blocks=num_blocks, generator=gen(), device="cpu")
+    variables = JaxStofNet(num_blocks=num_blocks, weights_init=True).init(
+        jax.random.key(0), jnp.zeros((1, 1, 800)))
+    ref = jax_params_to_state_dict(variables)
+    residual = set(range(3, num_blocks - 1, 2)) | {num_blocks - 1}
+    names = [f"conv{i}" for i in range(1, num_blocks)] + ["conv_last"]
+    for i, name in enumerate(names, 1):
+        gain = 1.0 if i in residual or name == "conv_last" else 2 ** 0.5
+        for w in (model.state_dict()[f"{name}.weight"].double(),
+                  torch.from_numpy(np.asarray(ref[f"{name}.weight"],
+                                              np.float64))):
+            m = w.reshape(w.shape[0], -1)
+            g = m @ m.T if m.shape[0] <= m.shape[1] else m.T @ m
+            eye = torch.eye(g.shape[0], dtype=torch.float64)
+            torch.testing.assert_close(g, gain ** 2 * eye, atol=1e-5,
+                                       rtol=0, msg=name)
+    for k, v in plain.state_dict().items():
+        if not (k.startswith("conv") and k.endswith(".weight")):
+            assert torch.equal(model.state_dict()[k], v), k
+
+
+def test_save_torch_state_dict_reads_in_jax(tmp_path):
+    """The port's writer gives a .pth that JAX's ``import_stofnet`` reads
+    back to the same tensors, f32 on the CPU."""
+    model = StofNet(generator=torch.Generator().manual_seed(2), device="cpu")
+    path = tmp_path / "m.pth"
+    save_torch_state_dict(model.state_dict(), str(path))
+    variables, overrides = import_stofnet(str(path))
+    assert overrides == {"upsample_factor": 4}
+    back = jax_params_to_state_dict(variables)
+    assert back.keys() == model.state_dict().keys()
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(np.asarray(back[k]), v.numpy())
+    sd, _ = load_stofnet(str(path))
+    assert all(t.dtype == torch.float32 for t in sd.values())

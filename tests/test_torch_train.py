@@ -38,7 +38,7 @@ from stofnet_tpu_torch.train import (
     EarlyStopping, LossConfig, find_checkpoint, first_valid_toa,
     heatmap_loss, load_checkpoint, load_model_variables, make_eval_step,
     make_fused_train_step, make_optimizer, make_train_step, regression_loss,
-    save_checkpoint, toa_rmse,
+    resume_optimizer, save_checkpoint, toa_rmse,
 )
 
 LR = 5e-4
@@ -476,3 +476,125 @@ def test_early_stopping_matches_jax():
         assert got(v) == ref(v)
         assert (got.counter, got.best_score) == (ref.counter, ref.best_score)
     assert got.early_stop
+
+
+def _conv_weights(model):
+    return {k: p for k, p in model.named_parameters()
+            if k.endswith(".weight")}
+
+
+@pytest.mark.parametrize("case", ["accum1", "accum2", "remat", "remat_accum2",
+                                  "eval"])
+def test_f32_module_steps_compute_without_tf32(rng, monkeypatch, case):
+    """Repair: on the card PyTorch leaves cuDNN's TF32 on by default, so the
+    f32 module steps' convs rounded their products to TF32 where JAX's f32
+    step sums in full f32. cuDNN reads the flags when each conv launches,
+    so the backward counts too. The caller sets both flags on; a spy on
+    ``F.conv1d`` sees both off at every conv of the forward (and of remat's
+    recomputed forward), a hook on each conv weight's gradient sees both
+    off when the backward reaches that conv, for each micro-batch, and the
+    caller's flags come back."""
+    from stofnet_tpu_torch.ops import conv as conv_mod
+
+    _, state = _init(800)
+    model = StofNet(device="cpu")
+    model.load_state_dict(state)
+    forward_seen, backward_seen = [], []
+    conv1d = conv_mod.F.conv1d
+
+    def flags():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    def spy(*args, **kwargs):
+        forward_seen.append(flags())
+        return conv1d(*args, **kwargs)
+
+    for p in _conv_weights(model).values():
+        p.register_hook(lambda g: backward_seen.append(flags()))
+    x, gs, gt = map(torch.from_numpy, _batch(rng, batch=4))
+    accum = 2 if case.endswith("accum2") else 1
+    if case == "eval":
+        step = make_eval_step(model, LossConfig(**CFG))
+    else:
+        opt, sched = make_optimizer(model.parameters(), lr=LR)
+        step = make_train_step(model, opt, sched, LossConfig(**CFG),
+                               remat=case.startswith("remat"), accum=accum)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(conv_mod.F, "conv1d", spy)
+    step(x, gs, gt)
+    n_convs = len(_conv_weights(model))
+    # forward convs: the model's, the loss's blur; remat runs them twice
+    assert len(forward_seen) >= n_convs * accum
+    assert set(forward_seen) == {(False, False)}
+    if case == "eval":
+        assert backward_seen == []
+    else:
+        assert len(backward_seen) == n_convs * accum
+        assert set(backward_seen) == {(False, False)}
+    assert flags() == (True, True)
+
+
+def test_eval_step_halves_match_jax(rng):
+    """``forward(frame) -> (pred, checksum)`` and ``finish(pred, gt_sample,
+    gt_true)``, which the driver times apart, against the JAX step's
+    halves; the whole step is their composition."""
+    variables, state = _init(800)
+    x, gs, gt = _batch(rng)
+    ref = jsteps.make_eval_step(JaxStofNet(), jsteps.LossConfig(**CFG))
+    pred_ref, sum_ref = ref.forward(variables, jnp.asarray(x))
+    out_ref = ref.finish(pred_ref, jnp.asarray(gs), jnp.asarray(gt))
+    model = StofNet(device="cpu")
+    model.load_state_dict(state)
+    step = make_eval_step(model, LossConfig(**CFG))
+    pred, checksum = step.forward(torch.from_numpy(x))
+    np.testing.assert_allclose(pred.numpy(), np.asarray(pred_ref),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(checksum.item(), float(sum_ref), rtol=1e-4)
+    out = step.finish(pred, *map(torch.from_numpy, (gs, gt)))
+    np.testing.assert_allclose(out["loss"].item(), float(out_ref["loss"]),
+                               rtol=1e-4)
+    np.testing.assert_array_equal(out["es_sample"].numpy(),
+                                  np.asarray(out_ref["es_sample"]))
+    whole = step(*map(torch.from_numpy, (x, gs, gt)))
+    for k in ("loss", "es_sample", "toa_metrics", "masks_pred"):
+        assert torch.equal(whole[k].nan_to_num(), out[k].nan_to_num()), k
+
+
+def test_checkpoint_epoch_and_resume_under_another_schedule(rng, tmp_path):
+    """``save_checkpoint`` stores the epoch; a file without one (written
+    before it was stored, as the daemon's) loads with epoch 0.
+    ``resume_optimizer`` takes the saved moments under this run's
+    schedule: a run saved at the end of a 1-epoch cosine (its lr annealed
+    to 0) resumes into a 2-epoch one at lr / 2, as JAX's count-based
+    schedule gives."""
+    _, state = _init(800)
+    model = StofNet(device="cpu")
+    model.load_state_dict(state)
+    opt, sched = make_optimizer(model.parameters(), lr=LR, epochs=1,
+                                steps_per_epoch=1)
+    make_train_step(model, opt, sched, LossConfig(**CFG))(
+        *map(torch.from_numpy, _batch(rng)))
+    assert opt.param_groups[0]["lr"] == 0.0
+    path = save_checkpoint(tmp_path / "ckpt", model.state_dict(), opt, sched,
+                           step=1, epoch=1)
+    old = tmp_path / "old"
+    torch.save({k: v for k, v in torch.load(path, weights_only=True).items()
+                if k != "epoch"}, old)
+    assert load_checkpoint(old)["epoch"] == 0
+
+    model2 = StofNet(device="cpu")
+    opt2, sched2 = make_optimizer(model2.parameters(), lr=LR, epochs=2,
+                                  steps_per_epoch=1)
+    ckpt = load_checkpoint(path, model2.state_dict())
+    assert ckpt["epoch"] == 1 and ckpt["step"] == 1
+    resume_optimizer(opt2, sched2, ckpt["optimizer"], ckpt["step"])
+    assert opt2.param_groups[0]["lr"] == pytest.approx(LR / 2, rel=1e-12)
+    assert sched2.last_epoch == 1
+    for p, p2 in zip(model.parameters(), model2.parameters()):
+        assert torch.equal(p, p2)
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(opt.state[p][k], opt2.state[p2][k])
+    sched2.step()
+    assert opt2.param_groups[0]["lr"] == 0.0  # epoch 2 of 2
