@@ -194,8 +194,33 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    the first logged loss within 1e-6 relative of the same loss on the
    CPU in f32 (the initial weights on the first batch of a second loader
    with the same seed, the whole batch): the two agree exactly, and TF32
-   in the step moves this loss by about 3e-5.
-12. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+   in the step moves this loss by about 3e-5. The stand-in stays for the
+   zoo phase and is removed after it.
+12. The zoo phase, on the same stand-in and flags, the launch counts set
+   to 0 before it and held at 0 after it (JAX's zoo reaches no Pallas
+   kernel). Serving: each of the registry's seven other families (edsr,
+   espcn, zonzini, unet, sincnet, kuleshov, gradpeak) from seeded random
+   weights drawn on the CPU at the chirp configuration's widths (800 IQ
+   samples at rf_scale_factor 10; the seconds of the draw printed),
+   through ``serve.make_pipeline(model_name=...)`` on the card at B=128
+   and its driver length (L=8000; the unet 32000 after its rf fold), in
+   f32 and in bf16: a warm-up batch and 4 timed gate batches (ms a batch,
+   waveforms/s, peak memory; the first again under the profiler, device
+   time by kernel), then 8 rows of the first batch against the
+   same pipeline on the CPU: in f32 >= 0.99 of the coord slots within 1
+   sample (gradpeak too; moved rows printed), zonzini's ToA within 1e-4
+   relative; in bf16 the agreement and ``probe_dtype_agreement`` printed,
+   not held. Training: ``cli/main.run`` with ``model=<name>`` for the six
+   trainable families, one f32 epoch at B=128 from fresh seeded weights
+   (ms a step after the first, training waveforms/s end to end and bare,
+   peak memory), then ``evaluate=True`` from its checkpoint (summary,
+   forward ms a batch); gradpeak evaluates only, with its detector's
+   auto threshold (``th=Null``). Every loss must be finite, the train-mode
+   loss of 16 rows of the first batch from the run's initial weights
+   within 1e-5 relative of the CPU's (Kuleshov in eval mode: its dropout
+   draws differ between devices), and a BatchNorm family's running
+   statistics moved over the epoch. Prints the phase's seconds.
+13. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
    launches of its paths: the serving, bench, training, probe, daemon and
    export runs, each counted from 0, summed over the paths that launch
    it; the serving instantiation's launches go to ``sgb_contract_pool`` at
@@ -210,6 +235,7 @@ without a CUDA device too.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import shutil
@@ -234,13 +260,16 @@ from stofnet_tpu_torch.cli import serve as serve_cli
 from stofnet_tpu_torch.data.loader import (
     DataLoader, default_num_workers, split_dataset,
 )
-from stofnet_tpu_torch.data.synthetic import gate_batch, generate_chirp_dataset
+from stofnet_tpu_torch.data.synthetic import (
+    DEFAULT_SPECS, gate_batch, generate_chirp_dataset,
+)
 from stofnet_tpu_torch.models import (
     StofNet, stofnet_apply_fused, stofnet_apply_reference,
 )
 from stofnet_tpu_torch.models.int8 import (
     quantize_stofnet, stofnet_apply_int8,
 )
+from stofnet_tpu_torch.models.registry import REGRESSION, build_model
 from stofnet_tpu_torch.ops.kernels import (
     KERNEL_MODULES, SOURCES, _build, conv_stack, dma_probe,
     reset_launch_counts, sgb, sgb_dma,
@@ -253,7 +282,7 @@ from stofnet_tpu_torch.ops.peaks import mask2coords
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
 from stofnet_tpu_torch.serve import (
     export_pipeline, export_pipeline_weightless, load_pipeline, make_pipeline,
-    module_coords, save_pipeline,
+    module_coords, probe_dtype_agreement, save_pipeline,
 )
 from stofnet_tpu_torch.serving import (
     ServingClient, decode_payload, encode_rows,
@@ -303,6 +332,19 @@ GATE_ROWS, GATE_SEED = 16, 3008  # the daemon's dtype gate batch (L=8000)
 DRIVER_DATA = dict(n_positions=16, n_train_per_pos=40, n_test_per_pos=8,
                    sample_num=800)
 PROFILE_STEPS = 5  # the driver's profile_steps default
+# the zoo phase: the registry's families at the driver's chirp
+# configuration (the stand-in's 800 IQ samples at rf_scale_factor 10, fs of
+# data/synthetic's sensor specs); the unet serves at L * UP after its fold
+ZOO = ("edsr", "espcn", "zonzini", "unet", "sincnet", "kuleshov",
+       "gradpeak")
+ZOO_OVERRIDES = dict(dataset_kind="chirp", upsample_factor=UP,
+                     sample_num=DRIVER_DATA["sample_num"], rf_scale_factor=10,
+                     fs=DEFAULT_SPECS["fhz_sample"])
+ZOO_ROWS = 8  # rows of a batch held against the CPU's pipeline
+ZONZINI_RTOL = 1e-4  # its ToA, card against CPU in f32
+ZOO_LOSS_ROWS = 16  # rows of the first batch in the first-loss check
+ZOO_LOSS_RTOL = 1e-5  # TF32 moved StofNet's loss by 3.3e-5
+ZOO_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 
 
 def log(msg: str) -> None:
@@ -1652,21 +1694,23 @@ def export_path(dev, state) -> dict:
 
 class DriverProbe:
     """Readings of ``cli/main.py``'s runs taken from outside the driver: it
-    wraps the ``make_train_step``, ``pipeline_batches`` and
-    ``find_threshold`` that the driver's module calls, and changes nothing
-    they compute. Each train step is timed on the host clock up to the
-    card's end (the driver's next line copies the loss to the host, which
-    waits for the card anyway) and its start kept; each batch the training
-    loop takes from its iterator is timed from the request to its arrival
-    (the loader's wait, the copy's issue included). Each training loop
-    keeps its wall time from its first request to its end, its steps'
-    range, its waits and the time its last host batch arrived (the
-    loader's threads have no item left to read after it);
-    ``find_threshold`` is timed on the host. The train step's model and
-    its weights before the first step are kept."""
+    wraps the ``make_train_step``, ``pipeline_batches``,
+    ``find_threshold`` and ``save_checkpoint`` that the driver's module
+    calls, and changes nothing they compute. Each train step is timed on
+    the host clock up to the card's end (the driver's next line copies the
+    loss to the host, which waits for the card anyway) and its start kept;
+    each batch the training loop takes from its iterator is timed from the
+    request to its arrival (the loader's wait and the copy's enqueueing).
+    Each training loop keeps its wall time from its first request to its
+    end, its steps' range, its waits and the time its last host batch
+    arrived (the loader's threads have no item left to read after it);
+    ``find_threshold`` and each checkpoint write are timed on the host.
+    The train step's model and its weights before the first step are
+    kept."""
 
     def __init__(self):
         self.step_ms, self.step_t0, self.th_ms = [], [], []
+        self.save_s = []  # each checkpoint write
         self.loops = []  # dicts: s, steps (a range), wait_ms, loader_done
         self.steps = 0
         self.model = self.init_state = None
@@ -1674,10 +1718,12 @@ class DriverProbe:
 
     def __enter__(self):
         self._saved = {k: getattr(cli_main, k) for k in (
-            "make_train_step", "pipeline_batches", "find_threshold")}
+            "make_train_step", "pipeline_batches", "find_threshold",
+            "save_checkpoint")}
         make_step = self._saved["make_train_step"]
         pipeline = self._saved["pipeline_batches"]
         find = self._saved["find_threshold"]
+        save = self._saved["save_checkpoint"]
 
         def make_train_step(model, *args, **kwargs):
             self.model = model
@@ -1724,6 +1770,13 @@ class DriverProbe:
             self.th_ms.append((time.perf_counter() - t0) * 1e3)
             return out
 
+        def save_checkpoint(*a, **kw):
+            t0 = time.perf_counter()
+            out = save(*a, **kw)
+            self.save_s.append(time.perf_counter() - t0)
+            return out
+
+        cli_main.save_checkpoint = save_checkpoint
         cli_main.make_train_step = make_train_step
         cli_main.pipeline_batches = pipeline_batches
         cli_main.find_threshold = find_threshold
@@ -1866,26 +1919,29 @@ def loader_alone(cfg) -> dict:
 
 
 def driver_eval(name: str, work: Path, data: str, model_file: str,
-                argv=()) -> dict:
+                argv=(), phase: str = "data phase") -> dict:
     """``cli/main.run`` with ``evaluate=True`` from ``model_file`` on the
-    test split; prints the summary, the forward's ms a batch (the driver's
-    own reading: the first batch's is NaN, so the second batch's) and
-    ``find_threshold``'s ms a batch."""
+    test split (``model=stofnet`` unless ``argv`` names another); prints
+    the summary, the forward's ms a batch (the driver's own reading: the
+    first batch's is NaN, so the second batch's) and ``find_threshold``'s
+    ms a batch."""
     cfg = merge_cli(load_config(cli_main.DEFAULT_CONFIG), [
         "model=stofnet", f"batch_size={B}", f"data_dir={data}",
         f"run_dir={work / 'runs'}", f"ckpt_dir={work / 'ckpts'}",
         f"model_file={model_file}", "evaluate=True", *argv])
     with DriverProbe() as probe:
+        t0 = time.perf_counter()
         summary = cli_main.run(cfg)
+        wall = time.perf_counter() - t0
     log_path = Path(cfg.run_dir) / f"{summary['run_name']}.jsonl"
     events = [json.loads(line) for line in log_path.read_text().splitlines()]
     forward_ms = [e["inference_time"] * B * 1e3 for e in events
                   if e["event"] == "val"]
-    out = dict(summary={k: v for k, v in summary.items()
-                        if k != "run_name"},
+    out = dict(run_s=wall, summary={k: v for k, v in summary.items()
+                                    if k != "run_name"},
                forward_ms_per_batch=forward_ms,
                find_threshold_ms_per_batch=probe.th_ms)
-    log(f"data phase, {name} evaluation: {json.dumps(out)}")
+    log(f"{phase}, {name} evaluation: {json.dumps(out)}")
     # the Jaccard index and the distance are NaN where nothing is detected
     # (the weights train for 2 epochs): printed, not held
     if summary.get("random_init") or not all(np.isfinite([
@@ -1894,14 +1950,13 @@ def driver_eval(name: str, work: Path, data: str, model_file: str,
     return out
 
 
-def data_path(dev) -> None:
-    """The data phase (item 11 of the module docstring): train and
-    evaluate through ``cli/main.py`` from a generated chirp stand-in, the
-    launch counts set to 0 before the phase and held at 0 after it: the
-    driver's path runs no kernel of the port."""
-    t_phase = time.perf_counter()
-    work = Path("build") / "chip_smoke_driver"  # a relative path: the
-    # driver picks the dataset's class by words in the path
+@contextlib.contextmanager
+def stand_in():
+    """The chirp stand-in of the data and zoo phases, generated once under
+    the gitignored ``build/`` (a relative path: the driver picks the
+    dataset's class by words in it) and removed after both: (work dir,
+    data dir)."""
+    work = Path("build") / "chip_smoke_driver"
     shutil.rmtree(work, ignore_errors=True)
     data = str(work / "stof_chirp101_dataset")
     try:
@@ -1912,38 +1967,240 @@ def data_path(dev) -> None:
         if cli_main.dataset_kind(data) != "chirp" or not native.available():
             raise AssertionError(f"data phase: the native loader is not "
                                  f"built (g++), or {data} is not chirp data")
-        reset_launch_counts()
-        f32 = driver_train("f32", work, data, ["epochs=2", "export_pth=True"])
-        model, summary = f32["probe"].model, f32["summary"]
-        pth, _ = load_stofnet(summary["export_pth"])
-        final = {k: v.cpu() for k, v in model.state_dict().items()}
-        if not (Path(summary["checkpoint"]).is_file()
-                and pth.keys() == final.keys()
-                and all(torch.equal(pth[k], v) for k, v in final.items())):
-            raise AssertionError("data phase: the checkpoint is missing or "
-                                 "the exported .pth is not the run's final "
-                                 "parameters")
-        t0 = time.perf_counter()
-        cpu = first_loss_on_cpu(f32["cfg"], f32["probe"].init_state)
-        rel = abs(f32["first_loss"] - cpu) / abs(cpu)
-        log(f"data phase: first loss {f32['first_loss']!r} on the card, "
-            f"{cpu!r} on the CPU, relative {rel:.3e} "
-            f"({time.perf_counter() - t0:.1f} s)")
-        if not rel <= 1e-6:  # measured: exact; TF32 moves it by 3.3e-5
-            raise AssertionError(f"data phase: the first loss is {rel:.3e} "
-                                 f"from the CPU's, beyond 1e-6")
-        loader_alone(f32["cfg"])
-        driver_train("amp", work, data, ["epochs=2", "amp=True"])
-        name = Path(summary["checkpoint"]).name
-        driver_eval("f32", work, data, name)
-        driver_eval("int8 bf16", work, data, name,
-                    ["int8=True", "compute_dtype=bfloat16"])
-        launched = {k: v for k, v in counts().items() if v}
-        if launched:
-            raise AssertionError(f"data phase: a kernel launched: {launched}")
+        yield work, data
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def data_path(dev, work: Path, data: str) -> None:
+    """The data phase (item 11 of the module docstring): train and
+    evaluate through ``cli/main.py`` from the chirp stand-in, the launch
+    counts set to 0 before the phase and held at 0 after it: the driver's
+    path runs no kernel of the port."""
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    f32 = driver_train("f32", work, data, ["epochs=2", "export_pth=True"])
+    model, summary = f32["probe"].model, f32["summary"]
+    pth, _ = load_stofnet(summary["export_pth"])
+    final = {k: v.cpu() for k, v in model.state_dict().items()}
+    if not (Path(summary["checkpoint"]).is_file()
+            and pth.keys() == final.keys()
+            and all(torch.equal(pth[k], v) for k, v in final.items())):
+        raise AssertionError("data phase: the checkpoint is missing or "
+                             "the exported .pth is not the run's final "
+                             "parameters")
+    t0 = time.perf_counter()
+    cpu = first_loss_on_cpu(f32["cfg"], f32["probe"].init_state)
+    rel = abs(f32["first_loss"] - cpu) / abs(cpu)
+    log(f"data phase: first loss {f32['first_loss']!r} on the card, "
+        f"{cpu!r} on the CPU, relative {rel:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not rel <= 1e-6:  # measured: exact; TF32 moves it by 3.3e-5
+        raise AssertionError(f"data phase: the first loss is {rel:.3e} "
+                             f"from the CPU's, beyond 1e-6")
+    loader_alone(f32["cfg"])
+    driver_train("amp", work, data, ["epochs=2", "amp=True"])
+    name = Path(summary["checkpoint"]).name
+    driver_eval("f32", work, data, name)
+    driver_eval("int8 bf16", work, data, name,
+                ["int8=True", "compute_dtype=bfloat16"])
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"data phase: a kernel launched: {launched}")
     log(f"data phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def fresh_peak() -> None:
+    """Reset the card's peak-memory reading with nothing of an earlier
+    family alive: collected cycles (which can hold a pipeline's weights)
+    freed first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def zoo_state(name: str) -> dict:
+    """Seeded random weights of a zoo family at the chirp configuration's
+    widths, drawn on the CPU (``registry.build_model``)."""
+    model, _ = build_model(name, **ZOO_OVERRIDES, device="cpu",
+                           generator=torch.Generator().manual_seed(SEED))
+    return model.state_dict()
+
+
+def zoo_serve(dev, name: str, rng) -> None:
+    """One family through ``serve.make_pipeline(model_name=)`` on the card
+    (item 12 of the module docstring): per dtype a warm-up batch and
+    N_BATCHES timed gate batches of B at the family's driver length, each
+    launching no kernel, then the first timed batch again under the
+    profiler (device time by kernel); the card against the same pipeline
+    on the CPU over ZOO_ROWS rows of the first batch, and the bf16
+    probe."""
+    length = L * (UP if name == "unet" else 1)
+    t_family = t0 = time.perf_counter()
+    state = zoo_state(name)
+    init_s = time.perf_counter() - t0
+    batches = [gate_batch(B, length, rng) for _ in range(N_BATCHES + 1)]
+    rows = batches[1][:ZOO_ROWS]
+    out = dict(length=length, init_on_cpu_s=init_s,
+               parameters=sum(v.numel() for k, v in state.items()
+                              if not k.endswith(ZOO_BUFFERS)))
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        fresh_peak()
+        kw = dict(model_name=name, dtype=dtype, max_echoes=DECODE[
+            "max_echoes"], threshold=None)
+        pipe = make_pipeline(state, ZOO_OVERRIDES, device=dev, **kw)
+        before = counts()
+        batch_ms = []
+        for i, x in enumerate(batches):
+            t0 = time.perf_counter()
+            got = pipe(x).cpu()
+            if i:
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"zoo {name} {label}: non-finite "
+                                     f"output")
+        if counts() != before:
+            raise AssertionError(f"zoo {name} {label}: a kernel launched")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = profile_runs(lambda x: pipe(x).cpu(), batches[1:2])
+        card_rows = pipe(rows).cpu()
+        cpu_rows = make_pipeline(state, ZOO_OVERRIDES, device="cpu",
+                                 **kw)(rows)
+        ms = float(np.median(batch_ms))
+        res = dict(ms_per_batch=ms, batch_ms=batch_ms,
+                   waveforms_per_s=B / ms * 1e3, out_shape=list(got.shape),
+                   detected_rows=float((got != 0).any(1).float().mean()),
+                   peak_memory_gb=peak, profile=prof)
+        if name == "zonzini":
+            rel = float(((card_rows - cpu_rows).abs()
+                         / cpu_rows.abs().clamp_min(1e-12)).max())
+            res["max_rel_diff_vs_cpu"] = rel
+            ok = rel <= ZONZINI_RTOL
+        else:
+            agree = float(((card_rows - cpu_rows).abs() <= 1.0).float()
+                          .mean())
+            res["agreement_vs_cpu"] = agree
+            res["rows_agreement_vs_cpu"], res["moved_rows"] = (
+                row_agreement(card_rows, cpu_rows))
+            ok = agree >= AGREE_MIN
+        if label == "bf16":
+            res["probe_dtype_agreement"] = probe_dtype_agreement(
+                state, ZOO_OVERRIDES, length=length, model_name=name,
+                device=dev, max_echoes=DECODE["max_echoes"])
+        log(f"zoo phase, {name} serving {label}: {json.dumps(res)}")
+        # bf16: printed, not held (ESPCN's sigmoid ties and zonzini's
+        # quantized ToA are traps of the reference)
+        if label == "f32" and not ok:
+            raise AssertionError(f"zoo {name} f32: the card disagrees with "
+                                 f"the CPU: {res}")
+        del pipe
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_family
+    log(f"zoo phase, {name} serving: {json.dumps(out)}")
+
+
+def zoo_first_loss(name: str, model, cfg, init_state) -> dict:
+    """The loss of the first training batch's first ZOO_LOSS_ROWS rows from
+    the run's initial weights, in train mode (Kuleshov in eval mode: its
+    dropout draws differ between devices), on the card and on the CPU in
+    f32 through the driver's model (moved), loader and loss."""
+    cfg = cfg.copy()
+    ds, _ = cli_main.build_dataset(cfg)
+    train_idx, _ = split_dataset(len(ds), 0.2, seed=int(cfg.seed))
+    loader = DataLoader(ds, train_idx, batch_size=B, shuffle=True,
+                        drop_last=True, seed=int(cfg.seed))
+    loader.set_epoch(0)
+    frame, gt = cli_main.batch_to_arrays(next(iter(loader)))
+    frame, gt = frame[:ZOO_LOSS_ROWS], gt[:ZOO_LOSS_ROWS]
+    gt_true = np.round(gt[:, None, :] * int(cfg.upsample_factor)).astype(
+        np.int32)
+    kind = "regression" if name in REGRESSION else "heatmap"
+    out = {}
+    for where in ("card", "cpu"):
+        dev = next(model.parameters()).device if where == "card" else "cpu"
+        model.to(dev).load_state_dict(init_state)
+        model.train(name != "kuleshov")
+        step = make_eval_step(model, cli_main._loss_config(cfg, kind))
+        with torch.no_grad(), full_f32():
+            pred = model(torch.from_numpy(frame).to(dev))
+        out[where] = float(step.finish(pred, torch.from_numpy(gt).to(dev),
+                                       torch.from_numpy(gt_true).to(dev))[
+            "loss"])
+    out["rel"] = abs(out["card"] - out["cpu"]) / abs(out["cpu"])
+    return out
+
+
+def zoo_train(name: str, work: Path, data: str) -> str:
+    """One epoch of ``cli/main.run`` at B in f32 from the family's fresh
+    seeded weights, under a :class:`DriverProbe`: prints ms a step (the
+    median after the first), training waveforms/s end to end and of the
+    bare step, peak memory and the first-loss check; holds every loss
+    finite, the first loss to the CPU's within ZOO_LOSS_RTOL and a
+    BatchNorm family's running statistics moved. Returns the
+    checkpoint's name."""
+    cfg = merge_cli(load_config(cli_main.DEFAULT_CONFIG), [
+        f"model={name}", f"batch_size={B}", f"data_dir={data}",
+        f"run_dir={work / 'runs'}", f"ckpt_dir={work / 'ckpts'}",
+        "epochs=1"])
+    fresh_peak()
+    with DriverProbe() as probe:
+        t0 = time.perf_counter()
+        summary = cli_main.run(cfg)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log_path = Path(cfg.run_dir) / f"{summary['run_name']}.jsonl"
+    events = [json.loads(line) for line in log_path.read_text().splitlines()]
+    losses = [e["train_loss"] for e in events if e["event"] == "train"]
+    loop = probe.loops[-1]
+    ms = float(np.median(probe.step_ms[1:]))
+    final = probe.model.state_dict()
+    stats = [k for k in final if k.endswith(ZOO_BUFFERS[:2])]
+    moved = [k for k in stats if not torch.equal(final[k].cpu(),
+                                                 probe.init_state[k])]
+    first = zoo_first_loss(name, probe.model, cfg, probe.init_state)
+    probe.model = None
+    torch.cuda.empty_cache()
+    out = dict(run_s=wall, checkpoint_write_s=probe.save_s,
+               steps=len(losses), first_loss=first,
+               losses=losses, ms_per_step=ms, step_ms=probe.step_ms,
+               train_waveforms_per_s=len(loop["steps"]) * B / loop["s"],
+               bare_step_waveforms_per_s=B / ms * 1e3, peak_memory_gb=peak,
+               bn_buffers_moved=f"{len(moved)}/{len(stats)}",
+               summary={k: v for k, v in summary.items()
+                        if k != "run_name"})
+    log(f"zoo phase, {name} training: {json.dumps(out)}")
+    if len(losses) != probe.steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"zoo {name} training: a loss is not finite "
+                             f"or a step went unlogged: {losses}")
+    if not first["rel"] <= ZOO_LOSS_RTOL:
+        raise AssertionError(f"zoo {name}: the first loss is {first} "
+                             f"against the CPU's, beyond {ZOO_LOSS_RTOL}")
+    if len(moved) != len(stats):
+        raise AssertionError(f"zoo {name}: BatchNorm statistics did not "
+                             f"move: {sorted(set(stats) - set(moved))}")
+    return Path(summary["checkpoint"]).name
+
+
+def zoo_path(dev, work: Path, data: str, rng) -> None:
+    """The zoo phase (item 12 of the module docstring), the launch counts
+    set to 0 before it and held at 0 after it: JAX's zoo reaches no Pallas
+    kernel."""
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    for name in ZOO:
+        zoo_serve(dev, name, rng)
+    for name in ZOO:
+        if name == "gradpeak":  # no parameters: the detector's threshold
+            driver_eval(name, work, data, "none", [
+                f"model={name}", "th=Null"], phase="zoo phase")
+            continue
+        ckpt = zoo_train(name, work, data)
+        driver_eval(name, work, data, ckpt, [f"model={name}"],
+                    phase="zoo phase")
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"zoo phase: a kernel launched: {launched}")
+    log(f"zoo phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def default_flags() -> None:
@@ -2002,7 +2259,9 @@ def main() -> int:
     paths.append(daemon_path(dev, state))
     int8_path(dev, state)
     paths.append(export_path(dev, state))
-    data_path(dev)
+    with stand_in() as (work, data):
+        data_path(dev, work, data)
+        zoo_path(dev, work, data, rng_new)
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

@@ -21,7 +21,8 @@ Departures from the JAX exporter: ``device=`` (the card by default, as
 every entry point of the port) takes the place of ``platforms=``, which
 is refused: a program serves on the device it was exported for (the
 device chooses the route, ``serve.fused_takes``). ``model=`` other than
-stofnet waits for the model zoo's slice.
+stofnet waits for the rest of the model zoo's slice (A.3: ``torch.export``
+of each family).
 
 Arguments are ``key=value`` pairs, each value parsed as the JAX package's
 ``yaml.safe_load`` parses it (``utils/config.parse_value``; no PyYAML).
@@ -177,7 +178,9 @@ def main(argv: Optional[List[str]] = None) -> str:
     model = str(args.get("model") or "stofnet").lower()
     if model != "stofnet":
         raise SystemExit(f"model={model}: the port exports model=stofnet; "
-                         f"the model zoo comes with its own slice")
+                         f"the zoo's model= here comes with the rest of "
+                         f"A.3, the model zoo (torch.export of each "
+                         f"family)")
     if not args.get("model_file"):
         raise SystemExit("model_file=<ckpt prefix or path> is required")
     dtype = resolve_dtype(args)

@@ -1,5 +1,5 @@
-"""Train / evaluate driver (replaces ``stofnet_tpu/cli/main.py`` for
-``model=stofnet`` on chirp data)::
+"""Train / evaluate driver (replaces ``stofnet_tpu/cli/main.py`` for the
+registry's models on chirp data)::
 
     python -m stofnet_tpu_torch.cli.main key=value ...
 
@@ -17,20 +17,23 @@ Departures from the JAX driver:
 - ``device=`` (new): the card (``cuda``) by default, as every entry point
   of the port; ``device=cpu`` runs on the CPU. Without a card and without
   ``device=cpu``, ``setup`` raises.
-- Refused, with ``SystemExit`` naming the slice that brings them: any
-  ``model=`` but ``stofnet`` (the model zoo), PALA and rat data paths (the
-  PALA data slice) and ``mesh=True`` (the mesh slice).
+- Refused, with ``SystemExit`` naming the slice that brings them: PALA
+  and rat data paths (the PALA data slice) and ``mesh=True`` (the mesh
+  slice).
 - ``compile_cache=`` is accepted and does nothing (eager PyTorch compiles
   nothing to cache); a line on stderr says so.
-- A fresh model is drawn from ``torch.Generator().manual_seed(seed)``:
-  flax's init distribution, not its bits. ``model_file=`` is searched in
-  ``ckpt_dir=`` only.
+- A fresh model is drawn from ``torch.Generator().manual_seed(seed)``
+  (``models/registry.build_model``): flax's init distribution, not its
+  bits. ``model_file=`` is searched in ``ckpt_dir=`` only. Kuleshov's
+  dropout draws from a generator seeded by the seed and the step
+  (``train/steps.dropout_seed``), where JAX folds the step into its key.
 - A checkpoint is one ``torch.save`` file (``train/checkpoint.py``), not
   an orbax directory; ``resume=`` names that file.
 """
 
 from __future__ import annotations
 
+import os
 import random as pyrandom
 import sys
 import time
@@ -45,7 +48,9 @@ from stofnet_tpu_torch.data.loader import (
     DataLoader, DevicePut, default_num_workers, pipeline_batches,
     split_dataset,
 )
-from stofnet_tpu_torch.models.stofnet import StofNet
+from stofnet_tpu_torch.models.registry import (
+    REGRESSION, build_model, export_checkpoint,
+)
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.peaks import coords2mask
 from stofnet_tpu_torch.train.checkpoint import (
@@ -65,8 +70,9 @@ DEFAULT_CONFIG = Path(__file__).parent / "config.yaml"
 
 # what the port does not run yet, and the slice (ROADMAP queue A) that
 # brings it
-_LATER = {"model": "A.3, the model zoo", "pala": "A.4, PALA data",
-          "mesh": "A.6, parallel/mesh.py"}
+_LATER = {"pala": "A.4, PALA data", "mesh": "A.6, parallel/mesh.py"}
+# the unet's depth on chirp data (JAX's n_layers, 10 on PALA)
+UNET_LAYERS = 2
 
 
 def _nanmean(x) -> float:
@@ -170,7 +176,7 @@ def _host_batches(loader, up: int):
         yield frame, gt, gt_true
 
 
-def _loss_config(cfg: Config) -> LossConfig:
+def _loss_config(cfg: Config, model_kind: str = "heatmap") -> LossConfig:
     return LossConfig(
         kernel_size=int(cfg.kernel_size), sigma=float(cfg.sigma),
         mask_amplitude=float(cfg.mask_amplitude),
@@ -178,46 +184,65 @@ def _loss_config(cfg: Config) -> LossConfig:
         nms_win_size=int(cfg.nms_win_size),
         th=None if cfg.th in (None, "Null") else float(cfg.th),
         etol=float(cfg.etol), upsample_factor=int(cfg.upsample_factor),
-        max_echoes=int(cfg.get("max_echoes", 64)),
+        max_echoes=int(cfg.get("max_echoes", 64)), model_kind=model_kind,
     )
 
 
 def setup(cfg: Config) -> Dict[str, Any]:
     """Common setup: seeds, dataset, model (fresh or from ``model_file=``)
     on the device. Returns a dict."""
-    if str(cfg.model).lower() != "stofnet":
-        raise SystemExit(f"model={cfg.model}: the port's driver runs "
-                         f"model=stofnet; the others come with "
-                         f"{_LATER['model']}")
     if cfg.get("mesh"):
         raise SystemExit(f"mesh=True comes with {_LATER['mesh']}")
     device = resolve_device(cfg.get("device"))
     pyrandom.seed(cfg.seed)
     np.random.seed(cfg.seed)
 
-    ds, info = build_dataset(cfg)
-    dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
-    model = StofNet(upsample_factor=int(cfg.upsample_factor),
-                    semi_global_scale=int(cfg.get("semi_global_scale", 80)),
-                    dtype=dtype,
-                    generator=torch.Generator().manual_seed(int(cfg.seed)),
-                    device=device)
+    # the model's config changes that the dataset depends on, before it is
+    # built: the unet's rf-scale fold (reference main.py:44-46) and
+    # gradpeak's forced evaluate (main.py:165, which the reference applies
+    # after the build); the registry's updates then repeat them
+    name = str(cfg.model).lower()
+    if name == "unet":
+        cfg.rf_scale_factor = int(cfg.rf_scale_factor) * int(
+            cfg.upsample_factor)
+        cfg.upsample_factor = 1
+    elif name == "gradpeak":
+        cfg.evaluate = True
 
-    random_init = True
-    if cfg.model_file:
+    ds, info = build_dataset(cfg)
+    # a checkpoint found skips the fresh draw (Kuleshov's is 1.2e9
+    # weights): the model is built without data and takes its tensors
+    path = None
+    if cfg.model_file and name != "gradpeak":  # gradpeak: no parameters
         path = find_checkpoint(cfg.ckpt_dir, cfg.model_file)
-        if path is not None:
-            model.load_state_dict(load_model_variables(cfg.model, path))
-            random_init = False
-            print(f"loaded checkpoint {path}", file=sys.stderr)
-        else:
+        if path is None:
             # the reference runs the fresh init on a prefix it does not
             # find; keep that, and say so loudly
-            print(f"WARNING: checkpoint prefix {cfg.model_file!r} not found "
-                  f"in {cfg.ckpt_dir}: continuing with RANDOM INIT; metrics "
-                  f"will not reflect trained weights", file=sys.stderr)
+            print(f"WARNING: checkpoint prefix {cfg.model_file!r} not "
+                  f"found in {cfg.ckpt_dir}: continuing with RANDOM INIT; "
+                  f"metrics will not reflect trained weights",
+                  file=sys.stderr)
+    dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
+    model, updates = build_model(
+        name, dataset_kind=info["kind"],
+        upsample_factor=int(cfg.upsample_factor),
+        sample_num=info["sample_num"],
+        rf_scale_factor=int(cfg.rf_scale_factor), fs=info["fs"],
+        th=None if cfg.th in (None, "Null") else float(cfg.th), dtype=dtype,
+        semi_global_scale=int(cfg.get("semi_global_scale", 80)),
+        n_layers=UNET_LAYERS,
+        generator=torch.Generator().manual_seed(int(cfg.seed)),
+        device="meta" if path is not None else device)
+    cfg.update(updates)  # what the dataset reads was folded in above
+    if path is not None:
+        state = load_model_variables(name, path, UNET_LAYERS)
+        model.load_state_dict({k: v.to(device) for k, v in state.items()},
+                              strict=True, assign=True)
+        print(f"loaded checkpoint {path}", file=sys.stderr)
     return {"dataset": ds, "info": info, "model": model, "device": device,
-            "cfg": cfg, "random_init": random_init}
+            "cfg": cfg,
+            "random_init": path is None and name != "gradpeak",
+            "model_kind": "regression" if name in REGRESSION else "heatmap"}
 
 
 def _loader_workers(cfg: Config) -> int:
@@ -233,6 +258,10 @@ def _int8_eval_step(ctx: Dict[str, Any], loader, finish):
     )
 
     cfg, model = ctx["cfg"], ctx["model"]
+    if str(cfg.model).lower() != "stofnet":
+        raise ValueError("int8=True supports model=stofnet only (the "
+                         "quantized path is the SemiGlobalBlock; other "
+                         "models have none)")
     # per-channel absmax over up to 8 batches: one quiet first batch must
     # not set a scale the rest of the split saturates
     calib = []
@@ -273,7 +302,8 @@ def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     profiler = StepTraceProfiler(cfg.get("profile_dir"),
                                  cfg.get("profile_steps") or 5)
     ds = ctx["dataset"]
-    eval_step = make_eval_step(ctx["model"], _loss_config(cfg))
+    eval_step = make_eval_step(ctx["model"],
+                               _loss_config(cfg, ctx["model_kind"]))
     loader = DataLoader(ds, batch_size=int(cfg.batch_size), drop_last=True,
                         num_workers=_loader_workers(cfg))
     up = int(cfg.upsample_factor)
@@ -314,7 +344,7 @@ def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
         step_time = (toc / bs) if batch_idx > 0 else float("nan")
 
         ideal_th = 0.0
-        if batch_idx % th_every == 0:
+        if ctx["model_kind"] == "heatmap" and batch_idx % th_every == 0:
             pred_np = out["masks_pred"].float().cpu().numpy()
             masks_true = coords2mask(torch.from_numpy(gt_true),
                                      pred_np.shape[-1]).numpy()
@@ -396,7 +426,7 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
             f"batch_size={cfg.batch_size} with drop_last): val_loss and "
             f"early stopping would run on zero batches")
 
-    lcfg = _loss_config(cfg)
+    lcfg = _loss_config(cfg, ctx["model_kind"])
     optimizer, scheduler = make_optimizer(
         model.parameters(), lr=float(cfg.lr),
         weight_decay=float(cfg.weight_decay), epochs=int(cfg.epochs),
@@ -404,7 +434,8 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     train_step = make_train_step(model, optimizer, scheduler, lcfg,
                                  remat=bool(cfg.get("remat", False)),
                                  amp=bool(cfg.get("amp", False)),
-                                 accum=int(cfg.get("accum", 1) or 1))
+                                 accum=int(cfg.get("accum", 1) or 1),
+                                 seed=int(cfg.seed))
     eval_step = make_eval_step(model, lcfg)
 
     start_epoch = 0
@@ -434,6 +465,7 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
 
     train_global = int(scheduler.last_epoch)
     epochs_run = start_epoch
+    last = None  # the rolling checkpoint, while it holds the current state
     val_loss = float("inf")
     for epoch in range(start_epoch, int(cfg.epochs)):
         # epoch e's batch order is a function of (seed, e): resumed runs
@@ -486,7 +518,7 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
 
         # a rolling 'last' checkpoint each epoch, so the non-finite
         # check's resume guidance has something to resume from
-        save_ckpt(f"{logger.run_name}_last", epochs_run)
+        last = save_ckpt(f"{logger.run_name}_last", epochs_run)
 
         if early(val_loss):
             print(f"Finished at epoch: {epoch}", file=sys.stderr)
@@ -495,19 +527,22 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     profiler.close()  # write an unfinished trace window (short runs)
     name = (f"{logger.run_name}_rf-scale{cfg.rf_scale_factor}"
             f"_epoch_{epochs_run}")
-    path = save_ckpt(name, epochs_run)
+    path = Path(cfg.ckpt_dir).absolute() / name
+    try:
+        # nothing moved since the rolling checkpoint: its file under the
+        # final name, not a second write (Kuleshov's state is 15 GB)
+        if last is None:
+            raise FileNotFoundError("no epoch ran")
+        os.link(last, path)
+    except OSError:  # also where the file system has no hard links
+        path = save_ckpt(name, epochs_run)
     logger.log_artifact(path, name)  # W&B mirror
     summary = {"val_loss": val_loss, "checkpoint": str(path),
                "epochs": epochs_run}
-    if cfg.get("export_pth"):
+    if cfg.get("export_pth") and str(cfg.model).lower() != "gradpeak":
         # a reference-compatible .pth beside the checkpoint
-        from stofnet_tpu_torch.models.torch_import import (
-            save_torch_state_dict,
-        )
-
-        pth = Path(cfg.ckpt_dir) / f"{name}.pth"
-        save_torch_state_dict(model.state_dict(), str(pth))
-        summary["export_pth"] = str(pth)
+        summary["export_pth"] = export_checkpoint(
+            cfg.model, model.state_dict(), Path(cfg.ckpt_dir) / f"{name}.pth")
     logger.set_summary(final_val_loss=val_loss, **summary)
     return summary
 

@@ -40,7 +40,9 @@ Departures from the JAX daemon:
   compiles; an artifact of the port compiles nothing when it loads, and
   the kernels' libraries in ``build/kernels`` already persist across
   restarts), ``mesh=`` (until ``parallel/mesh.py``) and any ``model=``
-  other than ``stofnet`` (until the model zoo). Only ``ckpt_dir=`` is
+  other than ``stofnet`` (until the rest of the model zoo's slice, A.3:
+  the registry serves the zoo through ``serve.make_pipeline``, the daemon
+  not yet). Only ``ckpt_dir=`` is
   searched for ``model_file=``.
 
 Speak to it with ``stofnet_tpu_torch.serving.ServingClient`` (or JAX's,
@@ -100,7 +102,9 @@ def build(args: Dict[str, Any]):
     model = str(args.get("model") or "stofnet").lower()
     if model != "stofnet":
         raise SystemExit(f"model={model}: the port serves model=stofnet; "
-                         f"the model zoo comes with its own slice")
+                         f"the zoo's model= here comes with the rest of "
+                         f"A.3, the model zoo (torch.export of each "
+                         f"family)")
     if args.get("artifact"):
         if args.get("model_file"):
             raise SystemExit("pass artifact= OR model_file=, not both")

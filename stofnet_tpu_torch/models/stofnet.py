@@ -24,19 +24,9 @@ from torch import nn
 import torch.nn.functional as F
 
 from stofnet_tpu_torch import DeviceLike, resolve_device
-from stofnet_tpu_torch.ops.conv import conv1d
+from stofnet_tpu_torch.ops.conv import conv_layer, same
 from stofnet_tpu_torch.ops.poolgrad import maxpool_leaky
 from stofnet_tpu_torch.ops.shuffle import sample_shuffle
-
-
-def _apply(conv: nn.Conv1d, x: torch.Tensor, padding,
-           dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """A Conv1d's parameters on a (B, L, C) tensor with explicit padding."""
-    return conv1d(x, conv.weight.permute(2, 1, 0), conv.bias, padding, dtype)
-
-
-def _same(k: int):
-    return ((k - 1) // 2, k // 2)
 
 
 class SemiGlobalBlock(nn.Module):
@@ -54,9 +44,9 @@ class SemiGlobalBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, L, C)
         k = self.contract_conv.kernel_size[0]
-        s = _apply(self.contract_conv, x, _same(k), self.dtype)
+        s = conv_layer(self.contract_conv, x, same(k), self.dtype)
         s = maxpool_leaky(s, self.sample_scale, 0.01)
-        s = _apply(self.expand_conv, s, _same(k), self.dtype)
+        s = conv_layer(self.expand_conv, s, same(k), self.dtype)
         s = F.leaky_relu(s, 0.01)
         s = torch.repeat_interleave(s, self.sample_scale, dim=1)
         pad = max(0, x.shape[1] - s.shape[1])
@@ -129,7 +119,7 @@ class StofNet(nn.Module):
             h = h.to(dt)
         # reference quirk: conv1 / conv_last paddings are hard-coded to 4 and
         # 1, "SAME" only for the default kernel sizes (9, ., 3)
-        h = F.relu(_apply(self.conv1, h, (4, 4), dt))
+        h = F.relu(conv_layer(self.conv1, h, (4, 4), dt))
         if self.semi_global_scale != 1:
             h = self.semi_global_block(h)
 
@@ -139,14 +129,14 @@ class StofNet(nn.Module):
         res = res1 = h
         for i in range(2, nb - 1):
             conv = getattr(self, f"conv{i}")
-            y = _apply(conv, h, _same(conv.kernel_size[0]), dt)
+            y = conv_layer(conv, h, same(conv.kernel_size[0]), dt)
             if i in residual_layers:
                 h = res = res + y
             else:
                 h = F.leaky_relu(y, 0.01)
         conv = getattr(self, f"conv{nb - 1}")
-        h = res1 + _apply(conv, h, _same(conv.kernel_size[0]), dt)
-        h = _apply(self.conv_last, h, (1, 1), dt)
+        h = res1 + conv_layer(conv, h, same(conv.kernel_size[0]), dt)
+        h = conv_layer(self.conv_last, h, (1, 1), dt)
 
         out = sample_shuffle(h.transpose(1, 2), self.upsample_factor)
         return out.to(torch.float32)

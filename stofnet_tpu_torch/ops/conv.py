@@ -22,20 +22,44 @@ import torch.nn.functional as F
 
 def conv1d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
            padding: Tuple[int, int],
-           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           dtype: Optional[torch.dtype] = None,
+           stride: int = 1) -> torch.Tensor:
     """(B, L, Cin) x (K, Cin, Cout) + (Cout,) with explicit zero padding."""
     if dtype is not None:
         x, kernel, bias = x.to(dtype), kernel.to(dtype), bias.to(dtype)
     xt = F.pad(x.transpose(1, 2), padding)
-    y = F.conv1d(xt, kernel.permute(2, 1, 0))
+    y = F.conv1d(xt, kernel.permute(2, 1, 0), stride=stride)
     return y.transpose(1, 2) + bias
+
+
+def same(k: int) -> Tuple[int, int]:
+    """flax ``padding='SAME'`` at stride 1: (k-1)//2 left, k//2 right."""
+    return ((k - 1) // 2, k // 2)
+
+
+def conv_layer(conv: torch.nn.Conv1d, x: torch.Tensor,
+               padding: Tuple[int, int] = (0, 0),
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An ``nn.Conv1d``'s parameters (and stride) on a (B, L, C) tensor:
+    :func:`conv1d` with its rounding points. (0, 0) is flax's VALID."""
+    return conv1d(x, conv.weight.permute(2, 1, 0), conv.bias, padding, dtype,
+                  conv.stride[0])
+
+
+def dense(linear: torch.nn.Linear, x: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An ``nn.Linear``'s parameters as flax's ``nn.Dense(dtype=...)``
+    applies them: the product and the bias add each round to ``dtype``."""
+    w, b = linear.weight, linear.bias
+    if dtype is not None:
+        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    return torch.matmul(x, w.t()) + b
 
 
 def conv1d_same(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """flax ``padding='SAME'``: pads (k-1)//2 left and k//2 right."""
-    k = kernel.shape[0]
-    return conv1d(x, kernel, bias, ((k - 1) // 2, k // 2), dtype)
+    return conv1d(x, kernel, bias, same(kernel.shape[0]), dtype)
 
 
 _f32_lock = threading.Lock()

@@ -1,7 +1,6 @@
-"""The RF->ToF serving pipeline (replaces the StofNet branch of
-``stofnet_tpu/serve.py:make_pipeline``, ``probe_dtype_agreement`` and the
-encoded-input helpers ``parse_input_enc``, ``make_input_encoder`` and
-``_wrap_input_enc``).
+"""The RF->ToF serving pipeline (replaces ``stofnet_tpu/serve.py``'s
+``make_pipeline``, ``probe_dtype_agreement`` and the encoded-input helpers
+``parse_input_enc``, ``make_input_encoder`` and ``_wrap_input_enc``).
 
 ``make_pipeline`` returns the serving callable ``x (B, 1, L) f32 -> coords``
 with the weights closed over: the StofNet forward, through
@@ -10,7 +9,10 @@ with the weights closed over: the StofNet forward, through
 weights laid out once per pipeline), through the int8-SGB forward
 (``models/int8.py``) when it is given a calibration batch, and through the
 ``StofNet`` module elsewhere, then the protocol decode
-``ops/peaks.mask2coords`` in the checkpoint's own upsample units.
+``ops/peaks.mask2coords`` in the checkpoint's own upsample units. With
+``model_name=`` it serves any model of the registry (``models/registry``):
+the zoo's module, then the same decode, or the regression families'
+predictions as they are.
 
 The exporter's half (replaces ``stofnet_tpu/serve.py:50-69,275-464``):
 ``export_pipeline`` traces that callable with ``torch.export`` into one
@@ -46,6 +48,7 @@ from stofnet_tpu_torch.models.fused import FUSED_SCALES, fused_forward
 from stofnet_tpu_torch.models.int8 import (
     QCONFIG, quantize_stofnet, stofnet_apply_int8,
 )
+from stofnet_tpu_torch.models.registry import REGRESSION, build_model
 from stofnet_tpu_torch.models.stofnet import StofNet
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.kernels.sgb import POOL
@@ -141,6 +144,7 @@ def _wrap_input_enc(pipe: Callable, enc: Optional[str],
 
 
 def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
+                  model_name: str = "stofnet",
                   window_size: int = 20, threshold: Optional[float] = None,
                   max_echoes: int = 64, dtype: Optional[torch.dtype] = None,
                   device: DeviceLike = None, int8_calib: Any = None,
@@ -179,10 +183,16 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     counts the calls served by each route the pipeline has (``int8``, or
     ``fused`` and ``module``).
 
+    ``model_name`` other than ``stofnet`` serves that model of the
+    registry through :func:`zoo_pipeline` (no int8, as in JAX).
+
     Args:
-        state: StofNet state dict (reference torch names; tensors or numpy
-            arrays), copied to ``device``.
-        overrides: architecture as ``load_stofnet`` reports it.
+        state: the model's state dict (reference torch names; tensors or
+            numpy arrays), copied to ``device``.
+        overrides: StofNet's architecture as ``load_stofnet`` reports it;
+            for the zoo, the ``registry.build_model`` arguments
+            (``dataset_kind``, ``upsample_factor``, ``sample_num``,
+            ``rf_scale_factor``, ``fs``).
         dtype: compute type of the forward, bfloat16 when None.
         device: ``cuda`` when None (raises without a card); ``"cpu"`` runs
             the plain versions of the kernels.
@@ -192,6 +202,15 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     """
     device = resolve_device(device)
     dtype = torch.bfloat16 if dtype is None else dtype
+    if model_name.lower() != "stofnet":
+        if int8_calib is not None or int8_stack_layers:
+            raise ValueError("int8 serving targets model=stofnet only (the "
+                             "quantized path is the SemiGlobalBlock; other "
+                             "models have none)")
+        pipe = zoo_pipeline(state, overrides, model_name, dtype=dtype,
+                            device=device, window_size=window_size,
+                            threshold=threshold, max_echoes=max_echoes)
+        return _wrap_input_enc(pipe, input_enc, device)
     up = int(overrides.get("upsample_factor", 4))
     scale = int(overrides.get("semi_global_scale", POOL))
     params = {k: _tensor(v).to(device) for k, v in state.items()}
@@ -227,11 +246,16 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
             return "fused"
         return "module"
 
+    # counted through a dict of its own: a pipe that named itself would
+    # be a reference cycle, its weights held on the card until a collection
+    calls = dict.fromkeys(("int8",) if int8 is not None
+                          else ("fused", "module"), 0)
+
     @torch.inference_mode()
     def pipe(x) -> torch.Tensor:
         x = torch.as_tensor(x).to(device).to(torch.float32)
         r = route(x.shape[-1])
-        pipe.calls[r] += 1
+        calls[r] += 1
         # TF32's flags are process-wide: full_f32 holds them off while any
         # thread (a daemon's dispatcher of each length) is inside it
         with precision():
@@ -245,10 +269,58 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
                            threshold=threshold, upsample_factor=up,
                            max_echoes=max_echoes)
 
-    pipe.route = route
-    pipe.calls = dict.fromkeys(("int8",) if int8 is not None
-                               else ("fused", "module"), 0)
+    pipe.route, pipe.calls = route, calls
     return _wrap_input_enc(pipe, input_enc, device)
+
+
+def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
+                 model_name: str, *, dtype: torch.dtype = torch.bfloat16,
+                 device: DeviceLike = None, window_size: int = 20,
+                 threshold: Optional[float] = None,
+                 max_echoes: int = 64) -> Callable:
+    """The zoo branch of :func:`make_pipeline` (``stofnet_tpu/serve.py``
+    187-213): the ``model_name`` module of ``registry.build_model(th=
+    threshold, dtype=dtype, **overrides)`` in eval mode, its parameters
+    ``state`` on ``device``. Heatmap families decode with ``mask2coords``
+    at the registry's upsample factor (1 for sincnet and unet); zonzini
+    and gradpeak return their predictions as (B, n) f32, gradpeak with
+    ``max_echoes`` slots and its threshold the detector's. An f32 model,
+    and gradpeak, which computes in f32 whatever the dtype, run under
+    ``full_f32``. ``pipe.route`` and ``pipe.calls`` as the StofNet
+    pipeline's, with the one route ``module``."""
+    device = resolve_device(device)
+    name = model_name.lower()
+    # a skeleton without data (Kuleshov's dense head alone is 1.2e9
+    # weights at the chirp length) that takes the state's tensors
+    model, updates = build_model(
+        name, th=threshold, dtype=dtype,
+        device=device if name == "gradpeak" else "meta", **overrides)
+    model.load_state_dict({k: _tensor(v).to(device) for k, v in state.items()},
+                          strict=True, assign=True)
+    model.eval()
+    if name == "gradpeak":
+        model.max_echoes = max_echoes
+    up = int(updates.get("upsample_factor",
+                         overrides.get("upsample_factor", 4)))
+    precision = (full_f32 if dtype == torch.float32 or name == "gradpeak"
+                 else contextlib.nullcontext)
+
+    calls = {"module": 0}  # not pipe's own attribute: no reference cycle
+
+    @torch.inference_mode()
+    def pipe(x) -> torch.Tensor:
+        x = torch.as_tensor(x).to(device).to(torch.float32)
+        calls["module"] += 1
+        with precision():
+            pred = model(x)
+        if name in REGRESSION:
+            return pred.reshape(pred.shape[0], -1).to(torch.float32)
+        return mask2coords(pred, window_size=window_size,
+                           threshold=threshold, upsample_factor=up,
+                           max_echoes=max_echoes)
+
+    pipe.route, pipe.calls = (lambda length: "module"), calls
+    return pipe
 
 
 def fused_takes(overrides: Mapping[str, Any], dtype: torch.dtype,
@@ -265,6 +337,7 @@ def fused_takes(overrides: Mapping[str, Any], dtype: torch.dtype,
 
 def probe_dtype_agreement(state: Mapping[str, Any],
                           overrides: Dict[str, Any], *, length: int,
+                          model_name: str = "stofnet",
                           batch: int = 16, seed: int = 3008,
                           device: DeviceLike = None, window_size: int = 20,
                           threshold: Optional[float] = None,
@@ -281,11 +354,17 @@ def probe_dtype_agreement(state: Mapping[str, Any],
     layer instead; ``chip_smoke.py`` measures how far its decoded coords
     lie from the module's on the card. With ``int8_calib`` (and the other
     ``int8_*`` arguments of :func:`make_pipeline`) both legs run the int8
-    route, as JAX's probe runs the pipeline it is asked about."""
+    route, as JAX's probe runs the pipeline it is asked about. For a
+    ``model_name`` of the zoo both legs run its :func:`zoo_pipeline`."""
     x = gate_batch(batch, length, np.random.default_rng(seed))
     decode = dict(window_size=window_size, threshold=threshold,
                   max_echoes=max_echoes)
-    if int8_calib is not None:
+    if model_name.lower() != "stofnet":
+        bf16, f32 = (zoo_pipeline(state, overrides, model_name, dtype=dt,
+                                  device=dev, **decode)(x).cpu().numpy()
+                     for dt, dev in ((torch.bfloat16, device),
+                                     (torch.float32, "cpu")))
+    elif int8_calib is not None:
         bf16, f32 = (make_pipeline(state, overrides, dtype=dt, device=dev,
                                    int8_calib=int8_calib, **int8_kwargs,
                                    **decode)(x).cpu().numpy()

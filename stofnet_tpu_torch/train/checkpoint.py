@@ -1,6 +1,6 @@
 """Checkpoint I/O (replaces ``stofnet_tpu/train/checkpoint.py``): the whole
 training state in one ``torch.save`` file, for mid-run resume, and the
-import of reference StofNet ``.pth`` files.
+import of reference ``.pth`` files of every family of the registry.
 
 A checkpoint holds ``model`` (name -> tensor), ``optimizer`` and
 ``scheduler`` (their ``state_dict``s), ``step`` and ``epoch`` (the epochs
@@ -16,7 +16,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
-from stofnet_tpu_torch.models.torch_import import load_stofnet
+from stofnet_tpu_torch.models.registry import import_checkpoint
 
 
 def save_checkpoint(path: str | Path, params: Mapping[str, torch.Tensor],
@@ -74,14 +74,16 @@ def find_checkpoint(ckpt_dir: str | Path, model_file: str) -> Optional[Path]:
     return None
 
 
-def load_model_variables(model_name: str,
-                         path: str | Path) -> Dict[str, torch.Tensor]:
-    """A model's state dict from a reference ``.pth`` (StofNet, through
-    ``load_stofnet``) or from a checkpoint of :func:`save_checkpoint`."""
+def load_model_variables(model_name: str, path: str | Path,
+                         n_layers: int = 2) -> Dict[str, torch.Tensor]:
+    """A model's state dict from a reference ``.pth`` of family
+    ``model_name`` (``registry.import_checkpoint``; ``n_layers``, the
+    unet's depth) or from a checkpoint of :func:`save_checkpoint`."""
     path = Path(path)
     if path.is_file() and path.suffix == ".pth":
-        if model_name.lower() != "stofnet":
-            raise ValueError(f"the port imports reference .pth files of "
-                             f"StofNet only, not {model_name!r}")
-        return load_stofnet(str(path))[0]
-    return load_checkpoint(path)["model"]
+        return import_checkpoint(model_name, path, n_layers)
+    # mapped, so that only the model's bytes are read: the file also holds
+    # AdamW's two moments, twice the model (15 GB for Kuleshov's)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=True)
+    return {k: v.clone() for k, v in ckpt["model"].items()}

@@ -1,10 +1,16 @@
 """Train and eval steps (replaces ``stofnet_tpu/train/steps.py`` and the
 fused train step of ``bench.py``'s training memory walk).
 
-A step updates the parameters in place: forward, blurred-mask loss,
-backward, one AdamW update, the learning-rate schedule stepped once. The
-module path (``make_train_step``) differentiates any ``nn.Module``; the
-fused path (``make_fused_train_step``) trains StofNet through
+A step updates the parameters in place: forward, loss, backward, one AdamW
+update, the learning-rate schedule stepped once. The module path
+(``make_train_step``) differentiates any model of the registry: heatmap
+models on the blurred-mask loss, regression models (``model_kind``) on
+the MSE to the first valid ToA. BatchNorm models train in
+``module.train()`` (their running statistics update in place, f32 buffers
+also under ``amp``, chained through the micro-batches of ``accum``) and
+evaluate in ``module.eval()``; Kuleshov's dropout draws from a generator
+seeded by the run's seed and the step. The fused path
+(``make_fused_train_step``) trains StofNet through
 ``models/fused.py:stofnet_apply_fused(trainable=True)``, whose contract
 conv + pool runs as the trainable SGB kernels on the card.
 """
@@ -15,6 +21,7 @@ import contextlib
 import math
 from typing import Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -23,7 +30,9 @@ from stofnet_tpu_torch.models.fused import stofnet_apply_fused
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.gaussian import gaussian_kernel
 from stofnet_tpu_torch.ops.peaks import mask2coords
-from stofnet_tpu_torch.train.loss import blurred_mask, heatmap_loss
+from stofnet_tpu_torch.train.loss import (
+    blurred_mask, heatmap_loss, regression_loss,
+)
 from stofnet_tpu_torch.train.metrics import toa_rmse
 
 
@@ -39,6 +48,7 @@ class LossConfig(NamedTuple):
     etol: float = 1.0
     upsample_factor: int = 4
     max_echoes: int = 64
+    model_kind: str = "heatmap"  # "heatmap" | "regression"
 
 
 def make_optimizer(params: Iterable[torch.Tensor], lr: float = 5e-4,
@@ -104,71 +114,140 @@ def _heatmap_loss(cfg: LossConfig, kernel: torch.Tensor):
     return loss_fn
 
 
+def _loss(cfg: LossConfig, kernel: torch.Tensor):
+    """``loss_fn(pred, gt_sample, gt_true, norm_max=None)`` of the model
+    kind: the regression target is the first valid ToA of ``gt_sample``,
+    its validity from ``gt_true`` in input units."""
+    if cfg.model_kind == "regression":
+        def loss_fn(pred, gt_sample, gt_true, norm_max=None):
+            gt_units = (gt_true.reshape(gt_sample.shape)
+                        // cfg.upsample_factor)
+            return regression_loss(pred, gt_sample, gt_units)[0]
+        return loss_fn
+    heat = _heatmap_loss(cfg, kernel)
+    return lambda pred, gt_sample, gt_true, norm_max=None: heat(
+        pred, gt_true, norm_max)
+
+
+def model_device(model: nn.Module) -> torch.device:
+    """The device of a model's first parameter or buffer, else its
+    ``device`` attribute (GradPeak has neither)."""
+    for t in (*model.parameters(), *model.buffers()):
+        return t.device
+    return torch.device(model.device)
+
+
+def dropout_seed(seed: int, step: int, micro: int = 0) -> int:
+    """The dropout generator's seed of ``step`` (and micro-batch
+    ``micro``) of a run seeded ``seed``: JAX folds the step into its
+    dropout key, the port folds it into the generator's seed."""
+    return int(np.random.SeedSequence([seed, step, micro]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler, cfg: LossConfig, remat: bool = False,
-                    amp: bool = False, accum: int = 1):
+                    amp: bool = False, accum: int = 1, seed: int = 0):
     """``train_step(frame, gt_sample, gt_true, update_scale=None) ->
-    {"loss": ...}`` over ``model``'s parameters.
+    {"loss": ...}`` over ``model``'s parameters, the model in train mode.
 
     ``amp=True`` casts the parameters (f32 masters) and the frame to bf16
     inside the differentiated function, runs the module in bf16 and the
     loss in f32: gradients come back in f32 and AdamW's state stays f32.
-    The module must have ``dtype=None``. ``remat=True`` recomputes the
-    forward in the backward (``torch.utils.checkpoint``). ``accum=N``
-    splits the batch into N micro-batches whose gradients are averaged
-    before one update; the blurred mask's normalizer, the one batch-global
-    quantity of the loss, is taken over the full batch and passed to every
-    micro-batch, so the step equals the full-batch step up to the order of
-    sums. ``gt_sample`` is unused by the heatmap loss and kept for the
-    signature of the JAX step.
+    BatchNorm's running statistics are buffers, not parameters, so they
+    stay f32, as JAX casts its ``batch_stats`` back. The module must have
+    ``dtype=None``. ``remat=True`` recomputes the forward in the backward
+    (``torch.utils.checkpoint``); the recomputation's BatchNorm update is
+    undone, so the statistics move once a step, as under ``jax.checkpoint``.
+    ``accum=N`` splits the batch into N micro-batches whose gradients are
+    averaged before one update; a heatmap loss takes the blurred mask's
+    normalizer, the one batch-global quantity, over the full batch, so the
+    step equals the full-batch step up to the order of sums; BatchNorm
+    statistics chain through the micro-batches in order. A model with
+    ``has_dropout`` (Kuleshov) gets a generator on its device seeded by
+    ``dropout_seed(seed, step, micro_batch)``, ``step`` the scheduler's
+    count of updates (the resumed count after ``resume_optimizer``).
 
     The f32 step (``amp=False``) runs under ``ops/conv.full_f32``: every
-    conv of the forward, of ``remat``'s recomputed forward and of the
-    backward of each micro-batch computes without TF32, as JAX's f32 step
-    sums, and the caller's flags come back after the update. cuDNN reads
-    the flags when each call is launched, so the block holds the backward
-    too.
+    conv and matmul of the forward, of ``remat``'s recomputed forward and
+    of the backward of each micro-batch computes without TF32, as JAX's
+    f32 step sums, and the caller's flags come back after the update.
+    cuDNN reads the flags when each call is launched, so the block holds
+    the backward too.
     """
-    device = next(model.parameters()).device
+    device = model_device(model)
     kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
-    loss_fn = _heatmap_loss(cfg, kernel)
+    loss_fn = _loss(cfg, kernel)
+    dropout = getattr(model, "has_dropout", False)
+    stats = [b for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    count = [0]  # updates made, where there is no scheduler
 
-    def forward(frame):
+    def forward(frame, generator):
+        kw = {"generator": generator} if dropout else {}
         if not amp:
-            return model(frame)
+            return model(frame, **kw)
         p16 = {k: v.to(torch.bfloat16) for k, v in model.named_parameters()}
         pred = torch.func.functional_call(model, p16,
-                                          (frame.to(torch.bfloat16),))
+                                          (frame.to(torch.bfloat16),), kw)
         return pred.to(torch.float32)
 
-    def loss_of(frame, gt_true, norm_max=None):
-        pred = (checkpoint(forward, frame, use_reentrant=False) if remat
-                else forward(frame))
-        return loss_fn(pred, gt_true, norm_max)
+    def loss_of(frame, gt_sample, gt_true, generator, norm_max=None):
+        if remat:
+            # the recomputed forward draws the first one's dropout masks
+            state = None if generator is None else generator.get_state()
+
+            def again(f):
+                if generator is not None:
+                    generator.set_state(state)
+                return forward(f, generator)
+            pred = checkpoint(again, frame, use_reentrant=False)
+        else:
+            pred = forward(frame, generator)
+        return loss_fn(pred, gt_sample, gt_true, norm_max)
+
+    def backward(loss):
+        kept = [b.clone() for b in stats] if remat else ()
+        loss.backward()
+        with torch.no_grad():
+            for b, v in zip(stats, kept):
+                b.copy_(v)
 
     def train_step(frame, gt_sample, gt_true, update_scale=None):
         with contextlib.nullcontext() if amp else full_f32():
-            return step(frame, gt_true, update_scale)
+            return step(frame, gt_sample, gt_true, update_scale)
 
-    def step(frame, gt_true, update_scale):
+    def generator(micro: int) -> Optional[torch.Generator]:
+        if not dropout:
+            return None
+        n = scheduler.last_epoch if scheduler is not None else count[0]
+        return torch.Generator(device=device).manual_seed(
+            dropout_seed(seed, n, micro))
+
+    def step(frame, gt_sample, gt_true, update_scale):
         model.train()
         optimizer.zero_grad(set_to_none=True)
         if accum <= 1:
-            loss = loss_of(frame, gt_true)
-            loss.backward()
+            loss = loss_of(frame, gt_sample, gt_true, generator(0))
+            backward(loss)
         else:
             if frame.shape[0] % accum:
                 raise ValueError(f"batch {frame.shape[0]} not divisible by "
                                  f"accum={accum}")
-            l_out = frame.shape[-1] * cfg.upsample_factor
-            norm_max = blurred_mask(gt_true, l_out, kernel)[1].max()
+            norm_max = None
+            if cfg.model_kind != "regression":
+                l_out = frame.shape[-1] * cfg.upsample_factor
+                norm_max = blurred_mask(gt_true, l_out, kernel)[1].max()
             loss = torch.zeros((), device=device)
-            for f, gtr in zip(frame.chunk(accum), gt_true.chunk(accum)):
-                part = loss_of(f, gtr, norm_max)
-                (part / accum).backward()
+            parts = zip(frame.chunk(accum), gt_sample.chunk(accum),
+                        gt_true.chunk(accum))
+            for i, (f, gs, gtr) in enumerate(parts):
+                part = loss_of(f, gs, gtr, generator(i), norm_max)
+                backward(part / accum)
                 loss = loss + part.detach()
             loss = loss / accum
         _update(optimizer, scheduler, update_scale)
+        count[0] += 1
         return {"loss": loss.detach()}
 
     return train_step
@@ -177,21 +256,24 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 def make_eval_step(model: nn.Module, cfg: LossConfig):
     """``eval_step(frame, gt_sample, gt_true) -> dict`` of ``loss``,
     ``es_sample`` (decoded ToAs), ``toa_metrics`` ((B, 7), ``toa_rmse``)
-    and ``masks_pred``: forward -> ``mask2coords`` -> loss -> ``toa_rmse``,
-    without gradients, its convs under ``ops/conv.full_f32`` (an f32
-    module without TF32; a bf16 one computes the same under it).
+    and ``masks_pred``: the model in eval mode, forward -> ``mask2coords``
+    (a heatmap model) or the prediction itself reshaped to (B, n) (a
+    regression model) -> loss -> ``toa_rmse``, without gradients, its
+    convs under ``ops/conv.full_f32`` (an f32 module without TF32; a bf16
+    one computes the same under it).
 
     The step also exposes its two halves, which ``cli/main.py`` times
     apart, as the JAX step does:
 
     - ``eval_step.forward(frame) -> (pred, checksum)``: the checksum is
-      the heatmap's f32 sum, whose copy to the host waits for the forward;
+      the prediction's f32 sum, whose copy to the host waits for the
+      forward;
     - ``eval_step.finish(pred, gt_sample, gt_true) -> dict``: decode, loss
-      and metrics of a computed heatmap.
+      and metrics of a computed prediction.
     """
-    device = next(model.parameters()).device
+    device = model_device(model)
     kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
-    loss_fn = _heatmap_loss(cfg, kernel)
+    loss_fn = _loss(cfg, kernel)
 
     @torch.no_grad()
     def forward(frame) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -202,13 +284,16 @@ def make_eval_step(model: nn.Module, cfg: LossConfig):
 
     @torch.no_grad()
     def finish(pred, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
-        es_sample = mask2coords(pred, window_size=cfg.nms_win_size,
-                                threshold=cfg.th,
-                                upsample_factor=cfg.upsample_factor,
-                                max_echoes=cfg.max_echoes)
+        if cfg.model_kind == "regression":
+            es_sample = pred.reshape(pred.shape[0], -1)
+        else:
+            es_sample = mask2coords(pred, window_size=cfg.nms_win_size,
+                                    threshold=cfg.th,
+                                    upsample_factor=cfg.upsample_factor,
+                                    max_echoes=cfg.max_echoes)
         gs = gt_sample.reshape(gt_sample.shape[0], -1)
         with full_f32():
-            loss = loss_fn(pred, gt_true)
+            loss = loss_fn(pred, gt_sample, gt_true)
         return {"loss": loss, "es_sample": es_sample,
                 "toa_metrics": toa_rmse(gs, es_sample, tol=cfg.etol),
                 "masks_pred": pred}

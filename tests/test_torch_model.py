@@ -155,7 +155,20 @@ def test_port_imports_no_jax():
             "stofnet_tpu_torch.utils.plotting",
             "stofnet_tpu_torch.utils.profiling",
             "stofnet_tpu_torch.utils.natsort",
-            "stofnet_tpu_torch.utils.zip_extract"} <= set(modules)
+            "stofnet_tpu_torch.utils.zip_extract",
+            "stofnet_tpu_torch.models.init",
+            "stofnet_tpu_torch.models.batchnorm",
+            "stofnet_tpu_torch.models.edsr1d",
+            "stofnet_tpu_torch.models.espcn1d",
+            "stofnet_tpu_torch.models.zonzini",
+            "stofnet_tpu_torch.models.wave_unet",
+            "stofnet_tpu_torch.models.kuleshov",
+            "stofnet_tpu_torch.models.sincnet",
+            "stofnet_tpu_torch.models.gradpeak",
+            "stofnet_tpu_torch.models.registry",
+            "stofnet_tpu_torch.ops.resample",
+            "stofnet_tpu_torch.ops.hilbert",
+            "stofnet_tpu_torch.ops.gradpeak"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m.removesuffix('.__init__'))\n"

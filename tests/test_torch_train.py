@@ -31,7 +31,7 @@ from stofnet_tpu.train import early_stop as jearly
 from stofnet_tpu.train import loss as jloss
 from stofnet_tpu.train import metrics as jmetrics
 from stofnet_tpu.train import steps as jsteps
-from stofnet_tpu_torch.models import StofNet
+from stofnet_tpu_torch.models import StofNet, build_model
 from stofnet_tpu_torch.models.torch_import import params_to_state_dict
 from stofnet_tpu_torch.ops import gaussian, peaks
 from stofnet_tpu_torch.train import (
@@ -464,8 +464,16 @@ def test_model_files_and_lookup(tmp_path):
         assert loaded.keys() == state.keys()
         for k in state:
             assert torch.equal(loaded[k], state[k])
-    with pytest.raises(ValueError, match="StofNet only"):
-        load_model_variables("edsr", found)
+    # a reference .pth of a zoo family loads through the registry, under
+    # the module's names
+    edsr, _ = build_model("edsr", device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    torch.save(edsr.state_dict(), tmp_path / "proud-cherry_ep9.pth")
+    loaded = load_model_variables(
+        "edsr", find_checkpoint(tmp_path, "proud-cherry"))
+    edsr.load_state_dict(loaded, strict=True)
+    for k, v in edsr.state_dict().items():
+        assert torch.equal(loaded[k], v), k
 
 
 def test_early_stopping_matches_jax():
