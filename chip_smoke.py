@@ -220,13 +220,53 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    within 1e-5 relative of the CPU's (Kuleshov in eval mode: its dropout
    draws differ between devices), and a BatchNorm family's running
    statistics moved over the epoch. Prints the phase's seconds.
-13. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
-   launches of its paths: the serving, bench, training, probe, daemon and
-   export runs, each counted from 0, summed over the paths that launch
-   it; the serving instantiation's launches go to ``sgb_contract_pool`` at
-   L_UNCHUNKED and to ``sgb_contract_pool_dma`` at L, on the fused path
-   and through the daemons), the card's name and power limit, and as the
-   last line ``{"ok": true, "device": {...}}``.
+13. The zoo export phase, on the zoo phase's checkpoints and flags, the
+   launch counts set to 0 before it and held at 0 after it: each family
+   through ``cli/export.py model=<name>`` at its zoo-phase length (L; the
+   unet 32000) in f32 and bf16, batch-polymorphic, baked (Kuleshov
+   weightless at ``sample_num=800``: its 1.2e9 weights in a 5 GB
+   sidecar), loaded with ``load_pipeline`` and served over a warm-up batch
+   and 2 gate batches of B against ``make_pipeline(model_name=)`` on the
+   card on the same state (under ``full_f32``, as a loaded program runs):
+   every row equal bit for bit. Then the daemon at bf16 twice, from the
+   checkpoint (``model=<name>``) and from the bf16 artifact
+   (``artifact=``), one request of B rows each, every row the direct
+   pipeline's. Prints per family export and load seconds, file and
+   sidecar sizes, ms a batch beside the direct pipeline's, rows equal,
+   and the phase's seconds.
+14. The PALA phase: ``data/pala.generate_pala_dataset`` at
+   ``scripts/pala_bmode_figure.py``'s geometry (128 channels, 1024
+   samples, 3 angles, 24 frames a sequence, 2 sequences, 3 targets) under
+   the work directory, then ``cli/main.run`` with ``ch_gap=32
+   rf_scale_factor=10`` (L=10240, 4 channels of 8 frames a step), the
+   counts set to 0 before the runs and held at 0 after them: StofNet for
+   one epoch (its first loss within 1e-6 of the CPU's), its evaluation,
+   one epoch each of zonzini (ZonziniNetLarge) and the unet (n_layers 10,
+   L=40960) and of StofNet on a rat-named copy (the temporal filter), on
+   one sequence at 4 frames a step. Then StofNet from that run's
+   checkpoint serves the 192 channel rows of the evaluation's items in
+   bf16 through ``make_pipeline`` (the fused route, counts from 0: both
+   serving kernels once a batch, the SGB kernel's to the
+   ``sgb_contract_pool`` row, since 10240 % 800 != 0) at >= 0.99 of the
+   coord slots with the plain twin on the card. Last the figure's compute
+   stages on sequence 0 (a 128 x 192 grid): ``svd_filter_db`` against the
+   CPU's (rtol = atol = 5e-3, the threshold halfway between the 2nd and
+   3rd components' levels), ``svd_filter(lo_cut=2)``, the analytic signal
+   and ``bf_das_batch`` (4 frames against the CPU's at rtol = atol =
+   2e-3 of the dB values, as ``tests/test_ops_pala.py`` holds it, and the
+   pixels above -40 dB within 2e-3 dB; the largest error printed for
+   each 20 dB band of level), each
+   timed with CUDA events, and the 3 angles' DAS on precomputed tables in
+   the gather form and in JAX's band-matmul form (held to each other,
+   relative 1e-4) with their times and bytes.
+15. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+   launches of its paths: the serving, bench, training, probe, daemon,
+   export and PALA serving runs, each counted from 0, summed over the
+   paths that launch it; the serving instantiation's launches go to
+   ``sgb_contract_pool`` at L_UNCHUNKED and L_PALA and to
+   ``sgb_contract_pool_dma`` at L, on the fused path and through the
+   daemons), the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero. It exits non-zero
 without a CUDA device too.
@@ -255,8 +295,10 @@ from stofnet_tpu_torch.bench_paths import (
     try_int8_pipeline, try_packed_pipeline,
 )
 from stofnet_tpu_torch import native
+from stofnet_tpu_torch.cli import export as cli_export
 from stofnet_tpu_torch.cli import main as cli_main
 from stofnet_tpu_torch.cli import serve as serve_cli
+from stofnet_tpu_torch.data.pala import PalaDatasetRf, generate_pala_dataset
 from stofnet_tpu_torch.data.loader import (
     DataLoader, default_num_workers, split_dataset,
 )
@@ -274,12 +316,20 @@ from stofnet_tpu_torch.ops.kernels import (
     KERNEL_MODULES, SOURCES, _build, conv_stack, dma_probe,
     reset_launch_counts, sgb, sgb_dma,
 )
-from stofnet_tpu_torch.ops.kernels._timing import time_ms
-from stofnet_tpu_torch.models.torch_import import load_stofnet
+from stofnet_tpu_torch.ops.kernels._timing import time_ms, time_once
+from stofnet_tpu_torch.models.torch_import import (
+    load_stofnet, stofnet_overrides,
+)
+from stofnet_tpu_torch.ops.beamform import das_rx_batch, make_delay_table
 from stofnet_tpu_torch.ops.conv import conv1d_same, full_f32
 from stofnet_tpu_torch.ops.gaussian import gaussian_kernel
 from stofnet_tpu_torch.ops.peaks import mask2coords
+from stofnet_tpu_torch.ops.hilbert import analytic_signal
+from stofnet_tpu_torch.ops.svd_filter import (
+    singular_levels_db, svd_filter_db,
+)
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
+from stofnet_tpu_torch.scripts import pala_bmode_figure as figure
 from stofnet_tpu_torch.serve import (
     export_pipeline, export_pipeline_weightless, load_pipeline, make_pipeline,
     module_coords, probe_dtype_agreement, save_pipeline,
@@ -293,7 +343,9 @@ from stofnet_tpu_torch.train import (
     LossConfig, fused_loss, heatmap_loss, make_eval_step,
     make_fused_train_step, make_optimizer,
 )
-from stofnet_tpu_torch.train.checkpoint import save_checkpoint
+from stofnet_tpu_torch.train.checkpoint import (
+    load_model_variables, save_checkpoint,
+)
 from stofnet_tpu_torch.utils.config import load_config, merge_cli
 
 B, L, UP = 128, 8000, 4
@@ -345,6 +397,24 @@ ZONZINI_RTOL = 1e-4  # its ToA, card against CPU in f32
 ZOO_LOSS_ROWS = 16  # rows of the first batch in the first-loss check
 ZOO_LOSS_RTOL = 1e-5  # TF32 moved StofNet's loss by 3.3e-5
 ZOO_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+ZOO_EXPORT_BATCHES = 2  # timed batches of each zoo artifact, after a warm-up
+# the PALA phase: generate_pala_dataset at scripts/pala_bmode_figure.py's
+# geometry (128 channels, 1024 samples, 3 angles, 24 frames a sequence, 3
+# targets; 2 sequences); the driver at ch_gap 32 (4 channels a frame) and
+# rf_scale_factor 10: L = 1024 * 10 = 10240 = 128 * 80
+PALA_DATA = dict(n_sequences=2, n_frames=24, n_angles=3, n_channels=128,
+                 n_samples=1024, n_targets=3)
+L_PALA = 10240
+PALA_FRAMES = 8  # frames a driver batch: 32 waveforms
+PALA_ARGS = ["ch_gap=32", "rf_scale_factor=10", f"batch_size={PALA_FRAMES}",
+             "epochs=1"]
+# JAX serves L % 800 != 0 through sgb_contract_pool (dma_supported)
+SGB_ROW[L_PALA] = "sgb_contract_pool"
+SVD_TOL = 5e-3  # svd_filter_db, card against CPU (tests/test_ops_pala.py)
+DB_TOL = 2e-3  # bf_das_batch's B-mode in dB, card against CPU: rtol, atol
+DB_BRIGHT = -40.0  # pixels above it are held to DB_TOL dB absolute too
+DB_BANDS = (0.0, -20.0, -40.0, -60.0)  # the B-mode error read by level
+PALA_CPU_FRAMES = 4  # frames of the B-mode held against the CPU
 
 
 def log(msg: str) -> None:
@@ -1876,24 +1946,26 @@ def driver_train(name: str, work: Path, data: str, argv) -> dict:
 
 
 def first_loss_on_cpu(cfg, init_state) -> float:
-    """The first step's loss of a training run recomputed on the CPU in
-    f32: the initial weights on the first batch of a second loader built
-    like the driver's (same seed, split and epoch), the forward in chunks
-    of 16 rows, the loss over the whole batch."""
+    """The first step's loss of a StofNet training run recomputed on the
+    CPU in f32: the initial weights on the first batch of a second loader
+    built like the driver's (same seed, split, epoch and batch size; a
+    PALA batch's channels flattened as the driver flattens them), the
+    forward in chunks of 16 rows, the loss over the whole batch."""
     cfg = cfg.copy()
-    ds, _ = cli_main.build_dataset(cfg)
+    ds, info = cli_main.build_dataset(cfg)
     train_idx, _ = split_dataset(len(ds), 0.2, seed=int(cfg.seed))
-    loader = DataLoader(ds, train_idx, batch_size=B, shuffle=True,
-                        drop_last=True, seed=int(cfg.seed))
+    loader = DataLoader(ds, train_idx, batch_size=int(cfg.batch_size),
+                        shuffle=True, drop_last=True, seed=int(cfg.seed))
     loader.set_epoch(0)
-    frame, gt = cli_main.batch_to_arrays(next(iter(loader)))
-    gt_true = np.round(gt[:, None, :] * UP).astype(np.int32)
+    frame, gt = cli_main.batch_to_arrays(next(iter(loader)), info["kind"])
+    gt_true = np.round(gt[:, None, :] * int(cfg.upsample_factor)).astype(
+        np.int32)
     model = StofNet(device="cpu")
     model.load_state_dict(init_state)
     step = make_eval_step(model, cli_main._loss_config(cfg))
     with torch.no_grad():
         pred = torch.cat([model(torch.from_numpy(f))
-                          for f in np.split(frame, B // 16)])
+                          for f in np.split(frame, len(frame) // 16)])
     out = step.finish(pred, torch.from_numpy(gt), torch.from_numpy(gt_true))
     return float(out["loss"])
 
@@ -2181,26 +2253,415 @@ def zoo_train(name: str, work: Path, data: str) -> str:
     return Path(summary["checkpoint"]).name
 
 
-def zoo_path(dev, work: Path, data: str, rng) -> None:
+def zoo_path(dev, work: Path, data: str, rng) -> dict:
     """The zoo phase (item 12 of the module docstring), the launch counts
     set to 0 before it and held at 0 after it: JAX's zoo reaches no Pallas
-    kernel."""
+    kernel. Returns the checkpoint names of the trained families."""
     t_phase = time.perf_counter()
     reset_launch_counts()
     for name in ZOO:
         zoo_serve(dev, name, rng)
+    ckpts = {}
     for name in ZOO:
         if name == "gradpeak":  # no parameters: the detector's threshold
             driver_eval(name, work, data, "none", [
                 f"model={name}", "th=Null"], phase="zoo phase")
             continue
-        ckpt = zoo_train(name, work, data)
-        driver_eval(name, work, data, ckpt, [f"model={name}"],
+        ckpts[name] = zoo_train(name, work, data)
+        driver_eval(name, work, data, ckpts[name], [f"model={name}"],
                     phase="zoo phase")
     launched = {k: v for k, v in counts().items() if v}
     if launched:
         raise AssertionError(f"zoo phase: a kernel launched: {launched}")
     log(f"zoo phase: {time.perf_counter() - t_phase:.1f} s")
+    return ckpts
+
+
+def zoo_length(name: str) -> int:
+    """A zoo family's serving length at the driver's chirp configuration:
+    L, the unet L * UP after its rf fold."""
+    return L * (UP if name == "unet" else 1)
+
+
+def zoo_export_argv(name: str, work: Path, ckpts: dict) -> list:
+    """``cli/export.py``'s (and the daemon's) arguments of a zoo family at
+    the zoo phase's widths, from the checkpoint its training wrote."""
+    argv = [f"model={name}", f"length={zoo_length(name)}",
+            f"max_echoes={DECODE['max_echoes']}", "th=Null",
+            "dataset_kind=chirp", f"upsample_factor={UP}",
+            f"rf_scale_factor={ZOO_OVERRIDES['rf_scale_factor']}"]
+    if name == "kuleshov":
+        argv.append(f"sample_num={DRIVER_DATA['sample_num']}")
+    if name == "sincnet":
+        argv.append(f"fs={ZOO_OVERRIDES['fs']}")
+    if name != "gradpeak":
+        argv += [f"model_file={ckpts[name]}", f"ckpt_dir={work / 'ckpts'}"]
+    return argv
+
+
+def equal_rows(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Rows of ``a`` equal to ``b``'s bit for bit."""
+    return int((a == b).all(1).sum())
+
+
+def zoo_export_family(dev, name: str, work: Path, ckpts: dict, rng) -> None:
+    """One family through ``cli/export.py model=<name>`` in f32 and bf16
+    (batch-polymorphic; Kuleshov weightless, the others baked), each
+    artifact loaded and served over a warm-up batch and ZOO_EXPORT_BATCHES
+    gate batches against ``make_pipeline(model_name=)`` on the card on the
+    same state (under ``full_f32``, as a loaded program runs); then the
+    daemon twice at bf16, from the checkpoint (``model=``) and from the
+    bf16 artifact (``artifact=``), one request of B rows each. Every row
+    must equal the direct pipeline's bit for bit."""
+    t_family = time.perf_counter()
+    length = zoo_length(name)
+    base = zoo_export_argv(name, work, ckpts)
+    state, ov = cli_export.resolve_zoo_variables_and_overrides(
+        cli_export.parse_args(base), name)
+    batches = [gate_batch(B, length, rng)
+               for _ in range(ZOO_EXPORT_BATCHES + 1)]
+    out_dir = work / "zoo_export"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res: dict = {"length": length, "bake_weights": name != "kuleshov"}
+    paths = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        fresh_peak()
+        out = out_dir / f"{name}_{label}.pt2"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            path = Path(cli_export.main(base + [
+                "batch=b", f"out={out}", f"dtype={label}",
+                f"bake_weights={name != 'kuleshov'}"]))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = load_pipeline(path)
+        load_s = time.perf_counter() - t0
+        direct = make_pipeline(state, ov, model_name=name, dtype=dtype,
+                               device=dev, max_echoes=DECODE["max_echoes"],
+                               threshold=None)
+
+        def run_direct(x):
+            with full_f32():
+                return direct(x).cpu()
+
+        served(batches[0]).cpu()
+        run_direct(batches[0])
+        got, want, ms, direct_ms = [], [], [], []
+        for x in batches[1:]:
+            t0 = time.perf_counter()
+            got.append(served(x).cpu())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            want.append(run_direct(x))
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+        got, want = torch.cat(got), torch.cat(want)
+        sidecar = Path(str(path) + ".weights.npz")
+        res[label] = dict(
+            export_s=export_s, load_s=load_s,
+            file_mb=path.stat().st_size / 1e6,
+            sidecar_mb=(sidecar.stat().st_size / 1e6
+                        if sidecar.exists() else 0.0),
+            ms_per_batch=float(np.median(ms)), batch_ms=ms,
+            direct_ms_per_batch=float(np.median(direct_ms)),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            rows_equal=f"{equal_rows(got, want)}/{len(got)}")
+        if equal_rows(got, want) != len(got):
+            raise AssertionError(f"zoo export {name} {label}: rows differ "
+                                 f"from make_pipeline's: {res[label]}")
+        paths[label] = path
+        del served, direct
+    # the daemon at bf16: from the checkpoint and from the bf16 artifact
+    x = batches[1]
+    direct = make_pipeline(state, ov, model_name=name, dtype=torch.bfloat16,
+                           device=dev, max_echoes=DECODE["max_echoes"],
+                           threshold=None)
+    want_module = direct(x).cpu().numpy()
+    with full_f32():
+        want_program = direct(x).cpu().numpy()
+    serve_args = dict(max_batch=B, max_wait_ms=2, port=0, warmup=False)
+    for src, args, want in (
+            ("checkpoint", dict(cli_export.parse_args(base),
+                                dtype="bfloat16", **serve_args),
+             want_module),
+            ("artifact", dict(artifact=str(paths["bf16"]), **serve_args),
+             want_program)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            hostd, server, port = serve_cli.build(args)
+        build_s = time.perf_counter() - t0
+        try:
+            with ServingClient(("127.0.0.1", port)) as cli:
+                t0 = time.perf_counter()
+                rows = np.asarray(cli.infer(x[:, 0]))
+                request_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            server.shutdown()
+            server.server_close()
+            hostd.close()
+        n_eq = equal_rows(torch.from_numpy(rows), torch.from_numpy(want))
+        res[f"daemon_{src}"] = dict(build_s=build_s, request_ms=request_ms,
+                                    rows_equal=f"{n_eq}/{len(want)}")
+        if n_eq != len(want):
+            raise AssertionError(f"zoo export {name}: the daemon from its "
+                                 f"{src} differs from make_pipeline: {res}")
+    del direct
+    for path in paths.values():
+        for f in (path, Path(str(path) + ".weights.npz")):
+            f.unlink(missing_ok=True)
+    res["s"] = time.perf_counter() - t_family
+    log(f"zoo export phase, {name}: {json.dumps(res)}")
+
+
+def zoo_export_path(dev, work: Path, ckpts: dict, rng) -> None:
+    """The zoo export phase (item 13 of the module docstring), the launch
+    counts set to 0 before it and held at 0 after it."""
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    for name in ZOO:
+        zoo_export_family(dev, name, work, ckpts, rng)
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"zoo export phase: a kernel launched: "
+                             f"{launched}")
+    log(f"zoo export phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def pala_train(name: str, work: Path, data: Path, argv) -> dict:
+    """One epoch of ``cli/main.run`` on PALA or rat data (the config's
+    defaults, PALA_ARGS and ``argv``) under a :class:`DriverProbe`:
+    prints ms a step (the median after the first), waveforms a step and
+    training waveforms/s end to end, the losses and the summary; holds
+    every loss finite. Returns the readings with the probe and config."""
+    cfg = merge_cli(load_config(cli_main.DEFAULT_CONFIG), [
+        f"data_dir={data}", f"run_dir={work / 'runs'}",
+        f"ckpt_dir={work / 'ckpts'}", *PALA_ARGS, *argv])
+    fresh_peak()
+    with DriverProbe() as probe:
+        t0 = time.perf_counter()
+        summary = cli_main.run(cfg)
+        wall = time.perf_counter() - t0
+    log_path = Path(cfg.run_dir) / f"{summary['run_name']}.jsonl"
+    events = [json.loads(line) for line in log_path.read_text().splitlines()]
+    losses = [e["train_loss"] for e in events if e["event"] == "train"]
+    loop = probe.loops[-1]
+    ms = float(np.median(probe.step_ms[1:] or probe.step_ms))
+    rows = int(cfg.batch_size) * len(range(0, PALA_DATA["n_channels"],
+                                           int(cfg.ch_gap)))
+    out = dict(run_s=wall, steps=len(losses), waveforms_a_step=rows,
+               length=PALA_DATA["n_samples"] * int(cfg.rf_scale_factor),
+               losses=losses, ms_per_step=ms, step_ms=probe.step_ms,
+               train_waveforms_per_s=len(loop["steps"]) * rows / loop["s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               summary={k: v for k, v in summary.items()
+                        if k != "run_name"})
+    log(f"pala phase, {name} training: {json.dumps(out)}")
+    if not losses or len(losses) != probe.steps or not all(
+            np.isfinite(losses)):
+        raise AssertionError(f"pala {name} training: a loss is not finite "
+                             f"or a step went unlogged: {losses}")
+    return dict(out, probe=probe, cfg=cfg, summary=summary)
+
+
+def pala_serve(dev, state, cfg) -> dict:
+    """StofNet from the PALA run's weights served through
+    ``make_pipeline`` in bf16 on the PALA channel frames at L_PALA (the
+    evaluation's items, ``cfg``'s dataset with ``evaluate=True``: wave 1,
+    4 channels of each of the 48 frames, in batches of up to B), the
+    first call of each batch shape untimed, the counts set to 0 after
+    it: the fused route, both serving kernels
+    once a batch, >= AGREE_MIN of the coord slots with the plain twin on
+    the card. Returns the launches by kernels-line row."""
+    cfg = cfg.copy()
+    cfg.evaluate = True
+    ds, info = cli_main.build_dataset(cfg)
+    frames = np.concatenate([
+        cli_main.batch_to_arrays(batch, info["kind"])[0]
+        for batch in DataLoader(ds, batch_size=PALA_FRAMES)])
+    if frames.shape[-1] != L_PALA:
+        raise AssertionError(f"pala serving: frames {frames.shape}")
+    batches = [frames[i:i + B] for i in range(0, len(frames), B)]
+    pipe = make_pipeline(state, stofnet_overrides(state), device=dev,
+                         **{k: DECODE[k] for k in ("window_size",
+                                                   "threshold",
+                                                   "max_echoes")})
+    for x in {len(x): x for x in batches}.values():
+        pipe(x).cpu()  # each shape's first call (cuDNN's choice), untimed
+    reset_launch_counts()
+    got, ms = [], []
+    for x in batches:
+        t0 = time.perf_counter()
+        got.append(pipe(x).cpu())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    c = counts()
+    got = torch.cat(got)
+    params = {k: v.to(dev) for k, v in state.items()}
+    with torch.inference_mode():
+        plain = torch.cat([mask2coords(stofnet_apply_reference(
+            params, torch.from_numpy(x).to(dev)), **DECODE).cpu()
+            for x in batches])
+    agree = coord_agreement(got, plain)
+    rows, moved = row_agreement(got, plain)
+    launches = {SGB_ROW[L_PALA]: c["sgb_dma.launches"],
+                "conv_stack_fused": c["conv_stack.launches"]}
+    out = dict(route=pipe.route(L_PALA), waveforms=len(frames),
+               batches=len(batches), launches=launches,
+               coord_agreement=agree, row_agreement=rows, rows_moved=moved,
+               detections_per_row=float((got != 0).sum(1).float().mean()),
+               ms_per_batch=ms, waveforms_per_s=len(frames) / sum(ms) * 1e3)
+    log(f"pala phase, stofnet serving bf16: {json.dumps(out)}")
+    if (out["route"] != "fused" or agree < AGREE_MIN
+            or c["sgb_dma.launches"] != len(batches)
+            or c["conv_stack.launches"] != len(batches)):
+        raise AssertionError(f"pala serving: {out}")
+    return launches
+
+
+def das_band(sigs: torch.Tensor, table) -> torch.Tensor:
+    """JAX's form of ``das_rx_batch`` (``stofnet_tpu/ops/beamform.py:
+    112-174``) in PyTorch, for its time beside the gather form: per
+    channel a (P, N) band matrix from an iota comparison, applied to all
+    frames as an (F, N) @ (N, P) product, phase-rotated and accumulated.
+    Complex frames only; the port never calls it."""
+    dev = sigs.device
+    sr, si = sigs.real.float(), sigs.imag.float()
+    idxf = torch.from_numpy(table.idxf.astype(np.int64)).to(dev)
+    frac = torch.from_numpy(table.frac).to(dev)
+    mask = torch.from_numpy((~table.invalid) & table.aperture).to(dev).float()
+    ph_r = torch.from_numpy(np.real(table.phase).astype(np.float32)).to(dev)
+    ph_i = torch.from_numpy(np.imag(table.phase).astype(np.float32)).to(dev)
+    iota = torch.arange(sigs.shape[1], device=dev)[None, :]
+    acc_r = torch.zeros(sigs.shape[0], idxf.shape[0], device=dev)
+    acc_i = torch.zeros_like(acc_r)
+    with full_f32():
+        for c in range(idxf.shape[1]):
+            i0, f = idxf[:, c:c + 1], frac[:, c:c + 1]
+            band = ((iota == i0).float() * (1.0 - f)
+                    + (iota == i0 + 1).float() * f) * mask[:, c:c + 1]
+            gr, gi = sr[:, :, c] @ band.T, si[:, :, c] @ band.T
+            pr, pi = ph_r[None, :, c], ph_i[None, :, c]
+            acc_r += gr * pr - gi * pi
+            acc_i += gr * pi + gi * pr
+    return torch.complex(acc_r, acc_i)
+
+
+def pala_imaging(dev, data: Path) -> None:
+    """The figure's compute stages on the card (sequence 0: 24 frames x 3
+    angles x 128 channels x 1024 samples, a 128 x 192 grid):
+    ``svd_filter_db`` over the slow-time ensemble against the CPU's
+    (rtol = atol = SVD_TOL), ``svd_filter(lo_cut=2)``, the analytic signal
+    and ``bf_das_batch`` (first PALA_CPU_FRAMES frames against the CPU's,
+    rtol = atol = DB_TOL of the dB values, and DB_TOL dB absolute above
+    DB_BRIGHT), each timed with CUDA events;
+    the DAS of the 3 angles on precomputed delay tables in the gather form
+    and in JAX's band-matmul form, the two held to each other and
+    timed."""
+    ds = PalaDatasetRf(data, sequences=[0], rescale_factor=1, ch_gap=1)
+    params, gx, gz = figure.geometry(ds, PALA_DATA["n_samples"])
+    frames = torch.from_numpy(figure.load_frames(ds)).to(dev)
+    f, a, c, n = frames.shape
+    ens = frames.permute(1, 2, 3, 0).reshape(a * c, n, f)
+    # the threshold halfway between the 2nd and 3rd components' levels
+    # (those of the CPU): the two strongest cut
+    level = singular_levels_db(ens.cpu())
+    db = float(level[1] + level[2]) / 2
+    svd_filter_db(ens, db)  # cuSOLVER's and cuBLAS's first calls
+    got, svd_db_ms = time_once(svd_filter_db, ens, db, device=dev)
+    ref = svd_filter_db(ens.cpu(), db)
+    svd_err = float((got.cpu() - ref).abs().max())
+    svd_ok = bool(torch.allclose(got.cpu(), ref, rtol=SVD_TOL, atol=SVD_TOL))
+    figure.clutter_filter(frames)
+    filt, svd_ms = time_once(figure.clutter_filter, frames, device=dev)
+    figure.image(filt[:1], params, gx, gz)  # cuFFT's plans
+    bmode, image_ms = time_once(figure.image, filt, params, gx, gz,
+                                 device=dev)
+    cpu = figure.image(filt[:PALA_CPU_FRAMES].cpu(), params, gx, gz)
+    err = (bmode[:PALA_CPU_FRAMES].cpu() - cpu).abs()
+    db_err = float(err.max())
+    # allclose's rtol and atol, as tests/test_ops_pala.py holds it
+    db_ratio = float((err / (DB_TOL + DB_TOL * cpu.abs())).max())
+    # where the error sits: its largest value in each band of the CPU's
+    # level (top, bottom]; the pixels above DB_BRIGHT at DB_TOL absolute
+    edges = (*DB_BANDS, -float("inf"))
+    by_level = {f"{top:g}..{bottom:g}": float(err[(cpu <= top)
+                                                  & (cpu > bottom)].max())
+                for top, bottom in zip(edges, edges[1:])
+                if bool(((cpu <= top) & (cpu > bottom)).any())}
+    bright_err = float(err[cpu > DB_BRIGHT].max())
+    # the DAS alone, on the analytic frames and the tables of the 3 angles
+    iq = analytic_signal(filt, axis=2)
+    xg, zg = np.meshgrid(gx, gz)
+    tables = [make_delay_table(params, float(th), xg.ravel(), zg.ravel(), n)
+              for th in params.angles_list]
+
+    def das_all(form):
+        return sum(form(iq[:, i], t) for i, t in enumerate(tables))
+
+    das_all(das_rx_batch)
+    gather, gather_ms = time_once(das_all, das_rx_batch, device=dev)
+    band, band_ms = time_once(das_all, das_band, device=dev)
+    band_err = float((band - gather).abs().max() / gather.abs().max())
+    p = xg.size
+    out = dict(frames=f, angles=a, channels=c, samples=n, pixels=p,
+               clutter_db=db, svd_filter_db_ms=svd_db_ms,
+               svd_filter_db_max_abs_err=svd_err,
+               svd_filter_lo2_ms=svd_ms, bf_das_batch_ms=image_ms,
+               bf_das_batch_ms_a_frame=image_ms / f,
+               bmode_max_abs_err_db=db_err,
+               bmode_err_over_tolerance=db_ratio,
+               bmode_max_abs_err_db_by_level=by_level,
+               bmode_bright_pixels=int((cpu > DB_BRIGHT).sum()),
+               bmode_bright_max_abs_err_db=bright_err,
+               bmode_min_db=float(cpu.min()),
+               das_gather_ms=gather_ms, das_band_matmul_ms=band_ms,
+               band_vs_gather_rel_err=band_err,
+               gather_bytes_gb=2 * a * f * p * c * 8 / 1e9,
+               band_bytes_written_gb=a * c * p * n * 4 / 1e9)
+    log(f"pala phase, imaging: {json.dumps(out)}")
+    if (not svd_ok or db_ratio > 1.0 or bright_err > DB_TOL
+            or band_err > 1e-4):
+        raise AssertionError(f"pala imaging: the card disagrees: {out}")
+
+
+def pala_path(dev, work: Path) -> dict:
+    """The PALA phase (item 14 of the module docstring). Returns its
+    serving launches by kernels-line row; the driver's runs launch no
+    kernel (counts set to 0 before and held at 0 after them)."""
+    t_phase = time.perf_counter()
+    data = work / "pala_synth"
+    t0 = time.perf_counter()
+    generate_pala_dataset(data, **PALA_DATA)
+    log(f"pala phase: generated {data} in {time.perf_counter() - t0:.1f} s")
+    if cli_main.dataset_kind(str(data)) != "pala":
+        raise AssertionError(f"pala phase: {data} is not PALA data")
+    reset_launch_counts()
+    seqs = f"sequences={list(range(PALA_DATA['n_sequences']))}"
+    run = pala_train("stofnet", work, data, ["model=stofnet", seqs])
+    t0 = time.perf_counter()
+    cpu = first_loss_on_cpu(run["cfg"], run["probe"].init_state)
+    rel = abs(run["losses"][0] - cpu) / abs(cpu)
+    log(f"pala phase: first loss {run['losses'][0]!r} on the card, {cpu!r} "
+        f"on the CPU, relative {rel:.3e} ({time.perf_counter() - t0:.1f} s)")
+    if not rel <= 1e-6:
+        raise AssertionError(f"pala phase: the first loss is {rel:.3e} from "
+                             f"the CPU's, beyond 1e-6")
+    ckpt = Path(run["summary"]["checkpoint"])
+    driver_eval("stofnet", work, str(data), ckpt.name,
+                [*PALA_ARGS, seqs], phase="pala phase")
+    # one sequence (24 frames, 23 on rat data): a validation split of 4
+    one = ["sequences=[0]", "batch_size=4"]
+    for name in ("zonzini", "unet"):
+        pala_train(name, work, data, [f"model={name}", *one])
+    rat = work / "rat_synth"
+    shutil.copytree(data, rat)
+    pala_train("stofnet rat", work, rat, ["model=stofnet", *one])
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"pala phase: the driver launched {launched}")
+    state = load_model_variables("stofnet", ckpt)
+    launches = pala_serve(dev, state, run["cfg"])
+    pala_imaging(dev, data)
+    log(f"pala phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def default_flags() -> None:
@@ -2261,7 +2722,9 @@ def main() -> int:
     paths.append(export_path(dev, state))
     with stand_in() as (work, data):
         data_path(dev, work, data)
-        zoo_path(dev, work, data, rng_new)
+        ckpts = zoo_path(dev, work, data, rng_new)
+        zoo_export_path(dev, work, ckpts, rng_new)
+        paths.append(pala_path(dev, work))
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

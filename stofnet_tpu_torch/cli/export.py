@@ -1,6 +1,6 @@
 """Export the serving pipeline to a ``torch.export`` artifact (replaces
-``stofnet_tpu/cli/export.py`` for ``model=stofnet``), and the helpers the
-serving daemon shares with it::
+``stofnet_tpu/cli/export.py``), and the helpers the serving daemon shares
+with it::
 
     python -m stofnet_tpu_torch.cli.export model_file=different-armadillo \
         ckpt_dir=ckpts length=8000 batch=b out=m.pt2 [th=Null] \
@@ -8,6 +8,15 @@ serving daemon shares with it::
         [int8_calib=x.npy [int8_stack=4,8,10] [int8_eq_alpha=0.5]
          [int8_bias_correct=True]] [input_enc=bf16|s16|s8c<n>] \
         [bake_weights=False] [device=cpu]
+
+The whole zoo exports behind the same switch: ``model=edsr|espcn|zonzini|
+unet|sincnet|kuleshov|gradpeak`` (heatmap families decode as StofNet does,
+zonzini and gradpeak give their ToA as it is), with the family's build
+arguments ``dataset_kind=chirp|pala|rat``, ``rf_scale_factor=`` and
+``upsample_factor=``, ``sample_num=`` (kuleshov, whose dense head is sized
+by sample_num * rf_scale_factor, which must equal ``length=``), ``fs=``
+(sincnet) and ``n_layers=`` (unet; 2 on chirp, 10 elsewhere); gradpeak
+takes no ``model_file=``. The int8 keys are StofNet's only.
 
 ``batch=b`` (any name) exports one batch-polymorphic program, an int pins
 the batch; the length is static: one artifact per length. ``dtype=auto``
@@ -20,9 +29,7 @@ with ``serve.load_pipeline(out)`` or ``cli/serve.py artifact=out``.
 Departures from the JAX exporter: ``device=`` (the card by default, as
 every entry point of the port) takes the place of ``platforms=``, which
 is refused: a program serves on the device it was exported for (the
-device chooses the route, ``serve.fused_takes``). ``model=`` other than
-stofnet waits for the rest of the model zoo's slice (A.3: ``torch.export``
-of each family).
+device chooses the route, ``serve.fused_takes``).
 
 Arguments are ``key=value`` pairs, each value parsed as the JAX package's
 ``yaml.safe_load`` parses it (``utils/config.parse_value``; no PyYAML).
@@ -48,6 +55,7 @@ from stofnet_tpu_torch.train.checkpoint import (
 )
 from stofnet_tpu_torch.utils.config import parse_value
 
+INT8_KEYS = ("int8_calib", "int8_stack", "int8_eq_alpha", "int8_bias_correct")
 ARCH_KEYS = ("num_features", "semi_global_scale", "num_blocks",
              "upsample_factor")
 DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -57,6 +65,8 @@ _KNOWN_KEYS = frozenset({
     "window_size", "max_echoes", "int8_calib", "model", "dtype",
     "int8_stack", "int8_eq_alpha", "int8_bias_correct", "bake_weights",
     "input_enc", *ARCH_KEYS,
+    # the zoo's build arguments (model= other than stofnet)
+    "dataset_kind", "rf_scale_factor", "sample_num", "fs", "n_layers",
     "device",  # the port's own: cuda (default) or cpu
 })
 
@@ -99,6 +109,49 @@ def _resolve_ckpt_path(args: Dict[str, Any]) -> str:
     path = str(args["model_file"])
     resolved = find_checkpoint(args.get("ckpt_dir") or "ckpts", path)
     return str(resolved) if resolved is not None else path
+
+
+def resolve_zoo_variables_and_overrides(args: Dict[str, Any], model: str
+                                        ) -> Tuple[Dict[str, torch.Tensor],
+                                                   Dict[str, Any]]:
+    """(state dict, ``registry.build_model`` arguments) of a family other
+    than StofNet, as JAX's: gradpeak has no parameters (no
+    ``model_file=``); kuleshov needs ``sample_num=``, and its input length
+    ``sample_num * rf_scale_factor`` must be the export's ``length=``;
+    sincnet needs ``fs=``; the unet's depth is ``n_layers=``, else 2 on
+    chirp and 10 on PALA or rat data."""
+    kind = str(args.get("dataset_kind", "chirp"))
+    overrides: Dict[str, Any] = {
+        "dataset_kind": kind,
+        "upsample_factor": int(args.get("upsample_factor") or 4),
+        "rf_scale_factor": int(args.get("rf_scale_factor") or 10),
+    }
+    if model == "kuleshov":
+        if args.get("sample_num") is None:
+            raise SystemExit("model=kuleshov needs sample_num= (its dense "
+                             "head is sized by sample_num*rf_scale_factor)")
+        overrides["sample_num"] = int(args["sample_num"])
+        n = overrides["sample_num"] * overrides["rf_scale_factor"]
+        length = int(args.get("length", 8000))
+        if n != length:
+            raise SystemExit(
+                f"kuleshov input_length sample_num*rf_scale_factor={n} "
+                f"must equal the export length={length}")
+    if model == "sincnet":
+        if args.get("fs") is None:
+            raise SystemExit("model=sincnet needs fs= (the sinc filterbank "
+                             "is parameterized by the sample rate)")
+        overrides["fs"] = float(args["fs"])
+    if model == "gradpeak":
+        return {}, overrides
+    n_layers = args.get("n_layers")
+    n_layers = int(n_layers) if n_layers is not None else (
+        2 if kind == "chirp" else 10)
+    if model == "unet":
+        # the depth built must be the checkpoint's
+        overrides["n_layers"] = n_layers
+    return (load_model_variables(model, _resolve_ckpt_path(args),
+                                 n_layers=n_layers), overrides)
 
 
 def resolve_dtype(args: Dict[str, Any]):
@@ -176,17 +229,17 @@ def main(argv: Optional[List[str]] = None) -> str:
                          "serves on the device it was exported for; name "
                          "it with device= (cuda, the default, or cpu)")
     model = str(args.get("model") or "stofnet").lower()
-    if model != "stofnet":
-        raise SystemExit(f"model={model}: the port exports model=stofnet; "
-                         f"the zoo's model= here comes with the rest of "
-                         f"A.3, the model zoo (torch.export of each "
-                         f"family)")
-    if not args.get("model_file"):
+    if not args.get("model_file") and model != "gradpeak":
         raise SystemExit("model_file=<ckpt prefix or path> is required")
     dtype = resolve_dtype(args)
-    out = args.get("out") or f"{args['model_file']}.pt2"
+    out = args.get("out") or f"{args.get('model_file') or model}.pt2"
     device = resolve_device(args.get("device"))
-    state, overrides = resolve_variables_and_overrides(args)
+    if model == "stofnet":
+        state, overrides = resolve_variables_and_overrides(args)
+    else:
+        if any(args.get(k) for k in INT8_KEYS):
+            raise SystemExit("int8 export targets model=stofnet only")
+        state, overrides = resolve_zoo_variables_and_overrides(args, model)
     th = args.get("th")
     length = int(args.get("length", 8000))
     pipe_kwargs = dict(
@@ -195,13 +248,13 @@ def main(argv: Optional[List[str]] = None) -> str:
         max_echoes=int(args.get("max_echoes", 64)),
         int8_calib=load_calib(args), **load_stack_cfg(args))
     dtype = apply_dtype_gate(dtype, state, overrides, length=length,
-                             device=device, **pipe_kwargs)
+                             model_name=model, device=device, **pipe_kwargs)
     # batch=b (any name that is not a number) exports one batch-polymorphic
     # program; an int pins the batch
     batch = args.get("batch", 128)
     batch = (str(batch) if isinstance(batch, str)
              and not str(batch).isdigit() else int(batch))
-    pipe_kwargs["dtype"] = dtype
+    pipe_kwargs.update(dtype=dtype, model_name=model)
     if args.get("input_enc") not in (None, "", "f32"):
         # after the dtype gate, as in JAX: the gate probes the compute type
         # on the f32-input pipeline; the input encoding is another choice

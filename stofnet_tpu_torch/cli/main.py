@@ -1,5 +1,5 @@
 """Train / evaluate driver (replaces ``stofnet_tpu/cli/main.py`` for the
-registry's models on chirp data)::
+registry's models on chirp, PALA and rat data)::
 
     python -m stofnet_tpu_torch.cli.main key=value ...
 
@@ -17,9 +17,8 @@ Departures from the JAX driver:
 - ``device=`` (new): the card (``cuda``) by default, as every entry point
   of the port; ``device=cpu`` runs on the CPU. Without a card and without
   ``device=cpu``, ``setup`` raises.
-- Refused, with ``SystemExit`` naming the slice that brings them: PALA
-  and rat data paths (the PALA data slice) and ``mesh=True`` (the mesh
-  slice).
+- Refused, with ``SystemExit`` naming the slice that brings it:
+  ``mesh=True`` (the mesh slice).
 - ``compile_cache=`` is accepted and does nothing (eager PyTorch compiles
   nothing to cache); a line on stderr says so.
 - A fresh model is drawn from ``torch.Generator().manual_seed(seed)``
@@ -70,9 +69,13 @@ DEFAULT_CONFIG = Path(__file__).parent / "config.yaml"
 
 # what the port does not run yet, and the slice (ROADMAP queue A) that
 # brings it
-_LATER = {"pala": "A.4, PALA data", "mesh": "A.6, parallel/mesh.py"}
-# the unet's depth on chirp data (JAX's n_layers, 10 on PALA)
-UNET_LAYERS = 2
+_LATER = {"mesh": "A.6, parallel/mesh.py"}
+
+
+def unet_layers(kind: str) -> int:
+    """The unet's depth (JAX's n_layers): 2 on chirp data, 10 on PALA or
+    rat data."""
+    return 2 if kind == "chirp" else 10
 
 
 def _nanmean(x) -> float:
@@ -125,53 +128,86 @@ def dataset_kind(data_dir: str) -> str:
 
 
 def build_dataset(cfg: Config):
-    """Instantiate the dataset + transforms; returns (dataset, info dict)."""
-    from stofnet_tpu_torch.data.chirp import ChirpDataset
+    """Instantiate the dataset + transforms; returns (dataset, info dict).
+    Chirp data crops and adds noise when training; PALA and rat data add
+    noise only (rat data through the temporal filter), as in JAX."""
     from stofnet_tpu_torch.data.transforms import (
         AddNoise, Compose, CropChannelData, NormalizeVol,
     )
 
     kind = dataset_kind(cfg.data_dir)
-    if kind != "chirp":
-        raise SystemExit(f"{kind} data ({cfg.data_dir}): the port's driver "
-                         f"reads chirp data; {kind} comes with "
-                         f"{_LATER['pala']}")
     rng = np.random.default_rng(cfg.seed)
     tf = [NormalizeVol()]
     if str(cfg.data_dir).lower().endswith(".zip"):
         from stofnet_tpu_torch.utils.zip_extract import zip_extract
 
         cfg.data_dir = str(zip_extract(cfg.data_dir))
-    if not cfg.evaluate:
-        tf += [CropChannelData(ratio=cfg.crop_ratio, rng=rng),
-               AddNoise(snr=cfg.snr_db, rng=rng)]
-    ds = ChirpDataset(
-        root_dir=cfg.data_dir,
-        split_dirname="test" if cfg.evaluate else "train",
-        rf_scale_factor=cfg.rf_scale_factor,
-        transforms=Compose(tf),
-        seed=int(cfg.seed),
-    )
-    info = {"kind": kind, "fs": float(ds.cfg["fhz_sample"]),
-            "c": float(ds.cfg["speed_of_sound"]),
-            "channel_num": ds.get_channel_num(),
-            "sample_num": ds.get_sample_num()}
+    if kind == "chirp":
+        from stofnet_tpu_torch.data.chirp import ChirpDataset
+
+        if not cfg.evaluate:
+            tf += [CropChannelData(ratio=cfg.crop_ratio, rng=rng),
+                   AddNoise(snr=cfg.snr_db, rng=rng)]
+        ds = ChirpDataset(
+            root_dir=cfg.data_dir,
+            split_dirname="test" if cfg.evaluate else "train",
+            rf_scale_factor=cfg.rf_scale_factor,
+            transforms=Compose(tf),
+            seed=int(cfg.seed),
+        )
+        info = {"kind": kind, "fs": float(ds.cfg["fhz_sample"]),
+                "c": float(ds.cfg["speed_of_sound"]),
+                "channel_num": ds.get_channel_num(),
+                "sample_num": ds.get_sample_num()}
+    else:
+        from stofnet_tpu_torch.data.pala import PalaDatasetRf
+
+        if not cfg.evaluate:
+            tf += [AddNoise(snr=cfg.snr_db, rng=rng)]
+        ds = PalaDatasetRf(
+            dataset_path=cfg.data_dir,
+            sequences=cfg.sequences,
+            rescale_factor=cfg.rf_scale_factor,
+            ch_gap=cfg.ch_gap,
+            angle_threshold=cfg.angle_threshold,
+            clutter_db=cfg.clutter_db,
+            temporal_filter_opt=(kind == "rat"),
+            pow_law_opt=cfg.pow_law_opt,
+            transforms=Compose(tf),
+            seed=int(cfg.seed),
+        )
+        info = {"kind": kind, "fs": float(ds.get_key("fs")),
+                "c": float(ds.get_key("c")),
+                "wavelength": float(ds.get_key("wavelength")),
+                "channel_num": ds.get_channel_num(),
+                "sample_num": ds.get_sample_num()}
     return ds, info
 
 
-def batch_to_arrays(batch) -> Tuple[np.ndarray, np.ndarray]:
-    """(frame (B, 1, L), gt_sample (B, 1)) of a chirp batch, invalid GT
-    (NaN or <= 0) as 0."""
-    _, rf, _, gt_sample, _, _ = batch
-    frame = rf[:, None, :].astype(np.float32)
-    gt = gt_sample.reshape(-1, 1).astype(np.float32)
+def batch_to_arrays(batch, kind: str = "chirp"
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """(frame (B', 1, L), gt_sample (B', G)) of a dataset batch, invalid GT
+    (NaN or <= 0) as 0. A PALA or rat batch gives wave index
+    ``min(1, n_waves - 1)`` with its channels flattened into the batch:
+    B' = B * C, G = MAX_TARGETS."""
+    if kind == "chirp":
+        _, rf, _, gt_sample, _, _ = batch
+        frame = rf[:, None, :].astype(np.float32)
+        gt = gt_sample.reshape(-1, 1).astype(np.float32)
+    else:
+        frame_all, gt_all = batch[0], batch[2]
+        wv_idx = min(1, frame_all.shape[1] - 1)
+        fr = frame_all[:, wv_idx]  # (B, C, L)
+        frame = fr.reshape(-1, fr.shape[-1])[:, None, :].astype(np.float32)
+        g = gt_all[:, wv_idx]  # (B, C, E)
+        gt = g.reshape(-1, g.shape[-1]).astype(np.float32)
     gt = np.where(np.isnan(gt) | (gt <= 0), 0.0, gt)
     return frame, gt
 
 
-def _host_batches(loader, up: int):
+def _host_batches(loader, up: int, kind: str = "chirp"):
     for batch in loader:
-        frame, gt = batch_to_arrays(batch)
+        frame, gt = batch_to_arrays(batch, kind)
         gt_true = np.round(gt[:, None, :] * up).astype(np.int32)
         yield frame, gt, gt_true
 
@@ -230,12 +266,12 @@ def setup(cfg: Config) -> Dict[str, Any]:
         rf_scale_factor=int(cfg.rf_scale_factor), fs=info["fs"],
         th=None if cfg.th in (None, "Null") else float(cfg.th), dtype=dtype,
         semi_global_scale=int(cfg.get("semi_global_scale", 80)),
-        n_layers=UNET_LAYERS,
+        n_layers=unet_layers(info["kind"]),
         generator=torch.Generator().manual_seed(int(cfg.seed)),
         device="meta" if path is not None else device)
     cfg.update(updates)  # what the dataset reads was folded in above
     if path is not None:
-        state = load_model_variables(name, path, UNET_LAYERS)
+        state = load_model_variables(name, path, unet_layers(info["kind"]))
         model.load_state_dict({k: v.to(device) for k, v in state.items()},
                               strict=True, assign=True)
         print(f"loaded checkpoint {path}", file=sys.stderr)
@@ -266,7 +302,7 @@ def _int8_eval_step(ctx: Dict[str, Any], loader, finish):
     # not set a scale the rest of the split saturates
     calib = []
     for batch in loader:
-        calib.append(batch_to_arrays(batch)[0])
+        calib.append(batch_to_arrays(batch, ctx["info"]["kind"])[0])
         if len(calib) >= 8:
             break
     if not calib:
@@ -302,6 +338,7 @@ def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     profiler = StepTraceProfiler(cfg.get("profile_dir"),
                                  cfg.get("profile_steps") or 5)
     ds = ctx["dataset"]
+    kind = ctx["info"]["kind"]
     eval_step = make_eval_step(ctx["model"],
                                _loss_config(cfg, ctx["model_kind"]))
     loader = DataLoader(ds, batch_size=int(cfg.batch_size), drop_last=True,
@@ -319,7 +356,7 @@ def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     # th_search_interval > 1 thins the (host-side) search
     th_every = int(cfg.get("th_search_interval", 1))
     for batch_idx, (host, dev) in enumerate(
-            pipeline_batches(_host_batches(loader, up), put)):
+            pipeline_batches(_host_batches(loader, up, kind), put)):
         frame, gt, gt_true = host
         frame_d, gt_d, gt_true_d = dev
 
@@ -338,7 +375,8 @@ def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
         val_step += 1
         # the first batch's time holds one-time work (cuDNN's algorithm
         # search): NaN, so the nan-mean summary is the steady state. The
-        # denominator is cfg.batch_size, like the reference
+        # denominator is cfg.batch_size, like the reference: the frames of
+        # the batch, not PALA's channel-flattened frame.shape[0]
         bs = int(cfg.batch_size)
         infer_time = (toc_fwd / bs) if batch_idx > 0 else float("nan")
         step_time = (toc / bs) if batch_idx > 0 else float("nan")
@@ -406,6 +444,7 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
                                  cfg.get("profile_steps") or 5)
     ds = ctx["dataset"]
     up = int(cfg.upsample_factor)
+    kind = ctx["info"]["kind"]
 
     nw = _loader_workers(cfg)
     train_idx, val_idx = split_dataset(len(ds), 0.2, seed=int(cfg.seed))
@@ -473,8 +512,8 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
         train_loader.set_epoch(epoch)
         lr_epoch = lr_now()  # the lr this epoch's steps use
         epoch_loss = 0.0
-        for host, dev in pipeline_batches(_host_batches(train_loader, up),
-                                          put):
+        for host, dev in pipeline_batches(
+                _host_batches(train_loader, up, kind), put):
             frame, gt, gt_true = host
             frame_d, gt_d, gt_true_d = dev
             aux = train_step(frame_d, gt_d, gt_true_d)
@@ -500,7 +539,8 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
 
         # validation: loss + tolerance-matched ToA metrics
         vlosses, vmetrics = [], []
-        for _, dev in pipeline_batches(_host_batches(val_loader, up), put):
+        for _, dev in pipeline_batches(_host_batches(val_loader, up, kind),
+                                       put):
             out = eval_step(*dev)
             vlosses.append(float(out["loss"]))
             vmetrics.append(out["toa_metrics"].cpu().numpy())

@@ -1,8 +1,7 @@
 """Serving daemon: dynamic-batching TCP inference on one command (replaces
-``stofnet_tpu/cli/serve.py`` for ``artifact=``, ``model_file=`` and
-``model=stofnet``). From artifacts of ``cli/export.py``, with no model code
-or checkpoint (several, comma-separated, route requests by waveform
-length, one artifact a length)::
+``stofnet_tpu/cli/serve.py``). From artifacts of ``cli/export.py`` of any
+family, with no model code or checkpoint (several, comma-separated, route
+requests by waveform length, one artifact a length)::
 
     python -m stofnet_tpu_torch.cli.serve artifact=l8000.pt2,l2000.pt2 \
         port=7733 [max_batch=128]
@@ -21,6 +20,11 @@ It serves a StofNet checkpoint (a reference ``.pth`` or a checkpoint of
 L % 80 == 0, the int8-SGB route with ``int8_calib=``, the ``StofNet``
 module elsewhere. ``dtype=auto`` (the default) serves bf16 where its
 decode agrees with f32 on 0.99 of the coords of an echo-bearing batch.
+``model=edsr|espcn|zonzini|unet|sincnet|kuleshov|gradpeak`` serves that
+family of the registry from its checkpoint through the same switch, with
+the exporter's build arguments (its
+``resolve_zoo_variables_and_overrides``; gradpeak needs no
+``model_file=``); int8 serving targets model=stofnet only.
 
 Tuning: ``max_batch=`` (largest coalesced batch, 128), ``max_wait_ms=``
 (how long the oldest request may wait for the batch to fill, 2),
@@ -39,11 +43,8 @@ Departures from the JAX daemon:
 - Refused, with ``SystemExit``: ``compile_cache=`` (it persists XLA's
   compiles; an artifact of the port compiles nothing when it loads, and
   the kernels' libraries in ``build/kernels`` already persist across
-  restarts), ``mesh=`` (until ``parallel/mesh.py``) and any ``model=``
-  other than ``stofnet`` (until the rest of the model zoo's slice, A.3:
-  the registry serves the zoo through ``serve.make_pipeline``, the daemon
-  not yet). Only ``ckpt_dir=`` is
-  searched for ``model_file=``.
+  restarts) and ``mesh=`` (until ``parallel/mesh.py``). Only
+  ``ckpt_dir=`` is searched for ``model_file=``.
 
 Speak to it with ``stofnet_tpu_torch.serving.ServingClient`` (or JAX's,
 or ``examples/serving_client.c``: the wire is the same). On SIGINT or
@@ -59,8 +60,9 @@ from typing import Any, Dict, List, Optional
 
 from stofnet_tpu_torch import resolve_device
 from stofnet_tpu_torch.cli.export import (
-    apply_dtype_gate, load_calib, load_stack_cfg, parse_args, resolve_dtype,
-    resolve_variables_and_overrides,
+    INT8_KEYS, apply_dtype_gate, load_calib, load_stack_cfg, parse_args,
+    resolve_dtype, resolve_variables_and_overrides,
+    resolve_zoo_variables_and_overrides,
 )
 from stofnet_tpu_torch.serve import (
     load_pipeline, make_input_encoder, make_pipeline,
@@ -99,24 +101,25 @@ def build(args: Dict[str, Any]):
     for key, why in _REFUSED.items():
         if args.get(key):
             raise SystemExit(f"{key}= is not taken by the port: {why}")
-    model = str(args.get("model") or "stofnet").lower()
-    if model != "stofnet":
-        raise SystemExit(f"model={model}: the port serves model=stofnet; "
-                         f"the zoo's model= here comes with the rest of "
-                         f"A.3, the model zoo (torch.export of each "
-                         f"family)")
     if args.get("artifact"):
         if args.get("model_file"):
             raise SystemExit("pass artifact= OR model_file=, not both")
         return _build_artifacts(args)
-    if not args.get("model_file"):
+    model = str(args.get("model") or "stofnet").lower()
+    if not args.get("model_file") and model != "gradpeak":
         raise SystemExit("artifact=<.pt2> or model_file=<ckpt> required")
     if not args.get("length"):
         raise SystemExit("length= is required with model_file= "
                          "(the serving contract's static length)")
     length = int(args["length"])
     device = resolve_device(args.get("device"))
-    state, overrides = resolve_variables_and_overrides(args)
+    if model == "stofnet":
+        state, overrides = resolve_variables_and_overrides(args)
+    else:
+        # the zoo from a checkpoint, the exporter's switch
+        if any(args.get(k) for k in INT8_KEYS):
+            raise SystemExit("int8 serving targets model=stofnet only")
+        state, overrides = resolve_zoo_variables_and_overrides(args, model)
     th = args.get("th")
     pipe_kwargs = dict(
         window_size=int(args.get("window_size", 20)),
@@ -124,9 +127,11 @@ def build(args: Dict[str, Any]):
         max_echoes=int(args.get("max_echoes", 64)),
         int8_calib=load_calib(args), **load_stack_cfg(args))
     dtype = apply_dtype_gate(resolve_dtype(args), state, overrides,
-                             length=length, device=device, **pipe_kwargs)
+                             length=length, model_name=model, device=device,
+                             **pipe_kwargs)
     enc = str(args.get("input_enc") or "f32")
-    raw = make_pipeline(state, overrides, dtype=dtype, device=device,
+    raw = make_pipeline(state, overrides, model_name=model, dtype=dtype,
+                        device=device,
                         input_enc=None if enc == "f32" else enc,
                         **pipe_kwargs)
     encode = make_input_encoder(enc)

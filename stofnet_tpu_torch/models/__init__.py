@@ -14,12 +14,14 @@ from stofnet_tpu_torch.models.registry import (
     variables_to_state_dict,
 )
 from stofnet_tpu_torch.models.sincnet import SincConv, SincNet
+from stofnet_tpu_torch.models.sincnet_full import SincMLP, SincNetFull
 from stofnet_tpu_torch.models.stofnet import SemiGlobalBlock, StofNet
 from stofnet_tpu_torch.models.wave_unet import WaveUnet
 from stofnet_tpu_torch.models.zonzini import ZonziniNetLarge, ZonziniNetSmall
 
 __all__ = ["EDSR1D", "ESPCN1D", "GradPeak", "Kuleshov", "MODEL_NAMES",
-           "SemiGlobalBlock", "SincConv", "SincNet", "StofNet", "WaveUnet",
+           "SemiGlobalBlock", "SincConv", "SincMLP", "SincNet",
+           "SincNetFull", "StofNet", "WaveUnet",
            "ZonziniNetLarge", "ZonziniNetSmall", "build_model",
            "export_checkpoint", "import_checkpoint", "stofnet_apply_fused",
            "stofnet_apply_packed", "stofnet_apply_reference",

@@ -66,7 +66,9 @@ def _top(key: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.take_along_dim(x, idx.long(), dim=-1)
+    """``x[b, idx[b, j]]`` (a gather: ``take_along_dim`` broadcasts, and
+    ``torch.export`` then pins a symbolic batch)."""
+    return torch.gather(x, -1, idx.long())
 
 
 def grad_peak_detect(data: torch.Tensor, grad_step: int = 2,
@@ -148,6 +150,12 @@ def grad_peak_detect(data: torch.Tensor, grad_step: int = 2,
     return torch.stack([onset, peak, amp], dim=-1)
 
 
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b, j], :]`` of (B, M, C) echoes, a gather as :func:`_take`."""
+    return torch.gather(x, 1, idx.long()[..., None].expand(
+        -1, -1, x.shape[-1]))
+
+
 def reduce_echoes(echoes: torch.Tensor, echo_max: int, time_col: int = 1,
                   amp_col: int = -1) -> torch.Tensor:
     """The echo_max strongest echoes, re-sorted by arrival time (reference
@@ -157,11 +165,11 @@ def reduce_echoes(echoes: torch.Tensor, echo_max: int, time_col: int = 1,
     valid = echoes[..., time_col] > 0
     amp_key = torch.where(valid, echoes[..., amp_col], float("-inf"))
     top = _top(amp_key, echo_max)
-    picked = torch.take_along_dim(echoes, top[..., None], dim=1)
+    picked = _take_rows(echoes, top)
     pvalid = _take(valid, top)
     tkey = torch.where(pvalid, picked[..., time_col], 0.0)
     order = torch.argsort(tkey, dim=-1, stable=True)
-    out = torch.take_along_dim(picked, order[..., None], dim=1)
+    out = _take_rows(picked, order)
     ovalid = _take(pvalid, order)
     return torch.where(ovalid[..., None], out, 0.0)
 

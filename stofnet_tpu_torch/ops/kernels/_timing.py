@@ -1,9 +1,10 @@
 """CUDA-event timing of a call on the card (no JAX counterpart), the one
-yardstick of ``chip_smoke.py`` and ``scripts/dma_probe.py``."""
+yardstick of ``chip_smoke.py`` and the port's scripts."""
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import time
+from typing import Any, Callable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,3 +29,20 @@ def time_ms(fn: Callable, args_list: Sequence[tuple], iters: int = 20
         events.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def time_once(fn: Callable, *args, device: torch.device) -> Tuple[Any, float]:
+    """``fn(*args)`` and its ms, one call: CUDA events on a CUDA
+    ``device`` (host work between its launches included), the host clock
+    elsewhere."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)

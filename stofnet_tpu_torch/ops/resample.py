@@ -17,18 +17,19 @@ import torch
 def linear_resample(data: torch.Tensor, num_out: int,
                     axis: int = -1) -> torch.Tensor:
     """Linear interpolation of ``axis`` onto ``num_out`` points spanning the
-    same support (endpoints included: linspace / interp1d semantics)."""
+    same support (endpoints included: linspace / interp1d semantics). A
+    single point is repeated, as JAX's gather of index -1 wraps to it."""
     axis = axis % data.ndim
     n = data.shape[axis]
     t = np.linspace(0.0, n - 1.0, num_out)
-    i0 = np.clip(np.floor(t).astype(np.int64), 0, n - 2)
+    i0 = np.clip(np.floor(t).astype(np.int64), 0, max(n - 2, 0))
     real = data.real.dtype if data.is_complex() else data.dtype
     shape = [num_out] + [1] * (data.ndim - axis - 1)
     frac = torch.from_numpy((t - i0).astype(np.float32)).to(
         data.device, real).reshape(shape)
     idx = torch.from_numpy(i0).to(data.device)
     lo = data.index_select(axis, idx)
-    hi = data.index_select(axis, idx + 1)
+    hi = data.index_select(axis, torch.clamp(idx + 1, max=n - 1))
     return lo + (hi - lo) * frac
 
 

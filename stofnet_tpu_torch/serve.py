@@ -280,28 +280,28 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
                  max_echoes: int = 64) -> Callable:
     """The zoo branch of :func:`make_pipeline` (``stofnet_tpu/serve.py``
     187-213): the ``model_name`` module of ``registry.build_model(th=
-    threshold, dtype=dtype, **overrides)`` in eval mode, its parameters
-    ``state`` on ``device``. Heatmap families decode with ``mask2coords``
-    at the registry's upsample factor (1 for sincnet and unet); zonzini
-    and gradpeak return their predictions as (B, n) f32, gradpeak with
-    ``max_echoes`` slots and its threshold the detector's. An f32 model,
-    and gradpeak, which computes in f32 whatever the dtype, run under
-    ``full_f32``. ``pipe.route`` and ``pipe.calls`` as the StofNet
-    pipeline's, with the one route ``module``."""
+    threshold, dtype=dtype, **overrides)`` in eval mode on its parameters
+    and buffers ``state``, copied to ``device``. The module is a skeleton
+    without data (:func:`_zoo_skeleton`; Kuleshov's dense head alone is
+    1.2e9 weights at the chirp length) that runs on the state through
+    ``functional_call``, so that a traced pipeline (the weightless export)
+    builds no module inside the trace. Heatmap families decode with
+    ``mask2coords`` at the registry's upsample factor (1 for sincnet and
+    unet); zonzini and gradpeak return their predictions as (B, n) f32,
+    gradpeak with ``max_echoes`` slots and its threshold the detector's.
+    An f32 model, and gradpeak, which computes in f32 whatever the dtype,
+    run under ``full_f32``. ``pipe.route`` and ``pipe.calls`` as the
+    StofNet pipeline's, with the one route ``module``."""
     device = resolve_device(device)
     name = model_name.lower()
-    # a skeleton without data (Kuleshov's dense head alone is 1.2e9
-    # weights at the chirp length) that takes the state's tensors
-    model, updates = build_model(
-        name, th=threshold, dtype=dtype,
-        device=device if name == "gradpeak" else "meta", **overrides)
-    model.load_state_dict({k: _tensor(v).to(device) for k, v in state.items()},
-                          strict=True, assign=True)
-    model.eval()
-    if name == "gradpeak":
-        model.max_echoes = max_echoes
-    up = int(updates.get("upsample_factor",
-                         overrides.get("upsample_factor", 4)))
+    model, up, want = _zoo_skeleton(name, dtype, threshold, max_echoes,
+                                    _arch_key(overrides))
+    params = {k: _tensor(v).to(device) for k, v in state.items()}
+    got = {k: tuple(v.shape) for k, v in params.items()}
+    if want != got:
+        raise ValueError(f"make_pipeline: the state does not fit "
+                         f"{model_name}(**{overrides}): "
+                         f"{sorted(set(want.items()) ^ set(got.items()))}")
     precision = (full_f32 if dtype == torch.float32 or name == "gradpeak"
                  else contextlib.nullcontext)
 
@@ -312,7 +312,7 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
         x = torch.as_tensor(x).to(device).to(torch.float32)
         calls["module"] += 1
         with precision():
-            pred = model(x)
+            pred = torch.func.functional_call(model, params, (x,))
         if name in REGRESSION:
             return pred.reshape(pred.shape[0], -1).to(torch.float32)
         return mask2coords(pred, window_size=window_size,
@@ -321,6 +321,31 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
 
     pipe.route, pipe.calls = (lambda length: "module"), calls
     return pipe
+
+
+@functools.lru_cache(maxsize=None)
+def _zoo_skeleton(name: str, dtype: torch.dtype, threshold: Optional[float],
+                  max_echoes: int, arch: tuple
+                  ) -> Tuple[torch.nn.Module, int, Dict[str, tuple]]:
+    """The zoo family's module of ``build_model(name, **dict(arch))`` on
+    the meta device in eval mode, its decode's upsample factor and the
+    shapes of its state; cached, as :func:`_meta_module` is for StofNet."""
+    overrides = dict(arch)
+    model, updates = build_model(name, th=threshold, dtype=dtype,
+                                 device="meta", **overrides)
+    model.eval()
+    if name == "gradpeak":
+        model.max_echoes = max_echoes
+    up = int(updates.get("upsample_factor",
+                         overrides.get("upsample_factor", 4)))
+    return model, up, {k: tuple(v.shape)
+                       for k, v in model.state_dict().items()}
+
+
+def _arch_key(overrides: Mapping[str, Any]) -> tuple:
+    """``overrides`` as a hashable cache key."""
+    return tuple(sorted((k, tuple(v) if isinstance(v, (list, tuple)) else v)
+                        for k, v in overrides.items()))
 
 
 def fused_takes(overrides: Mapping[str, Any], dtype: torch.dtype,
@@ -402,9 +427,7 @@ def _skeleton(dtype: torch.dtype, overrides: Mapping[str, Any]
     per type and architecture, so that a pipeline built inside a trace
     (the weightless export) finds the one built before it: a module cannot
     be built, nor its parameters read, inside a trace."""
-    return _meta_module(dtype, tuple(sorted(
-        (k, tuple(v) if isinstance(v, (list, tuple)) else v)
-        for k, v in overrides.items())))
+    return _meta_module(dtype, _arch_key(overrides))
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,9 +13,11 @@ The machine with the card has no PyYAML, so:
   ``[4, 8, 10]`` of those. Anything else is the string itself
   (``4,8,10``, ``s8c16``, ``x.npy``).
 - :func:`read_flat_yaml` reads a flat mapping (``key: value`` lines,
-  ``#`` comments, blank lines, flow lists) and refuses nesting, naming
-  the line; :func:`dump_flat_yaml` writes one as ``yaml.safe_dump`` does
-  for scalars (keys sorted).
+  ``#`` comments, blank lines, flow lists, and block lists of scalars
+  under a top-level key, as ``yaml.safe_dump`` writes a list) and refuses
+  nesting, naming the line; :func:`dump_flat_yaml` writes one as
+  ``yaml.safe_dump`` does for scalars (keys sorted; lists in flow
+  style).
 - :class:`Config`, :func:`load_config` and :func:`merge_cli` are the JAX
   package's: ``${key}`` interpolation is resolved against the post-merge
   values (an override of a referenced key propagates into dependents), a
@@ -102,22 +104,40 @@ def _strip_comment(line: str) -> str:
 
 def read_flat_yaml(text: str, source: str = "<yaml>") -> Dict[str, Any]:
     """The flat mapping of a YAML document, as ``yaml.safe_load`` reads
-    it: one ``key: value`` a line, values through :func:`parse_value`.
-    Raises ValueError, naming the line, on anything else (an indented
-    line, a block list item, a line without ``key:``): nested mappings
-    and block lists are not read."""
+    it: one ``key: value`` a line, values through :func:`parse_value`, and
+    under a top-level ``key:`` with no value a block list of scalars (the
+    ``- item`` lines ``yaml.safe_dump`` writes for a list). Raises
+    ValueError, naming the line, on anything else (an indented line that
+    is no item, an item under a key that has a value, an item that is a
+    mapping or a list, a line without ``key:``): nested mappings are not
+    read."""
     out: Dict[str, Any] = {}
+    open_key = None  # a key written with no value: its block list follows
     for lineno, raw in enumerate(text.splitlines(), 1):
         line = _strip_comment(raw).rstrip()
         if not line.strip() or line.strip() in ("---", "..."):
+            continue
+        item = line.lstrip(" ")
+        if open_key is not None and (item == "-" or item.startswith("- ")):
+            value = parse_value(item[1:])
+            if isinstance(value, list) or re.match(
+                    r"^\s*(-(\s|$)|[^'\"\[]*:(\s|$))", item[1:]):
+                raise ValueError(f"{source}: line {lineno}: "
+                                 f"{raw.strip()!r} is not a scalar item "
+                                 f"(nested lists and mappings are not read)")
+            if out[open_key] is None:
+                out[open_key] = []
+            out[open_key].append(value)
             continue
         key, sep, value = line.partition(":")
         if (line[0] in " \t-" or not sep or not key.strip()
                 or (value and value[0] not in " \t")):
             raise ValueError(f"{source}: line {lineno}: {raw.strip()!r} is "
-                             f"not a flat 'key: value' line (nested "
-                             f"mappings and block lists are not read)")
+                             f"not a flat 'key: value' line or an item of "
+                             f"a top-level key's block list (nested "
+                             f"mappings are not read)")
         out[key.strip()] = parse_value(value)
+        open_key = key.strip() if not value.strip() else None
     return out
 
 

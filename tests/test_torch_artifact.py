@@ -319,7 +319,7 @@ def test_cli_export_gates_dtype_before_the_encoding(ckpt, tmp_path,
 
 @pytest.mark.parametrize("extra,match", [
     (["platforms=cpu,tpu"], "device="),
-    (["model=edsr"], "model zoo"),
+    (["model=edsr", "int8_calib=x.npy"], "model=stofnet only"),
     (["bogus=1"], "unknown argument"),
 ])
 def test_cli_export_refusals(ckpt, extra, match):

@@ -198,7 +198,6 @@ def test_non_finite_loss_raises(dirs, chirp_root):
 
 
 @pytest.mark.parametrize("over,slice_", [
-    (dict(data_dir="datasets/pala_synth"), "A.4"),
     (dict(mesh=True), "A.6"),
 ])
 def test_later_slices_are_refused(dirs, chirp_root, over, slice_):

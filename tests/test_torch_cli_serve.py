@@ -146,7 +146,7 @@ def test_int8_daemon_with_encoded_input(ckpt, tmp_path):
 @pytest.mark.parametrize("key,value,match", [
     ("mesh", True, "mesh"),
     ("compile_cache", "cache", "compiles nothing"),
-    ("model", "edsr", "model zoo"),
+    ("model", "kuleshov", "sample_num="),
     ("bogus", 1, "unknown argument"),
     ("length", None, "length= is required"),
     ("model_file", None, "model_file="),

@@ -92,7 +92,8 @@ def test_yaml_reader_matches_safe_load(path):
 
 @pytest.mark.parametrize("text,lineno", [
     ("a: 1\nb:\n  c: 2\n", 3),
-    ("a: 1\nlist:\n- 1\n", 3),
+    ("a: 1\n- 1\n", 2),
+    ("a: 1\nlist:\n- b: 1\n", 3),
     ("a: 1\njust text\n", 2),
 ])
 def test_yaml_reader_refuses_nesting(text, lineno):

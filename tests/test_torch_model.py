@@ -168,7 +168,13 @@ def test_port_imports_no_jax():
             "stofnet_tpu_torch.models.registry",
             "stofnet_tpu_torch.ops.resample",
             "stofnet_tpu_torch.ops.hilbert",
-            "stofnet_tpu_torch.ops.gradpeak"} <= set(modules)
+            "stofnet_tpu_torch.ops.gradpeak",
+            "stofnet_tpu_torch.models.attention",
+            "stofnet_tpu_torch.models.sincnet_full",
+            "stofnet_tpu_torch.ops.svd_filter",
+            "stofnet_tpu_torch.ops.beamform",
+            "stofnet_tpu_torch.data.pala",
+            "stofnet_tpu_torch.scripts.pala_bmode_figure"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m.removesuffix('.__init__'))\n"
