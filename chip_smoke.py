@@ -259,7 +259,40 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    timed with CUDA events, and the 3 angles' DAS on precomputed tables in
    the gather form and in JAX's band-matmul form (held to each other,
    relative 1e-4) with their times and bytes.
-15. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+15. The array phase, on the data phase's stand-in at StofNet's full width
+   (B=128, L=8000, f32 under ``full_f32``), the launch counts set to 0
+   before it and held at 0 after it (JAX's array is ``jax.vmap`` of its
+   steps, which reach no Pallas kernel): ``cli/array.run`` with
+   ``seeds=2`` for one epoch, each member held to the solo f32
+   ``make_train_step`` from its initial weights over the batches the run
+   took (an ``ArrayProbe`` around the driver's ``make_array_train_step``):
+   the first loss within 1e-5 relative, the parameters after the first
+   update within 1e-4 relative L2, the distance after the epoch printed;
+   ``lrs=[2.5e-4,5e-4,1e-3]`` for one epoch, the three first losses equal
+   (one init); ``model_files=`` the two member checkpoints (rows printed),
+   and ``make_array_eval_step`` on them against each one's solo eval step
+   on the test split's first 2 batches (>= 0.99 of the coord slots within
+   1 sample, moved rows printed); ``th_sweep=`` 8 thresholds (rows
+   printed), and ``make_threshold_sweep_step`` on the first test batch
+   equal bit for bit at each threshold to ``mask2coords`` of the same
+   forward; then ``scripts/bench_array.measure`` (solo B=32, 4 members x
+   B=32, solo B=128 train steps, the eval step and an 8-threshold sweep at
+   B=128: median CUDA-event ms after 2 warm-up calls on batches staged
+   apart, peak memory), and device time by kernel of one array step beside
+   its members' solo steps under the profiler, at 4 x B=32 and 2 x B=128.
+   Each run prints ms a step, waveforms/s, peak memory and its summary.
+16. The sweep phase: ``cli/sweep.run_sweep`` under
+   ``SWEEP_OVERRIDES["chirp"]`` (batch 1, rf_scale_factor 10, etol 1) on
+   the stand-in's test split, the launch counts set to 0 before it and
+   held at 0 after it, one row at a time (seconds a row printed): StofNet
+   from the data phase's checkpoint, in f32 and with ``int8=True``, each
+   zoo phase checkpoint but Kuleshov's, gradpeak, and a prefix that is
+   not there (random weights). No row may fail, the random-init row must
+   carry the dagger, and ``cli/report.py run_dir=... num_recent=<rows>``
+   must rebuild the table's cells from the runs' summaries (newest first;
+   a summary holds no checkpoint name, so a label keeps its model, its
+   dagger and its int8 mark). Prints both tables.
+17. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
    launches of its paths: the serving, bench, training, probe, daemon,
    export and PALA serving runs, each counted from 0, summed over the
    paths that launch it; the serving instantiation's launches go to
@@ -295,9 +328,12 @@ from stofnet_tpu_torch.bench_paths import (
     try_int8_pipeline, try_packed_pipeline,
 )
 from stofnet_tpu_torch import native
+from stofnet_tpu_torch.cli import array as cli_array
 from stofnet_tpu_torch.cli import export as cli_export
 from stofnet_tpu_torch.cli import main as cli_main
+from stofnet_tpu_torch.cli import report as cli_report
 from stofnet_tpu_torch.cli import serve as serve_cli
+from stofnet_tpu_torch.cli import sweep as cli_sweep
 from stofnet_tpu_torch.data.pala import PalaDatasetRf, generate_pala_dataset
 from stofnet_tpu_torch.data.loader import (
     DataLoader, default_num_workers, split_dataset,
@@ -328,6 +364,11 @@ from stofnet_tpu_torch.ops.hilbert import analytic_signal
 from stofnet_tpu_torch.ops.svd_filter import (
     singular_levels_db, svd_filter_db,
 )
+from stofnet_tpu_torch.parallel import (
+    init_array_state, make_array_eval_step, make_array_train_step,
+    make_threshold_sweep_step, stack_checkpoint_variables,
+)
+from stofnet_tpu_torch.scripts import bench_array
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
 from stofnet_tpu_torch.scripts import pala_bmode_figure as figure
 from stofnet_tpu_torch.serve import (
@@ -341,10 +382,10 @@ from stofnet_tpu_torch.serving.codecs import DEFAULT_CHUNKS
 from stofnet_tpu_torch.serving.tcp import WIRE_INT8C
 from stofnet_tpu_torch.train import (
     LossConfig, fused_loss, heatmap_loss, make_eval_step,
-    make_fused_train_step, make_optimizer,
+    make_fused_train_step, make_optimizer, make_train_step,
 )
 from stofnet_tpu_torch.train.checkpoint import (
-    load_model_variables, save_checkpoint,
+    find_checkpoint, load_model_variables, save_checkpoint,
 )
 from stofnet_tpu_torch.utils.config import load_config, merge_cli
 
@@ -415,6 +456,14 @@ DB_TOL = 2e-3  # bf_das_batch's B-mode in dB, card against CPU: rtol, atol
 DB_BRIGHT = -40.0  # pixels above it are held to DB_TOL dB absolute too
 DB_BANDS = (0.0, -20.0, -40.0, -60.0)  # the B-mode error read by level
 PALA_CPU_FRAMES = 4  # frames of the B-mode held against the CPU
+
+
+# the array phase: cli/array.py on the data phase's stand-in
+ARRAY_LRS = "[2.5e-4,5e-4,1e-3]"
+ARRAY_THRESHOLDS = [0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0]
+ARRAY_LOSS_RTOL = 1e-5  # a member's first loss against its solo step's
+ARRAY_PARAM_RTOL = 1e-4  # relative L2 after the first update
+SWEEP_MISSING = "no-such-prefix"  # the sweep's random-init row
 
 
 def log(msg: str) -> None:
@@ -2044,11 +2093,12 @@ def stand_in():
         shutil.rmtree(work, ignore_errors=True)
 
 
-def data_path(dev, work: Path, data: str) -> None:
+def data_path(dev, work: Path, data: str) -> str:
     """The data phase (item 11 of the module docstring): train and
     evaluate through ``cli/main.py`` from the chirp stand-in, the launch
     counts set to 0 before the phase and held at 0 after it: the driver's
-    path runs no kernel of the port."""
+    path runs no kernel of the port. Returns the f32 run's checkpoint
+    name."""
     t_phase = time.perf_counter()
     reset_launch_counts()
     f32 = driver_train("f32", work, data, ["epochs=2", "export_pth=True"])
@@ -2080,6 +2130,7 @@ def data_path(dev, work: Path, data: str) -> None:
     if launched:
         raise AssertionError(f"data phase: a kernel launched: {launched}")
     log(f"data phase: {time.perf_counter() - t_phase:.1f} s")
+    return name
 
 
 def fresh_peak() -> None:
@@ -2664,6 +2715,335 @@ def pala_path(dev, work: Path) -> dict:
     return launches
 
 
+class ArrayProbe:
+    """Readings of ``cli/array.py``'s train runs taken from outside the
+    driver: it wraps the ``make_array_train_step`` that the driver's module
+    calls and changes nothing it computes. It keeps the array state, the
+    members' state dicts before the first step and after it, a clone of
+    every batch a step took, and each step's losses and host ms up to the
+    card's end."""
+
+    def __init__(self):
+        self.state = self.init = self.first = None
+        self.batches, self.losses, self.step_ms = [], [], []
+
+    def __enter__(self):
+        self._saved = cli_array.make_array_train_step
+
+        def members():
+            return [{k: v.clone() for k, v in self.state.member(i).items()}
+                    for i in range(len(self.state.seeds))]
+
+        def make(state, *args, **kwargs):
+            self.state = state
+            self.init = members()
+            step = self._saved(state, *args, **kwargs)
+
+            def timed(*batch):
+                self.batches.append(tuple(t.clone() for t in batch))
+                t0 = time.perf_counter()
+                out = step(*batch)
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                self.losses.append(out["loss"].cpu())
+                if self.first is None:
+                    self.first = members()
+                return out
+            return timed
+
+        cli_array.make_array_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        cli_array.make_array_train_step = self._saved
+
+
+def array_cfg(work: Path, data: str, *argv):
+    return merge_cli(load_config(cli_main.DEFAULT_CONFIG), [
+        "model=stofnet", f"batch_size={B}", f"data_dir={data}",
+        f"run_dir={work / 'array_runs'}", f"ckpt_dir={work / 'array_ckpts'}",
+        *argv])
+
+
+def params_rel_l2(got: dict, ref: dict) -> float:
+    """The largest relative L2 distance over the float tensors of two state
+    dicts."""
+    return max(rel_l2(got[k].float(), v.float()) for k, v in ref.items()
+               if v.is_floating_point() and v.norm() > 0)
+
+
+def array_train(dev, work: Path, data: str, name: str, *argv) -> dict:
+    """One ``cli/array.run`` training of one epoch under an
+    :class:`ArrayProbe`: prints its summary, ms a step and waveforms/s,
+    peak memory and each member's first loss; returns the run, the probe
+    and the config."""
+    cfg = array_cfg(work, data, "epochs=1", *argv)
+    fresh_peak()
+    with ArrayProbe() as probe:
+        t0 = time.perf_counter()
+        out = cli_array.run(cfg.copy())
+        wall = time.perf_counter() - t0
+    losses = torch.stack(probe.losses)
+    ms = float(np.median(probe.step_ms[1:]))
+    res = dict(run_s=wall, steps=len(probe.batches),
+               members=len(probe.state.seeds), ms_per_step=ms,
+               step_ms=probe.step_ms,
+               waveforms_per_s=len(probe.state.seeds) * B / ms * 1e3,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               first_losses=losses[0].tolist(),
+               summary={k: v for k, v in out.items() if k != "run_name"})
+    log(f"array phase, {name}: {json.dumps(res)}")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"array phase, {name}: a loss is not finite")
+    return dict(out=out, probe=probe, cfg=cfg)
+
+
+def array_against_solo(dev, run: dict) -> None:
+    """Each member of the ``seeds=`` run against the solo f32
+    ``make_train_step`` from its initial weights over the batches the run
+    took, on the card: the first loss within 1e-5 relative and the
+    parameters after the first update within 1e-4 relative L2 (the largest
+    over the tensors); the distance after the epoch printed."""
+    probe, cfg = run["probe"], run["cfg"]
+    n_steps = len(probe.batches)
+    out = []
+    for i in range(len(probe.state.seeds)):
+        model = StofNet(device=dev)
+        model.load_state_dict(probe.init[i])
+        opt, sched = make_optimizer(
+            model.parameters(), lr=float(cfg.lr),
+            weight_decay=float(cfg.weight_decay), epochs=int(cfg.epochs),
+            steps_per_epoch=n_steps)
+        step = make_train_step(model, opt, sched, cli_main._loss_config(cfg))
+        first = float(step(*probe.batches[0])["loss"])
+        first_l2 = params_rel_l2(probe.first[i], model.state_dict())
+        for b in probe.batches[1:]:
+            step(*b)
+        got = float(probe.losses[0][i])
+        out.append(dict(member=i, first_loss=got, solo_first_loss=first,
+                        first_loss_rel=abs(got - first) / abs(first),
+                        params_rel_l2_first_update=first_l2,
+                        params_rel_l2_after_epoch=params_rel_l2(
+                            probe.state.member(i), model.state_dict())))
+    log(f"array phase, members against solo steps: {json.dumps(out)}")
+    bad = [o for o in out if not (o["first_loss_rel"] <= ARRAY_LOSS_RTOL
+                                  and o["params_rel_l2_first_update"]
+                                  <= ARRAY_PARAM_RTOL)]
+    if bad:
+        raise AssertionError(f"array phase: members differ from their solo "
+                             f"steps: {bad}")
+
+
+def split_batches(cfg, n: int, dev):
+    """The first ``n`` batches of B of the test split, on the card."""
+    cfg = cfg.copy()
+    cfg.evaluate = True
+    ds, info = cli_main.build_dataset(cfg)
+    out = []
+    for batch in DataLoader(ds, batch_size=B, drop_last=True):
+        frame, gt = cli_main.batch_to_arrays(batch, info["kind"])
+        gt_true = np.round(gt[:, None, :] * UP).astype(np.int32)
+        out.append(tuple(torch.from_numpy(a).to(dev)
+                         for a in (frame, gt, gt_true)))
+        if len(out) == n:
+            return out
+    return out
+
+
+def array_eval(dev, work: Path, data: str, names: list) -> None:
+    """``cli/array.run`` with ``model_files=`` the members' checkpoints
+    (rows printed), then ``make_array_eval_step`` on the stacked
+    checkpoints against the solo eval step of each on the test split's
+    first 2 batches: >= 0.99 of the coord slots within 1 sample."""
+    cfg = array_cfg(work, data, "evaluate=True",
+                    "model_files=[" + ",".join(names) + "]")
+    t0 = time.perf_counter()
+    out = cli_array.run(cfg.copy())
+    log(f"array phase, model_files rows ({time.perf_counter() - t0:.1f} s):"
+        f" {json.dumps(out['rows'])}")
+    states = [load_model_variables("stofnet", find_checkpoint(
+        cfg.ckpt_dir, n)) for n in names]
+    stacked = {k: v.to(dev) for k, v in
+               stack_checkpoint_variables(states).items()}
+    lcfg = cli_main._loss_config(cfg)
+    aeval = make_array_eval_step(StofNet(device="meta"), lcfg)
+    res = []
+    for i, state in enumerate(states):
+        model = StofNet(device=dev)
+        model.load_state_dict(state)
+        solo, got = [], []
+        for b in split_batches(cfg, 2, dev):
+            solo.append(make_eval_step(model, lcfg)(*b)["es_sample"])
+            got.append(aeval(stacked, *b)["es_sample"][i])
+        solo, got = torch.cat(solo), torch.cat(got)
+        rows, moved = row_agreement(got, solo)
+        res.append(dict(member=names[i], agreement=coord_agreement(got, solo),
+                        row_agreement=rows, rows_moved=moved))
+    log(f"array phase, model_files against solo eval steps: "
+        f"{json.dumps(res)}")
+    if min(r["agreement"] for r in res) < AGREE_MIN:
+        raise AssertionError(f"array phase: the array eval moves the coords "
+                             f"of a member: {res}")
+
+
+def array_th_sweep(dev, work: Path, data: str, name: str) -> None:
+    """``cli/array.run`` with ``th_sweep=`` 8 thresholds from one member's
+    checkpoint (rows printed), then ``make_threshold_sweep_step`` on the
+    test split's first batch: each threshold's coords equal bit for bit to
+    ``mask2coords`` at that threshold of the same forward (cuDNN set
+    deterministic, so the two forwards give the same bits)."""
+    ths = ARRAY_THRESHOLDS
+    cfg = array_cfg(work, data, "evaluate=True", f"model_file={name}",
+                    "th_sweep=[" + ",".join(map(str, ths)) + "]")
+    t0 = time.perf_counter()
+    out = cli_array.run(cfg.copy())
+    log(f"array phase, th_sweep rows ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(out['rows'])}")
+    lcfg = cli_main._loss_config(cfg)
+    model = StofNet(device=dev)
+    model.load_state_dict(load_model_variables(
+        "stofnet", find_checkpoint(cfg.ckpt_dir, name)))
+    (frame, gs, gt), = split_batches(cfg, 1, dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = make_threshold_sweep_step(model, lcfg)(
+            model.state_dict(), frame, gs, gt,
+            torch.tensor(ths, dtype=torch.float32, device=dev))["es_sample"]
+        pred = make_eval_step(model, lcfg).forward(frame)[0]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    equal = [bool(torch.equal(got[t], mask2coords(
+        pred, window_size=lcfg.nms_win_size, threshold=th,
+        upsample_factor=lcfg.upsample_factor, max_echoes=lcfg.max_echoes)))
+        for t, th in enumerate(ths)]
+    log(f"array phase, th_sweep against mask2coords: thresholds {ths}, "
+        f"equal {equal}")
+    if not all(equal):
+        raise AssertionError(f"array phase: the sweep's coords differ at "
+                             f"thresholds {[t for t, e in zip(ths, equal) if not e]}")
+
+
+def array_profile(dev, members: int, batch: int) -> None:
+    """Device time by kernel of one ``members`` x ``batch`` array step and
+    of the members' solo steps, each on one warmed-up batch under the
+    profiler: where the vmapped step's time goes."""
+    batches = bench_array.staged(np.random.default_rng(SEED), 2, batch, L,
+                                 dev)
+
+    def build(g):
+        return StofNet(generator=g, device=dev)
+
+    state = init_array_state(build, range(members))
+    opt, sched = make_optimizer(state.params.values(), steps_per_epoch=100)
+    astep = make_array_train_step(state, opt, sched, bench_array.CFG)
+    solos = []
+    for seed in range(members):
+        model = build(torch.Generator().manual_seed(seed))
+        opt, sched = make_optimizer(model.parameters(), steps_per_epoch=100)
+        solos.append(make_train_step(model, opt, sched, bench_array.CFG))
+
+    def solo(b):
+        return [float(step(*b)["loss"]) for step in solos]
+
+    solo(batches[0])
+    astep(*batches[0])
+    out = dict(array=profile_runs(lambda b: astep(*b)["loss"].cpu(),
+                                  batches[1:]),
+               solo_steps=profile_runs(solo, batches[1:]))
+    log(f"array phase, profile of {members} members x B={batch}: "
+        f"{json.dumps(out)}")
+
+
+def array_path(dev, work: Path, data: str) -> None:
+    """The array phase (item 15 of the module docstring), the launch
+    counts set to 0 before it and held at 0 after it: JAX's array step is
+    ``jax.vmap`` of its train and eval steps, which reach no Pallas
+    kernel."""
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    seeds = array_train(dev, work, data, "seeds=2", "seeds=2")
+    array_against_solo(dev, seeds)
+    lrs = array_train(dev, work, data, "lrs", f"lrs={ARRAY_LRS}")
+    first = lrs["probe"].losses[0]
+    spread = float((first.max() - first.min()) / first.abs().max())
+    log(f"array phase, lrs first losses {first.tolist()}: bitwise equal "
+        f"{bool((first == first[0]).all())}, relative spread {spread:.3e}")
+    if not spread <= 1e-6:
+        raise AssertionError(f"array phase: the lr sweep's members do not "
+                             f"start from one init: {first.tolist()}")
+    out = seeds["out"]
+    names = [f"{out['run_name']}_seed{m['seed']}" for m in out["members"]]
+    seeds = lrs = None  # the runs' states leave the card
+    array_eval(dev, work, data, names)
+    array_th_sweep(dev, work, data, names[0])
+    fresh_peak()
+    t0 = time.perf_counter()
+    bench = bench_array.measure(dev)
+    log(f"array phase, bench_array ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(bench)}")
+    for members, batch in ((4, 32), (2, B)):
+        array_profile(dev, members, batch)
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"array phase: a kernel launched: {launched}")
+    log(f"array phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def table_cells(table: str) -> list:
+    """The cells of a sweep table's markdown rows."""
+    return [line.split("|")[1:-1] for line in table.splitlines()
+            if line.startswith("| ") and "Method" not in line]
+
+
+def sweep_path(work: Path, data: str, stofnet_ckpt: str,
+               ckpts: dict) -> None:
+    """The sweep phase (item 16 of the module docstring), the launch counts
+    set to 0 before it and held at 0 after it."""
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    run_dir = work / "sweep_runs"
+    cfg = merge_cli(load_config(cli_main.DEFAULT_CONFIG), [
+        f"data_dir={data}", f"run_dir={run_dir}",
+        f"ckpt_dir={work / 'ckpts'}"])
+    cfg.update(cli_sweep.SWEEP_OVERRIDES["chirp"])
+    rows = ([["stofnet", stofnet_ckpt, None],
+             ["stofnet", stofnet_ckpt, None, {"int8": True}]]
+            + [[n, c, None] for n, c in ckpts.items() if n != "kuleshov"]
+            + [["gradpeak", None, None], ["edsr", SWEEP_MISSING, None]])
+    results, seconds = [], []
+    for row in rows:
+        t0 = time.perf_counter()
+        results += cli_sweep.run_sweep(cfg, [row])
+        seconds.append(time.perf_counter() - t0)
+    md = cli_sweep.write_tables(results, run_dir)
+    log("sweep phase, the table:\n" + md)
+    log(f"sweep phase, seconds a row: {json.dumps(dict(zip((' '.join(map(str, r[:2])) + (' int8' if len(r) > 3 else '') for r in rows), seconds)))}")
+    errors = [r for r in results if "error" in r]
+    if errors:
+        raise AssertionError(f"sweep phase: rows failed: {errors}")
+    if f"edsr ({SWEEP_MISSING}) †" not in md:
+        raise AssertionError("sweep phase: the random-init row carries no "
+                             "dagger")
+    t0 = time.perf_counter()
+    cli_report.main([f"run_dir={run_dir}", f"num_recent={len(rows)}"])
+    rebuilt = (run_dir / "metrics_table.md").read_text()
+    log(f"sweep phase, cli/report.py ({time.perf_counter() - t0:.1f} s):\n"
+        + rebuilt)
+    sweep_rows, report_rows = table_cells(md), table_cells(rebuilt)[::-1]
+    same = len(sweep_rows) == len(report_rows) and all(
+        a[1:] == b[1:] and a[0].split()[0] == b[0].split()[0]
+        and ("†" in a[0]) == ("†" in b[0]) and ("int8" in a[0])
+        == ("int8" in b[0]) for a, b in zip(sweep_rows, report_rows))
+    if not same:
+        raise AssertionError("sweep phase: cli/report.py does not rebuild "
+                             "the sweep's table from the summaries")
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"sweep phase: a kernel launched: {launched}")
+    log(f"sweep phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def default_flags() -> None:
     """PyTorch's own TF32 defaults (cuDNN's on, cuBLAS's off), which a
     daemon process serves under: the phases after the kernel checks run
@@ -2721,10 +3101,12 @@ def main() -> int:
     int8_path(dev, state)
     paths.append(export_path(dev, state))
     with stand_in() as (work, data):
-        data_path(dev, work, data)
+        stofnet_ckpt = data_path(dev, work, data)
         ckpts = zoo_path(dev, work, data, rng_new)
         zoo_export_path(dev, work, ckpts, rng_new)
         paths.append(pala_path(dev, work))
+        array_path(dev, work, data)
+        sweep_path(work, data, stofnet_ckpt, ckpts)
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

@@ -226,7 +226,8 @@ def _loss_config(cfg: Config, model_kind: str = "heatmap") -> LossConfig:
 
 def setup(cfg: Config) -> Dict[str, Any]:
     """Common setup: seeds, dataset, model (fresh or from ``model_file=``)
-    on the device. Returns a dict."""
+    on the device. Returns a dict; its ``build(generator)`` draws another
+    fresh model of the configuration."""
     if cfg.get("mesh"):
         raise SystemExit(f"mesh=True comes with {_LATER['mesh']}")
     device = resolve_device(cfg.get("device"))
@@ -259,16 +260,22 @@ def setup(cfg: Config) -> Dict[str, Any]:
                   f"metrics will not reflect trained weights",
                   file=sys.stderr)
     dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
-    model, updates = build_model(
-        name, dataset_kind=info["kind"],
-        upsample_factor=int(cfg.upsample_factor),
+    arch = dict(
+        dataset_kind=info["kind"], upsample_factor=int(cfg.upsample_factor),
         sample_num=info["sample_num"],
         rf_scale_factor=int(cfg.rf_scale_factor), fs=info["fs"],
         th=None if cfg.th in (None, "Null") else float(cfg.th), dtype=dtype,
         semi_global_scale=int(cfg.get("semi_global_scale", 80)),
-        n_layers=unet_layers(info["kind"]),
-        generator=torch.Generator().manual_seed(int(cfg.seed)),
-        device="meta" if path is not None else device)
+        n_layers=unet_layers(info["kind"]))
+
+    def build(generator: torch.Generator) -> torch.nn.Module:
+        """A fresh model of this configuration (a job array's member)."""
+        return build_model(name, generator=generator, device=device,
+                           **arch)[0]
+
+    model, updates = build_model(
+        name, generator=torch.Generator().manual_seed(int(cfg.seed)),
+        device="meta" if path is not None else device, **arch)
     cfg.update(updates)  # what the dataset reads was folded in above
     if path is not None:
         state = load_model_variables(name, path, unet_layers(info["kind"]))
@@ -276,7 +283,7 @@ def setup(cfg: Config) -> Dict[str, Any]:
                               strict=True, assign=True)
         print(f"loaded checkpoint {path}", file=sys.stderr)
     return {"dataset": ds, "info": info, "model": model, "device": device,
-            "cfg": cfg,
+            "cfg": cfg, "build": build,
             "random_init": path is None and name != "gradpeak",
             "model_kind": "regression" if name in REGRESSION else "heatmap"}
 
@@ -598,7 +605,8 @@ def run(cfg: Config) -> Dict[str, Any]:
     ctx = setup(cfg)
     # trainable parameters only, like the reference's torchinfo count
     n_params = count_params(dict(ctx["model"].named_parameters()))
-    run_name = make_run_name(int(cfg.seed) + int(time.time()) % 100000)
+    run_name = make_run_name(int(cfg.seed) + int(time.time()) % 100000,
+                             cfg.get("run_dir", "runs"))
     logger = MetricsLogger(cfg.get("run_dir", "runs"), run_name,
                            config=dict(cfg),
                            wandb_group=cfg.logging if cfg.logging else None)

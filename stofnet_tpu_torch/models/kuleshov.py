@@ -65,12 +65,22 @@ def _pixel_shuffle_time(h: torch.Tensor) -> torch.Tensor:
     return h.reshape(b, w * 2, c // 2)
 
 
-def _dropout(h: torch.Tensor, generator: Optional[torch.Generator]
-             ) -> torch.Tensor:
+def keep_mask(shape, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """One dropout site's keep mask, drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < (
+        1.0 - DROPOUT)
+
+
+def _dropout(h: torch.Tensor, generator) -> torch.Tensor:
     """flax's Dropout: keep with probability 1 - rate, kept values scaled
-    by 1 / (1 - rate)."""
+    by 1 / (1 - rate). The keep mask is drawn from ``generator`` (a
+    ``torch.Generator`` or None), or is ``generator(shape)`` where it is a
+    function: masks drawn ahead of the forward, as the array step draws
+    each member's (``parallel/array.py``)."""
     keep = 1.0 - DROPOUT
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    mask = (generator(h.shape) if callable(generator)
+            else keep_mask(h.shape, generator, h.device))
     return torch.where(mask, h / keep, torch.zeros_like(h))
 
 
@@ -78,6 +88,7 @@ class Kuleshov(nn.Module):
     """(B, 1, L >= input_length) -> (B, 1, output_length) f32."""
 
     has_dropout = True
+    keep_mask = staticmethod(keep_mask)
 
     def __init__(self, input_length: int, output_length: int,
                  num_layers: int = 4, dtype: Optional[torch.dtype] = None,
@@ -110,8 +121,9 @@ class Kuleshov(nn.Module):
                 fc_dimensions(input_length, num_layers), output_length)
         materialize(self, device, generator)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """``generator``: the dropout masks' source in train mode (see
+        :func:`_dropout`)."""
         dt = self.dtype
         h = x[:, :, : self.input_length].transpose(1, 2)
         if dt is not None:

@@ -35,16 +35,23 @@ def nms1d(scores: torch.Tensor, window_size: int) -> torch.Tensor:
 
 
 def threshold_scores(scores: torch.Tensor,
-                     threshold: Optional[float] = None) -> torch.Tensor:
+                     threshold: Optional[float | torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Zero out sub-threshold scores; with no/zero threshold keep only each
-    row's maximum (the reference's ``if threshold:`` falsy semantics)."""
-    if not threshold:
+    row's maximum (the reference's ``if threshold:`` falsy semantics).
+
+    A tensor threshold (0-d, or batched under ``torch.func.vmap`` over a
+    threshold vector: ``parallel/array.py``'s threshold sweep) is always a
+    fixed threshold, as JAX's traced one: the per-row-max mode is a
+    branch on a Python value."""
+    if not isinstance(threshold, torch.Tensor) and not threshold:
         threshold = scores.amax(dim=-1, keepdim=True)
     return torch.where(scores < threshold, torch.zeros_like(scores), scores)
 
 
 def mask2coords(scores: torch.Tensor, window_size: int,
-                threshold: Optional[float] = None, upsample_factor: int = 1,
+                threshold: Optional[float | torch.Tensor] = None,
+                upsample_factor: int = 1,
                 max_echoes: int = 64) -> torch.Tensor:
     """Decode a (B, L) or (B, 1, L) heatmap into per-row echo positions.
 

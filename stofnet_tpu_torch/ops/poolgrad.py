@@ -24,20 +24,33 @@ def _windows(y: torch.Tensor, scale: int) -> torch.Tensor:
 
 
 class _MaxPoolLeaky(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, y, scale, negative_slope):
-        m, off = _windows(y, scale).max(dim=2)  # off: first maximal element
-        ctx.save_for_backward(off.to(torch.int32), m >= 0)
-        ctx.scale, ctx.slope, ctx.length = scale, negative_slope, y.shape[1]
-        return torch.where(m >= 0, m, negative_slope * m)
+    # forward and setup_context apart, out-of-place ops only: the form
+    # torch.func's transforms take (vmap(grad(...)) over stacked models,
+    # parallel/array.py), as jax.vmap(jax.grad(...)) takes JAX's custom_vjp
+    generate_vmap_rule = True
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(y, scale, negative_slope):
+        m, off = _windows(y, scale).max(dim=2)  # off: first maximal element
+        pos = m >= 0
+        return (torch.where(pos, m, negative_slope * m), off.to(torch.int32),
+                pos)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        y, scale, negative_slope = inputs
+        _, off, pos = output
+        ctx.mark_non_differentiable(off, pos)
+        ctx.save_for_backward(off, pos)
+        ctx.scale, ctx.slope, ctx.length = scale, negative_slope, y.shape[1]
+
+    @staticmethod
+    def backward(ctx, g, _off, _pos):
         off, pos = ctx.saved_tensors
         b, rows, f = off.shape
         g_pre = torch.where(pos, g, ctx.slope * g)
-        dy = g.new_zeros((b, rows, ctx.scale, f))
-        dy.scatter_(2, off.long()[:, :, None, :], g_pre[:, :, None, :])
+        dy = g.new_zeros((b, rows, ctx.scale, f)).scatter(
+            2, off.long()[:, :, None, :], g_pre[:, :, None, :])
         dy = dy.reshape(b, rows * ctx.scale, f)
         if rows * ctx.scale != ctx.length:  # the cropped tail gets zero
             dy = torch.nn.functional.pad(
@@ -49,4 +62,4 @@ def maxpool_leaky(y: torch.Tensor, scale: int,
                   negative_slope: float = 0.01) -> torch.Tensor:
     """(B, L, F) -> (B, L//scale, F): floor crop, window max, then leaky;
     differentiable, with the backward above."""
-    return _MaxPoolLeaky.apply(y, scale, negative_slope)
+    return _MaxPoolLeaky.apply(y, scale, negative_slope)[0]

@@ -20,14 +20,20 @@ from stofnet_tpu_torch.models.registry import import_checkpoint
 
 
 def save_checkpoint(path: str | Path, params: Mapping[str, torch.Tensor],
-                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    optimizer=None,
                     scheduler=None, step: int = 0, epoch: int = 0) -> Path:
-    """Write the training state to ``path``; returns its absolute path."""
+    """Write the training state to ``path``; returns its absolute path.
+    ``optimizer`` and ``scheduler`` are objects or their ``state_dict``s
+    (a job array's member: ``parallel/array.member_optimizer_state``)."""
+    def state(obj):
+        return (None if obj is None else obj if isinstance(obj, Mapping)
+                else obj.state_dict())
+
     path = Path(path).absolute()
     torch.save({
         "model": {k: v.detach() for k, v in params.items()},
-        "optimizer": None if optimizer is None else optimizer.state_dict(),
-        "scheduler": None if scheduler is None else scheduler.state_dict(),
+        "optimizer": state(optimizer),
+        "scheduler": state(scheduler),
         "step": int(step),
         "epoch": int(epoch),
     }, path)

@@ -253,6 +253,34 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return train_step
 
 
+def make_eval_finish(cfg: LossConfig, device):
+    """``finish(pred, gt_sample, gt_true) -> dict`` of ``loss``,
+    ``es_sample``, ``toa_metrics`` and ``masks_pred`` of a computed
+    prediction on ``device``, without gradients: the second half of
+    :func:`make_eval_step`, also the array eval's
+    (``parallel/array.py``)."""
+    kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
+    loss_fn = _loss(cfg, kernel)
+
+    @torch.no_grad()
+    def finish(pred, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
+        if cfg.model_kind == "regression":
+            es_sample = pred.reshape(pred.shape[0], -1)
+        else:
+            es_sample = mask2coords(pred, window_size=cfg.nms_win_size,
+                                    threshold=cfg.th,
+                                    upsample_factor=cfg.upsample_factor,
+                                    max_echoes=cfg.max_echoes)
+        gs = gt_sample.reshape(gt_sample.shape[0], -1)
+        with full_f32():
+            loss = loss_fn(pred, gt_sample, gt_true)
+        return {"loss": loss, "es_sample": es_sample,
+                "toa_metrics": toa_rmse(gs, es_sample, tol=cfg.etol),
+                "masks_pred": pred}
+
+    return finish
+
+
 def make_eval_step(model: nn.Module, cfg: LossConfig):
     """``eval_step(frame, gt_sample, gt_true) -> dict`` of ``loss``,
     ``es_sample`` (decoded ToAs), ``toa_metrics`` ((B, 7), ``toa_rmse``)
@@ -271,10 +299,6 @@ def make_eval_step(model: nn.Module, cfg: LossConfig):
     - ``eval_step.finish(pred, gt_sample, gt_true) -> dict``: decode, loss
       and metrics of a computed prediction.
     """
-    device = model_device(model)
-    kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
-    loss_fn = _loss(cfg, kernel)
-
     @torch.no_grad()
     def forward(frame) -> Tuple[torch.Tensor, torch.Tensor]:
         model.eval()
@@ -282,21 +306,7 @@ def make_eval_step(model: nn.Module, cfg: LossConfig):
             pred = model(frame)
         return pred, pred.float().sum()
 
-    @torch.no_grad()
-    def finish(pred, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
-        if cfg.model_kind == "regression":
-            es_sample = pred.reshape(pred.shape[0], -1)
-        else:
-            es_sample = mask2coords(pred, window_size=cfg.nms_win_size,
-                                    threshold=cfg.th,
-                                    upsample_factor=cfg.upsample_factor,
-                                    max_echoes=cfg.max_echoes)
-        gs = gt_sample.reshape(gt_sample.shape[0], -1)
-        with full_f32():
-            loss = loss_fn(pred, gt_sample, gt_true)
-        return {"loss": loss, "es_sample": es_sample,
-                "toa_metrics": toa_rmse(gs, es_sample, tol=cfg.etol),
-                "masks_pred": pred}
+    finish = make_eval_finish(cfg, model_device(model))
 
     def eval_step(frame, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
         return finish(forward(frame)[0], gt_sample, gt_true)

@@ -18,11 +18,22 @@ _NOUN = ("falcon", "river", "echo", "summit", "breeze", "comet", "harbor",
          "aurora", "signal", "meadow", "ridge", "sonar", "pulse", "drift")
 
 
-def make_run_name(seed: Optional[int] = None) -> str:
+def make_run_name(seed: Optional[int] = None,
+                  run_dir: Optional[str | Path] = None) -> str:
+    """A name drawn from ``seed``. With ``run_dir``, the first name of
+    ``seed``, ``seed + 1``, ... that no run there has logged under: two
+    runs started within one second from one seed (a sweep's rows) would
+    otherwise share a name, and the later one's summary would replace the
+    earlier one's."""
     import random
 
-    r = random.Random(seed if seed is not None else time.time_ns())
-    return f"{r.choice(_ADJ)}-{r.choice(_NOUN)}-{r.randrange(1000, 9999)}"
+    seed = seed if seed is not None else time.time_ns()
+    while True:
+        r = random.Random(seed)
+        name = f"{r.choice(_ADJ)}-{r.choice(_NOUN)}-{r.randrange(1000, 9999)}"
+        if run_dir is None or not (Path(run_dir) / f"{name}.jsonl").exists():
+            return name
+        seed += 1
 
 
 class MetricsLogger:

@@ -34,6 +34,7 @@ from stofnet_tpu_torch.models import (
 )
 from stofnet_tpu_torch.ops.conv import conv1d_same
 from stofnet_tpu_torch.ops.kernels import conv_stack, dma_probe, sgb, sgb_dma
+from stofnet_tpu_torch.parallel import init_array_state, make_array_train_step
 from stofnet_tpu_torch.scripts.dma_probe import ELEM_TOL
 from stofnet_tpu_torch.serve import make_pipeline, module_coords
 from stofnet_tpu_torch.train import (
@@ -556,6 +557,37 @@ def test_f32_module_step_computes_without_tf32_on_the_card(cuda,
         loss = step(x, torch.from_numpy(gs).to(cuda), gt)["loss"]
         runs.append((loss.cpu(), {k: p.grad.cpu()
                                   for k, p in model.named_parameters()}))
+        assert torch.backends.cudnn.allow_tf32 == tf32
+    (loss_on, grads_on), (loss_off, grads_off) = runs
+    assert torch.equal(loss_on, loss_off)
+    for k, g in grads_off.items():
+        assert torch.equal(grads_on[k], g), k
+
+
+def test_f32_array_step_computes_without_tf32_on_the_card(cuda,
+                                                          monkeypatch):
+    """The array step, as the solo one above: two f32 members' losses and
+    stacked gradients under PyTorch's default flags (cuDNN's TF32 on) equal
+    those of the same step with TF32 turned off by hand, bit for bit, and
+    the caller's flag is left on (the vmapped convs are grouped convs of
+    cuDNN, which reads the flags at each launch)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(gate_batch(8, 8000, rng)).to(cuda)
+    gs = np.stack([rng.uniform(500, 7500, 8)], -1).astype(np.float32)
+    gt = torch.from_numpy(np.round(gs[:, None, :] * 4).astype(
+        np.int32)).to(cuda)
+    runs = []
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        state = init_array_state(
+            lambda g: StofNet(generator=g, device=cuda), [5, 6])
+        opt, sched = make_optimizer(state.params.values())
+        step = make_array_train_step(state, opt, sched, LossConfig(
+            upsample_factor=4, max_echoes=8))
+        loss = step(x, torch.from_numpy(gs).to(cuda), gt)["loss"]
+        runs.append((loss.cpu(), {k: p.grad.cpu()
+                                  for k, p in state.params.items()}))
         assert torch.backends.cudnn.allow_tf32 == tf32
     (loss_on, grads_on), (loss_off, grads_off) = runs
     assert torch.equal(loss_on, loss_off)

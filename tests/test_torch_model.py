@@ -174,7 +174,15 @@ def test_port_imports_no_jax():
             "stofnet_tpu_torch.ops.svd_filter",
             "stofnet_tpu_torch.ops.beamform",
             "stofnet_tpu_torch.data.pala",
-            "stofnet_tpu_torch.scripts.pala_bmode_figure"} <= set(modules)
+            "stofnet_tpu_torch.scripts.pala_bmode_figure",
+            "stofnet_tpu_torch.parallel.__init__",
+            "stofnet_tpu_torch.parallel.array",
+            "stofnet_tpu_torch.cli.array", "stofnet_tpu_torch.cli.sweep",
+            "stofnet_tpu_torch.cli.report",
+            "stofnet_tpu_torch.scripts.run_array",
+            "stofnet_tpu_torch.scripts.bench_array",
+            "stofnet_tpu_torch.scripts.run_chirp_sweep",
+            "stofnet_tpu_torch.scripts.run_pala_sweeps"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m.removesuffix('.__init__'))\n"
