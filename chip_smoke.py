@@ -292,11 +292,39 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    must rebuild the table's cells from the runs' summaries (newest first;
    a summary holds no checkpoint name, so a label keeps its model, its
    dagger and its int8 mark). Prints both tables.
-17. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+17. The mesh phase (``parallel/mesh.py``; one card, so dp=1 wherever the
+   entry points run their own ranks), on the stand-in: ``cli/main.run
+   mesh=True mesh_dp=1`` (NCCL, world size 1) for one f32 epoch beside the
+   same run without a mesh, the launch counts set to 0 before the runs
+   and held at 0 after them: the first loss equal bit for bit, the
+   parameters after the epoch within 1e-4 relative L2 and ``val_loss``
+   within rtol 1e-3; then ``evaluate=True th=Null`` (a detection in
+   every row) from the run's checkpoint with and without the mesh,
+   ``val_loss``, distance and Jaccard equal bit for bit. Then 2 ranks on
+   the card (``parallel/mesh.launch``, both on cuda:0, gloo: NCCL takes
+   one rank a card) each take 64 rows of
+   one B=128 batch at L=8000 through ``scripts/dp_check``: the f32
+   StofNet step and the SincNet step (BatchNorm), held to the single
+   process's step on the whole batch by ``tests/test_parallel.py``'s
+   rules (the loss within rtol 1e-5, 99.9 % of the parameters within
+   1e-5 and all within 2 lr, SincNet's running statistics within rtol
+   1e-5, atol 1e-6), every rank's parameters rank 0's bit for bit; ms a
+   step for the 2 ranks against the single step, and whether gloo itself
+   takes CUDA tensors (``parallel/mesh.py`` stages gloo's collectives
+   through the host by rule). Then the daemon with ``mesh=True
+   mesh_dp=1`` in bf16 at L=8000, from the data phase's checkpoint and
+   from an artifact exported from it, under the daemon phase's traffic:
+   every row ``make_pipeline``'s direct coords bit for bit (the rows the
+   daemon without a mesh gives, as the daemon phase holds it), both
+   serving kernels once a batch, counted into the kernels line. Last
+   ``cli/array.run mesh=True mesh_dp=1 seeds=2`` for one epoch: each
+   member's first loss equal bit for bit to the array phase's ``seeds=2``
+   run's. Prints the phase's seconds.
+18. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
    launches of its paths: the serving, bench, training, probe, daemon,
-   export and PALA serving runs, each counted from 0, summed over the
-   paths that launch it; the serving instantiation's launches go to
-   ``sgb_contract_pool`` at L_UNCHUNKED and L_PALA and to
+   export, PALA serving and mesh daemon runs, each counted from 0, summed
+   over the paths that launch it; the serving instantiation's launches go
+   to ``sgb_contract_pool`` at L_UNCHUNKED and L_PALA and to
    ``sgb_contract_pool_dma`` at L, on the fused path and through the
    daemons), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -368,7 +396,8 @@ from stofnet_tpu_torch.parallel import (
     init_array_state, make_array_eval_step, make_array_train_step,
     make_threshold_sweep_step, stack_checkpoint_variables,
 )
-from stofnet_tpu_torch.scripts import bench_array
+from stofnet_tpu_torch.parallel import mesh as dp_mesh
+from stofnet_tpu_torch.scripts import bench_array, dp_check
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
 from stofnet_tpu_torch.scripts import pala_bmode_figure as figure
 from stofnet_tpu_torch.serve import (
@@ -464,6 +493,11 @@ ARRAY_THRESHOLDS = [0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0]
 ARRAY_LOSS_RTOL = 1e-5  # a member's first loss against its solo step's
 ARRAY_PARAM_RTOL = 1e-4  # relative L2 after the first update
 SWEEP_MISSING = "no-such-prefix"  # the sweep's random-init row
+MESH_PARAM_RTOL = 1e-4  # relative L2 after an epoch, mesh against none
+MESH_LOSS_RTOL = 1e-5  # the 2-rank step's loss (tests/test_parallel.py)
+MESH_AGREE = 1e-5  # a parameter within it after the 2-rank step ...
+MESH_SHARE = 0.999  # ... for this share of them, all within 2 lr
+MESH_TIMED = 2  # steps timed after the compared one
 
 
 def log(msg: str) -> None:
@@ -2362,8 +2396,9 @@ def zoo_export_family(dev, name: str, work: Path, ckpts: dict, rng) -> None:
     gate batches against ``make_pipeline(model_name=)`` on the card on the
     same state (under ``full_f32``, as a loaded program runs); then the
     daemon twice at bf16, from the checkpoint (``model=``) and from the
-    bf16 artifact (``artifact=``), one request of B rows each. Every row
-    must equal the direct pipeline's bit for bit."""
+    bf16 artifact (``artifact=``), one request of B rows each, held to
+    the bf16 direct pipeline. Every row must equal the direct pipeline's
+    bit for bit."""
     t_family = time.perf_counter()
     length = zoo_length(name)
     base = zoo_export_argv(name, work, ckpts)
@@ -2420,12 +2455,12 @@ def zoo_export_family(dev, name: str, work: Path, ckpts: dict, rng) -> None:
             raise AssertionError(f"zoo export {name} {label}: rows differ "
                                  f"from make_pipeline's: {res[label]}")
         paths[label] = path
-        del served, direct
-    # the daemon at bf16: from the checkpoint and from the bf16 artifact
+        del served
+        if label == "f32":
+            del direct  # bf16's stays for the daemons
+    # the daemon at bf16, held to the bf16 direct pipeline: from the
+    # checkpoint and from the bf16 artifact
     x = batches[1]
-    direct = make_pipeline(state, ov, model_name=name, dtype=torch.bfloat16,
-                           device=dev, max_echoes=DECODE["max_echoes"],
-                           threshold=None)
     want_module = direct(x).cpu().numpy()
     with full_f32():
         want_program = direct(x).cpu().numpy()
@@ -2955,11 +2990,11 @@ def array_profile(dev, members: int, batch: int) -> None:
         f"{json.dumps(out)}")
 
 
-def array_path(dev, work: Path, data: str) -> None:
+def array_path(dev, work: Path, data: str) -> torch.Tensor:
     """The array phase (item 15 of the module docstring), the launch
     counts set to 0 before it and held at 0 after it: JAX's array step is
     ``jax.vmap`` of its train and eval steps, which reach no Pallas
-    kernel."""
+    kernel. Returns the ``seeds=2`` run's first losses."""
     t_phase = time.perf_counter()
     reset_launch_counts()
     seeds = array_train(dev, work, data, "seeds=2", "seeds=2")
@@ -2974,6 +3009,7 @@ def array_path(dev, work: Path, data: str) -> None:
                              f"start from one init: {first.tolist()}")
     out = seeds["out"]
     names = [f"{out['run_name']}_seed{m['seed']}" for m in out["members"]]
+    seeds_first = seeds["probe"].losses[0]
     seeds = lrs = None  # the runs' states leave the card
     array_eval(dev, work, data, names)
     array_th_sweep(dev, work, data, names[0])
@@ -2988,6 +3024,7 @@ def array_path(dev, work: Path, data: str) -> None:
     if launched:
         raise AssertionError(f"array phase: a kernel launched: {launched}")
     log(f"array phase: {time.perf_counter() - t_phase:.1f} s")
+    return seeds_first
 
 
 def table_cells(table: str) -> list:
@@ -3042,6 +3079,174 @@ def sweep_path(work: Path, data: str, stofnet_ckpt: str,
     if launched:
         raise AssertionError(f"sweep phase: a kernel launched: {launched}")
     log(f"sweep phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_driver(work: Path, data: str) -> None:
+    """``cli/main.run mesh=True mesh_dp=1`` (NCCL, world size 1) against
+    the same run without a mesh: one f32 epoch, then ``evaluate=True``
+    from the run's checkpoint both ways; the launch counts held at 0."""
+    reset_launch_counts()
+    common = ["model=stofnet", f"batch_size={B}", f"data_dir={data}",
+              f"run_dir={work / 'mesh_runs'}", f"ckpt_dir={work / 'ckpts'}"]
+    mesh = ["mesh=True", "mesh_dp=1"]
+    runs = {}
+    for name, argv in (("without", []), ("mesh", mesh)):
+        cfg = merge_cli(load_config(cli_main.DEFAULT_CONFIG),
+                        [*common, "epochs=1", *argv])
+        t0 = time.perf_counter()
+        summary = cli_main.run(cfg)
+        log_path = Path(cfg.run_dir) / f"{summary['run_name']}.jsonl"
+        losses = [json.loads(line)["train_loss"]
+                  for line in log_path.read_text().splitlines()
+                  if '"event": "train"' in line]
+        runs[name] = dict(summary=summary, losses=losses,
+                          s=time.perf_counter() - t0,
+                          params=load_model_variables(
+                              "stofnet", summary["checkpoint"]))
+    a, b = runs["mesh"], runs["without"]
+    flat = {k: torch.cat([v.float().reshape(-1)
+                          for v in r["params"].values()])
+            for k, r in runs.items()}
+    out = dict(first_loss=[a["losses"][0], b["losses"][0]],
+               first_loss_equal=a["losses"][0] == b["losses"][0],
+               params_rel_l2=rel_l2(flat["mesh"], flat["without"]),
+               val_loss=[a["summary"]["val_loss"], b["summary"]["val_loss"]],
+               run_s=[a["s"], b["s"]])
+    ckpt = Path(b["summary"]["checkpoint"]).name
+    evals = {}
+    for name, argv in (("without", []), ("mesh", mesh)):
+        cfg = merge_cli(load_config(cli_main.DEFAULT_CONFIG), [
+            *common, f"model_file={ckpt}", "evaluate=True", "th=Null",
+            *argv])
+        evals[name] = cli_main.run(cfg)
+    keys = ("val_loss", "total_distance_mean", "total_jaccard")
+    out["evaluation"] = {k: [evals["mesh"][k], evals["without"][k]]
+                         for k in keys}
+    out["evaluation_equal"] = all(
+        np.array_equal(evals["mesh"][k], evals["without"][k],
+                       equal_nan=True) for k in keys)
+    log(f"mesh phase, the driver at dp=1: {json.dumps(out)}")
+    val = out["val_loss"]
+    if not (out["first_loss_equal"] and out["evaluation_equal"]
+            and out["params_rel_l2"] <= MESH_PARAM_RTOL
+            and abs(val[0] - val[1]) <= 1e-3 * abs(val[1])):
+        raise AssertionError(f"mesh phase: the driver at dp=1 is not the "
+                             f"run without a mesh: {out}")
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"mesh phase: the driver launched {launched}")
+
+
+def mesh_two_ranks() -> None:
+    """2 ranks on cuda:0 (gloo) each take 64 rows of one B=128 batch at
+    L=8000 through ``scripts/dp_check``, against the single process's
+    step on the whole batch."""
+    cases = [dp_check.stofnet_case(L, B, timed=MESH_TIMED),
+             dp_check.sincnet_case(L, B, timed=MESH_TIMED)]
+    t0 = time.perf_counter()
+    ranks = dp_mesh.launch(dp_check.run_cases, (cases, "cuda:0", True),
+                           devices=["cuda:0", "cuda:0"], backend="gloo")
+    launch_s = time.perf_counter() - t0
+    alone = dp_check.run_cases(cases, "cuda:0")
+    gloo = ranks.pop()["gloo_cuda"]
+    lr = OPT["lr"]
+    out, bad = {"launch_s": launch_s, "gloo_takes_cuda": gloo,
+                "gloo_route": "host copies, by rule (parallel/mesh.py)"}, []
+    for case, dp, one in zip(cases, ranks, alone):
+        diff = np.abs(np.concatenate([np.ravel(dp["params"][k] - v)
+                                      for k, v in one["params"].items()]))
+        res = dict(loss=[dp["loss"][0], one["loss"][0]],
+                   share_within=float(np.mean(diff < MESH_AGREE)),
+                   max_param_diff=float(diff.max()),
+                   ranks_equal=dp["ranks_equal"],
+                   ms_2_ranks=dp["ms"], ms_single=one["ms"])
+        stats = [k for k in one["buffers"]
+                 if k.endswith(("running_mean", "running_var"))]
+        if stats:
+            res["stats_max_diff"] = max(
+                float(np.abs(dp["buffers"][k] - one["buffers"][k]).max())
+                for k in stats)
+            if not all(np.allclose(dp["buffers"][k], one["buffers"][k],
+                                   rtol=1e-5, atol=1e-6) for k in stats):
+                bad.append(f"{case['model']} statistics")
+        if not (abs(res["loss"][0] - res["loss"][1])
+                <= MESH_LOSS_RTOL * abs(res["loss"][1])
+                and res["share_within"] > MESH_SHARE
+                and res["max_param_diff"] < 2 * lr and res["ranks_equal"]):
+            bad.append(case["model"])
+        out[case["model"]] = res
+    log(f"mesh phase, 2 ranks on one card: {json.dumps(out)}")
+    if bad:
+        raise AssertionError(f"mesh phase: the 2-rank step misses the "
+                             f"single step: {bad}")
+
+
+def mesh_daemon(dev, work: Path, stofnet_ckpt: str) -> dict:
+    """The daemon with ``mesh=True mesh_dp=1`` in bf16 at L, from the data
+    phase's checkpoint and from an artifact exported from it, under
+    :func:`daemon_traffic`. Returns the launches by kernels-line row."""
+    rng = np.random.default_rng(SEED + 7)
+    state = load_model_variables("stofnet", find_checkpoint(
+        work / "ckpts", stofnet_ckpt))
+    state = {k: v.to(dev) for k, v in state.items()}
+    rows = list(gate_batch(DAEMON_CLIENTS * DAEMON_REQUESTS, L, rng)[:, 0])
+    batch = gate_batch(B, L, rng)[:, 0]
+    mesh = {"mesh": True, "mesh_dp": 1, "max_batch": B, "max_wait_ms": 2,
+            "port": 0}
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        art = save_pipeline(Path(tmp) / "mesh.pt2", export_pipeline(
+            state, {"upsample_factor": UP}, "b", L, device=dev,
+            max_echoes=DAEMON_ECHOES))
+        for name, args in (
+                ("checkpoint", {"model_file": stofnet_ckpt,
+                                "ckpt_dir": str(work / "ckpts"),
+                                "length": L, "dtype": "bfloat16"}),
+                ("artifact", {"artifact": str(art)})):
+            _, served = daemon_traffic(f"mesh phase, daemon dp=1 from "
+                                       f"{name}", {**args, **mesh}, state,
+                                       dev, rows, batch,
+                                       dtype=torch.bfloat16)
+            if not all(served.values()):
+                raise AssertionError(f"mesh phase, daemon from {name}: a "
+                                     f"kernel did not launch: {served}")
+            for k, v in served.items():
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def mesh_array(work: Path, data: str, array_first: torch.Tensor) -> None:
+    """``cli/array.run mesh=True mesh_dp=1 seeds=2``, one epoch: each
+    member's first loss equal bit for bit to the array phase's."""
+    reset_launch_counts()
+    cfg = array_cfg(work, data, "epochs=1", "seeds=2", "mesh=True",
+                    "mesh_dp=1")
+    with ArrayProbe() as probe:
+        t0 = time.perf_counter()
+        cli_array.run(cfg.copy())
+        wall = time.perf_counter() - t0
+    first = probe.losses[0]
+    out = dict(run_s=wall, first_losses=[first.tolist(),
+                                         array_first.tolist()],
+               equal=bool(torch.equal(first, array_first)))
+    log(f"mesh phase, the array at dp=1: {json.dumps(out)}")
+    launched = {k: v for k, v in counts().items() if v}
+    if not out["equal"] or launched:
+        raise AssertionError(f"mesh phase: the array's first losses differ "
+                             f"or a kernel launched: {out}, {launched}")
+
+
+def mesh_path(dev, work: Path, data: str, stofnet_ckpt: str,
+              array_first: torch.Tensor) -> dict:
+    """The mesh phase (item 17 of the module docstring). Returns the mesh
+    daemon's launches by kernels-line row."""
+    t_phase = time.perf_counter()
+    mesh_driver(work, data)
+    mesh_two_ranks()
+    launches = mesh_daemon(dev, work, stofnet_ckpt)
+    mesh_array(work, data, array_first)
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def default_flags() -> None:
@@ -3105,8 +3310,9 @@ def main() -> int:
         ckpts = zoo_path(dev, work, data, rng_new)
         zoo_export_path(dev, work, ckpts, rng_new)
         paths.append(pala_path(dev, work))
-        array_path(dev, work, data)
+        array_first = array_path(dev, work, data)
         sweep_path(work, data, stofnet_ckpt, ckpts)
+        paths.append(mesh_path(dev, work, data, stofnet_ckpt, array_first))
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

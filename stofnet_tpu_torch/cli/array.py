@@ -37,8 +37,16 @@ Here the members are vmapped over a member axis in one process
 Early stopping in train mode watches the mean member validation loss: the
 members run in lockstep and finish together.
 
-Departures from the JAX driver: ``mesh=True`` (member sharding) is
-refused until ``parallel/mesh.py``; ``model_files=`` is searched in
+``mesh=True [mesh_dp=N]`` shards the members over the dp axis
+(``parallel/array.shard_members``): ranks on ``torch.distributed`` as
+``cli/main.py``'s (started here, or this process as one rank under
+``torchrun``), each training or evaluating its N / dp members with the
+vmapped step on the whole batch; rank 0 gathers the members' losses and
+metrics in member order and writes the logs, and each rank writes its
+own members' checkpoints. JAX's refusals stay: ``mesh_sp`` must be 1,
+and dp must divide N. ``th_sweep=`` runs on one device, as JAX's.
+
+Departures from the JAX driver: ``model_files=`` is searched in
 ``ckpt_dir=`` only, as ``cli/main.py``'s ``model_file=``.
 """
 
@@ -47,7 +55,7 @@ from __future__ import annotations
 import sys
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -61,8 +69,11 @@ from stofnet_tpu_torch.data.loader import (
 )
 from stofnet_tpu_torch.parallel import (
     init_array_state, make_array_eval_step, make_array_train_step,
-    make_threshold_sweep_step, member_optimizer_state,
+    make_threshold_sweep_step, member_optimizer_state, shard_members,
     stack_checkpoint_variables,
+)
+from stofnet_tpu_torch.parallel.mesh import (
+    broadcast_object, config_mesh, gather_rows, live, run_ranks,
 )
 from stofnet_tpu_torch.train.checkpoint import (
     find_checkpoint, load_model_variables, save_checkpoint,
@@ -101,7 +112,46 @@ def _members(cfg: Config):
     return seeds, lrs, [lr / float(cfg.lr) for lr in lrs], same_init
 
 
-def train_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
+def _n_members(cfg: Config) -> Optional[int]:
+    """The member count the mesh shards: the train mode's, or
+    ``model_files=``'s; None for ``th_sweep=`` (one device)."""
+    if cfg.get("seeds") or cfg.get("lrs"):
+        return len(_members(cfg)[0])
+    if cfg.get("th_sweep"):
+        return None
+    return len(cfg.get("model_files") or [])
+
+
+def _member_check(cfg: Config, n: int) -> Callable[[int], None]:
+    """JAX's refusals of member sharding: ``mesh_sp`` must be 1 (at once,
+    a rule of the array that holds after ROADMAP A.6b too), and dp must
+    divide the ``n`` members (the returned check)."""
+    if int(cfg.get("mesh_sp") or 1) != 1:
+        raise ValueError("array mode shards members over dp; mesh_sp "
+                         "must be 1 (length sharding would need per-member "
+                         "batch sharding too)")
+
+    def check(dp: int) -> None:
+        if n % dp:
+            raise ValueError(f"{n} members not divisible by mesh dp={dp}")
+    return check
+
+
+def _mine(mesh, n: int) -> range:
+    """The members of this rank: all of them without a mesh."""
+    if mesh is None:
+        return range(n)
+    k = n // mesh.dp
+    return range(mesh.rank * k, (mesh.rank + 1) * k)
+
+
+def _gather(mesh, t: torch.Tensor) -> np.ndarray:
+    """Every member's rows (member order) of a per-member tensor."""
+    return (t if mesh is None else gather_rows(mesh, t)).cpu().numpy()
+
+
+def train_array(cfg: Config, logger: MetricsLogger,
+                mesh=None) -> Dict[str, Any]:
     seeds, lrs, lr_scales, same_init = _members(cfg)
     n = len(seeds)
     ctx = setup(cfg)
@@ -123,6 +173,14 @@ def train_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
     lcfg = _loss_config(cfg, ctx["model_kind"])
     state = init_array_state(ctx["build"], seeds,
                              allow_duplicate_seeds=same_init)
+    mine = _mine(mesh, n)
+    if mesh is not None:
+        state = shard_members(mesh, state)
+        if lr_scales:
+            lr_scales = [lr_scales[i] for i in mine]
+        if mesh.rank == 0:
+            print(f"array train: {n} members over dp={mesh.shape['dp']}",
+                  file=sys.stderr)
     optimizer, scheduler = make_optimizer(
         state.params.values(), lr=float(cfg.lr),
         weight_decay=float(cfg.weight_decay), epochs=int(cfg.epochs),
@@ -135,8 +193,9 @@ def train_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
 
     early = EarlyStopping(patience=int(cfg.patience), delta=float(cfg.delta))
     put = DevicePut(ctx["device"])
-    profiler = StepTraceProfiler(cfg.get("profile_dir"),
-                                 cfg.get("profile_steps") or 5)
+    profiler = StepTraceProfiler(
+        cfg.get("profile_dir") if logger.write else None,
+        cfg.get("profile_steps") or 5)
     # unique member tags (the seed alone repeats in a same-init lr sweep)
     member_tags = [f"seed{s}" + (f"_lr{lrs[i]:g}" if lrs else "")
                    for i, s in enumerate(seeds)]
@@ -149,7 +208,7 @@ def train_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
         lr_epoch = float(optimizer.param_groups[0]["lr"])
         for _, dev in pipeline_batches(
                 _host_batches(train_loader, up, kind), put):
-            losses = astep(*dev)["loss"].cpu().numpy()
+            losses = _gather(mesh, astep(*dev)["loss"])
             profiler.step()  # no-op unless profile_dir= is set
             if not np.all(np.isfinite(losses)):
                 bad = [member_tags[i]
@@ -164,8 +223,8 @@ def train_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
         for _, dev in pipeline_batches(
                 _host_batches(val_loader, up, kind), put):
             out = aeval(state.variables(), *dev)
-            vlosses.append(out["loss"].cpu().numpy())  # (N,)
-            vmetrics.append(out["toa_metrics"].cpu().numpy())  # (N, B, 7)
+            vlosses.append(_gather(mesh, out["loss"]))  # (N,)
+            vmetrics.append(_gather(mesh, out["toa_metrics"]))  # (N, B, 7)
         val_losses = np.sum(vlosses, axis=0)
         vm = np.concatenate(vmetrics, axis=1)  # (N, B_total, 7)
         epochs_run = epoch + 1
@@ -180,18 +239,22 @@ def train_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
             break
 
     profiler.close()  # write an unfinished trace window (short runs)
-    # a checkpoint per member: each member is a single model's state
-    ckpt_dir = Path(cfg.ckpt_dir)
+    # a checkpoint per member: each member is a single model's state; each
+    # rank writes its own members'
+    ckpt_dir = Path(cfg.ckpt_dir).absolute()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     members = []
     for i, seed in enumerate(seeds):
         name = (f"{logger.run_name}_{member_tags[i]}"
                 f"_rf-scale{cfg.rf_scale_factor}_epoch_{epochs_run}")
-        path = save_checkpoint(
-            ckpt_dir / name, state.member(i),
-            member_optimizer_state(optimizer, i,
-                                   lr_scales[i] if lr_scales else 1.0),
-            scheduler, step=scheduler.last_epoch, epoch=epochs_run)
+        path = ckpt_dir / name
+        if i in mine:
+            j = i - mine.start  # its index on this rank
+            save_checkpoint(
+                path, state.member(j),
+                member_optimizer_state(optimizer, j,
+                                       lr_scales[j] if lr_scales else 1.0),
+                scheduler, step=scheduler.last_epoch, epoch=epochs_run)
         members.append({"seed": seed,
                         **({"lr": lrs[i]} if lrs else {}),
                         "val_loss": float(val_losses[i]),
@@ -211,11 +274,13 @@ def train_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
     return summary
 
 
-def eval_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
+def eval_array(cfg: Config, logger: MetricsLogger,
+               mesh=None) -> Dict[str, Any]:
     """Multi-checkpoint (``model_files=[...]``) or multi-threshold
     (``th_sweep=[...]``) evaluation over the test split."""
-    profiler = StepTraceProfiler(cfg.get("profile_dir"),
-                                 cfg.get("profile_steps") or 5)
+    profiler = StepTraceProfiler(
+        cfg.get("profile_dir") if logger.write else None,
+        cfg.get("profile_steps") or 5)
     cfg.evaluate = True
     ctx = setup(cfg)
     ds, kind, device = ctx["dataset"], ctx["info"]["kind"], ctx["device"]
@@ -257,8 +322,10 @@ def eval_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
             vlist.append(load_model_variables(cfg.model, path,
                                               unet_layers(kind)))
             print(f"loaded checkpoint {path}", file=sys.stderr)
-        variables = {k: v.to(device) for k, v in
-                     stack_checkpoint_variables(vlist).items()}
+        variables = stack_checkpoint_variables(vlist)
+        if mesh is not None:
+            variables = shard_members(mesh, variables)
+        variables = {k: v.to(device) for k, v in variables.items()}
         aeval = make_array_eval_step(ctx["model"], lcfg)
 
         def run(f, gs, gt):
@@ -272,10 +339,10 @@ def eval_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
     for _, dev in pipeline_batches(_host_batches(loader, up, kind),
                                    DevicePut(device)):
         out = run(*dev)
-        all_metrics.append(out["toa_metrics"].cpu().numpy())  # (N, B, 7)
+        all_metrics.append(_gather(mesh, out["toa_metrics"]))  # (N, B, 7)
         profiler.step()  # no-op unless profile_dir= is set
         if "loss" in out:
-            losses.append(out["loss"].cpu().numpy())
+            losses.append(_gather(mesh, out["loss"]))
 
     profiler.close()  # write an unfinished trace window (short splits)
     vm = np.concatenate(all_metrics, axis=1)  # (N, total, 7)
@@ -303,9 +370,10 @@ def eval_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
                   f"{r['total_jaccard']:.1f} | {r['precision']:.2f} | "
                   f"{r['recall']:.2f} |")
     table = "\n".join(md)
-    (Path(logger.run_dir) / f"{logger.run_name}_array_table.md").write_text(
-        table + "\n")
-    print(table)
+    if logger.write:
+        (Path(logger.run_dir) / f"{logger.run_name}_array_table.md"
+         ).write_text(table + "\n")
+        print(table)
     summary = {"mode": "th_sweep" if th_sweep else "eval_array",
                "rows": rows}
     logger.set_summary(mode=summary["mode"], members=len(rows))
@@ -313,16 +381,30 @@ def eval_array(cfg: Config, logger: MetricsLogger) -> Dict[str, Any]:
 
 
 def run(cfg: Config) -> Dict[str, Any]:
+    n = _n_members(cfg) if cfg.get("mesh") else None
+    if cfg.get("mesh") and n is None:  # th_sweep=: one device, as JAX's
+        cfg.update(mesh=False)
+    if n is not None and not live():
+        return run_ranks(run, cfg, _member_check(cfg, n))
+    config = dict(cfg)
+    mesh = None
+    if n is not None:
+        # members ride dp; each rank's model and data on its own device
+        mesh = config_mesh(cfg, _member_check(cfg, n))
+        cfg.update(mesh=False, device=str(mesh.device))
     run_name = make_run_name(int(cfg.seed) + int(time.time()) % 100000,
                              cfg.get("run_dir", "runs"))
+    if mesh is not None:  # rank 0's name on every rank
+        run_name = broadcast_object(mesh, run_name)
     logger = MetricsLogger(cfg.get("run_dir", "runs"), run_name,
-                           config=dict(cfg),
-                           wandb_group=cfg.logging if cfg.logging else None)
+                           config=config,
+                           wandb_group=cfg.logging if cfg.logging else None,
+                           write=mesh is None or mesh.rank == 0)
     try:
         if cfg.get("seeds") or cfg.get("lrs"):
-            out = train_array(cfg, logger)
+            out = train_array(cfg, logger, mesh)
         else:
-            out = eval_array(cfg, logger)
+            out = eval_array(cfg, logger, mesh)
         out["run_name"] = run_name
         return out
     finally:

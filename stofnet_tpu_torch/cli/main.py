@@ -17,8 +17,22 @@ Departures from the JAX driver:
 - ``device=`` (new): the card (``cuda``) by default, as every entry point
   of the port; ``device=cpu`` runs on the CPU. Without a card and without
   ``device=cpu``, ``setup`` raises.
-- Refused, with ``SystemExit`` naming the slice that brings it:
-  ``mesh=True`` (the mesh slice).
+- ``mesh=True [mesh_dp=N]`` runs data-parallel ranks on
+  ``torch.distributed`` (``parallel/mesh.py``), one process a device:
+  started here (this process rank 0, the others spawned) when no process
+  group is live, or this process as one rank under ``torchrun`` or
+  ``parallel.init_distributed``. JAX's run is one program over the global
+  batch; here each rank loads its rows of each global batch
+  (``DataLoader(shard=)``) and the steps compute the global batch's loss
+  normaliser, BatchNorm statistics, gradient mean, dropout masks and
+  evaluation rows (``train/steps.py``). ``run`` returns rank 0's summary.
+  Only rank 0 writes the run's files (JSONL, summary, checkpoints,
+  ``export_pth``, figures, artifacts, traces); every rank reads
+  ``model_file=`` and ``resume=``, and rank 0's weights are broadcast.
+  ``mesh_dp`` defaults to the card count (1 on the CPU, where any dp
+  runs: the ranks share the CPU) and may not exceed it. ``mesh_sp > 1``
+  is refused with ``SystemExit`` naming the slice that brings it
+  (ROADMAP A.6b).
 - ``compile_cache=`` is accepted and does nothing (eager PyTorch compiles
   nothing to cache); a line on stderr says so.
 - A fresh model is drawn from ``torch.Generator().manual_seed(seed)``
@@ -37,7 +51,7 @@ import random as pyrandom
 import sys
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +66,10 @@ from stofnet_tpu_torch.models.registry import (
 )
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.peaks import coords2mask
+from stofnet_tpu_torch.parallel.mesh import (
+    SP_LATER, broadcast_object, config_mesh, gather_rows, live, replicate,
+    run_ranks,
+)
 from stofnet_tpu_torch.train.checkpoint import (
     find_checkpoint, load_checkpoint, load_model_variables, save_checkpoint,
 )
@@ -69,7 +87,7 @@ DEFAULT_CONFIG = Path(__file__).parent / "config.yaml"
 
 # what the port does not run yet, and the slice (ROADMAP queue A) that
 # brings it
-_LATER = {"mesh": "A.6, parallel/mesh.py"}
+_LATER = {"mesh_sp": SP_LATER}
 
 
 def unet_layers(kind: str) -> int:
@@ -224,13 +242,25 @@ def _loss_config(cfg: Config, model_kind: str = "heatmap") -> LossConfig:
     )
 
 
+def _batch_check(cfg: Config) -> Callable[[int], None]:
+    """JAX's ``_shard_inputs`` refusal: a batch that dp does not divide."""
+    def check(dp: int) -> None:
+        if int(cfg.batch_size) % dp:
+            raise ValueError(f"batch_size={cfg.batch_size} not divisible by "
+                             f"mesh_dp={dp}")
+    return check
+
+
 def setup(cfg: Config) -> Dict[str, Any]:
     """Common setup: seeds, dataset, model (fresh or from ``model_file=``)
     on the device. Returns a dict; its ``build(generator)`` draws another
-    fresh model of the configuration."""
-    if cfg.get("mesh"):
-        raise SystemExit(f"mesh=True comes with {_LATER['mesh']}")
-    device = resolve_device(cfg.get("device"))
+    fresh model of the configuration. Under ``mesh=True`` (a live process
+    group) the device is this rank's and ``mesh`` its mesh; the model
+    holds rank 0's weights."""
+    mesh = (config_mesh(cfg, _batch_check(cfg)) if cfg.get("mesh")
+            else None)
+    device = (mesh.device if mesh is not None
+              else resolve_device(cfg.get("device")))
     pyrandom.seed(cfg.seed)
     np.random.seed(cfg.seed)
 
@@ -282,8 +312,10 @@ def setup(cfg: Config) -> Dict[str, Any]:
         model.load_state_dict({k: v.to(device) for k, v in state.items()},
                               strict=True, assign=True)
         print(f"loaded checkpoint {path}", file=sys.stderr)
+    if mesh is not None:
+        replicate(mesh, model)
     return {"dataset": ds, "info": info, "model": model, "device": device,
-            "cfg": cfg, "build": build,
+            "cfg": cfg, "build": build, "mesh": mesh,
             "random_init": path is None and name != "gradpeak",
             "model_kind": "regression" if name in REGRESSION else "heatmap"}
 
@@ -315,6 +347,9 @@ def _int8_eval_step(ctx: Dict[str, Any], loader, finish):
     if not calib:
         raise ValueError("int8=True needs at least one eval batch for the "
                          "pre-pool requantization calibration")
+    if ctx["mesh"] is not None:  # the global batches' calibration
+        calib = [gather_rows(ctx["mesh"], torch.from_numpy(c)).numpy()
+                 for c in calib]
     ov = {"upsample_factor": int(model.upsample_factor),
           "num_blocks": int(model.num_blocks),
           "semi_global_scale": int(model.semi_global_scale)}
@@ -341,15 +376,18 @@ def _int8_eval_step(ctx: Dict[str, Any], loader, finish):
 
 def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     """Benchmark protocol: whole test split, metrics per frame."""
-    cfg = ctx["cfg"]
-    profiler = StepTraceProfiler(cfg.get("profile_dir"),
+    cfg, mesh = ctx["cfg"], ctx["mesh"]
+    writer = _writer(mesh)
+    profiler = StepTraceProfiler(cfg.get("profile_dir") if writer else None,
                                  cfg.get("profile_steps") or 5)
     ds = ctx["dataset"]
     kind = ctx["info"]["kind"]
     eval_step = make_eval_step(ctx["model"],
-                               _loss_config(cfg, ctx["model_kind"]))
+                               _loss_config(cfg, ctx["model_kind"]), mesh)
     loader = DataLoader(ds, batch_size=int(cfg.batch_size), drop_last=True,
-                        num_workers=_loader_workers(cfg))
+                        num_workers=_loader_workers(cfg),
+                        shard=_shard(mesh))
+    _say_mesh("eval", mesh)
     up = int(cfg.upsample_factor)
 
     use_int8 = bool(cfg.get("int8"))
@@ -390,16 +428,23 @@ def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
 
         ideal_th = 0.0
         if ctx["model_kind"] == "heatmap" and batch_idx % th_every == 0:
-            pred_np = out["masks_pred"].float().cpu().numpy()
-            masks_true = coords2mask(torch.from_numpy(gt_true),
-                                     pred_np.shape[-1]).numpy()
-            ideal_th = find_threshold(pred_np, masks_true)
+            # the global batch's masks (gathered in batch order) against
+            # its GT, on rank 0
+            gt_all = (gt_true if mesh is None else
+                      gather_rows(mesh, torch.from_numpy(gt_true)).numpy())
+            if writer:
+                pred_np = out["masks_pred"].float().cpu().numpy()
+                masks_true = coords2mask(torch.from_numpy(gt_all),
+                                         pred_np.shape[-1]).numpy()
+                ideal_th = find_threshold(pred_np, masks_true)
 
         # per-frame data artifact + comparison figure every 100th batch
-        if batch_idx % 100 == 1 and cfg.get("save_artifacts", True):
+        # (rank 0's rows under a mesh)
+        if (writer and batch_idx % 100 == 1
+                and cfg.get("save_artifacts", True)):
             art_dir = Path(logger.run_dir) / f"{logger.run_name}_frames"
             art_dir.mkdir(parents=True, exist_ok=True)
-            es = out["es_sample"].cpu().numpy()
+            es = out["es_sample"].cpu().numpy()[:len(frame)]
             np.savez_compressed(
                 art_dir / f"frame_{batch_idx:05d}.npz",
                 data=frame, toa=es, gt=gt)
@@ -445,9 +490,10 @@ def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
 
 
 def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
-    cfg = ctx["cfg"]
+    cfg, mesh = ctx["cfg"], ctx["mesh"]
+    writer = _writer(mesh)
     model = ctx["model"]
-    profiler = StepTraceProfiler(cfg.get("profile_dir"),
+    profiler = StepTraceProfiler(cfg.get("profile_dir") if writer else None,
                                  cfg.get("profile_steps") or 5)
     ds = ctx["dataset"]
     up = int(cfg.upsample_factor)
@@ -457,9 +503,10 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     train_idx, val_idx = split_dataset(len(ds), 0.2, seed=int(cfg.seed))
     train_loader = DataLoader(ds, train_idx, batch_size=int(cfg.batch_size),
                               shuffle=True, drop_last=True, seed=int(cfg.seed),
-                              num_workers=nw)
+                              num_workers=nw, shard=_shard(mesh))
     val_loader = DataLoader(ds, val_idx, batch_size=int(cfg.batch_size),
-                            drop_last=True, num_workers=nw)
+                            drop_last=True, num_workers=nw,
+                            shard=_shard(mesh))
 
     if int(cfg.epochs) > 0 and len(train_loader) == 0:
         raise ValueError(
@@ -481,8 +528,8 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
                                  remat=bool(cfg.get("remat", False)),
                                  amp=bool(cfg.get("amp", False)),
                                  accum=int(cfg.get("accum", 1) or 1),
-                                 seed=int(cfg.seed))
-    eval_step = make_eval_step(model, lcfg)
+                                 seed=int(cfg.seed), mesh=mesh)
+    eval_step = make_eval_step(model, lcfg, mesh)
 
     start_epoch = 0
     if cfg.get("resume"):
@@ -493,6 +540,7 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
         print(f"resumed from {cfg.resume} at epoch {start_epoch}",
               file=sys.stderr)
     early = EarlyStopping(patience=int(cfg.patience), delta=float(cfg.delta))
+    _say_mesh("train", mesh)
 
     # in-loop figure panels every N train batches, saved next to the JSONL
     plot_every = int(cfg.get("plot_interval", 800))
@@ -541,7 +589,7 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
                 out = eval_step(frame_d, gt_d, gt_true_d)
                 _save_channel_overview(
                     plot_dir / f"train_{train_global:06d}.png", frame, gt,
-                    out["es_sample"].cpu().numpy(), logger)
+                    out["es_sample"].cpu().numpy()[:len(frame)], logger)
         epochs_run = epoch + 1
 
         # validation: loss + tolerance-matched ToA metrics
@@ -565,7 +613,8 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
 
         # a rolling 'last' checkpoint each epoch, so the non-finite
         # check's resume guidance has something to resume from
-        last = save_ckpt(f"{logger.run_name}_last", epochs_run)
+        if writer:
+            last = save_ckpt(f"{logger.run_name}_last", epochs_run)
 
         if early(val_loss):
             print(f"Finished at epoch: {epoch}", file=sys.stderr)
@@ -575,18 +624,20 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     name = (f"{logger.run_name}_rf-scale{cfg.rf_scale_factor}"
             f"_epoch_{epochs_run}")
     path = Path(cfg.ckpt_dir).absolute() / name
-    try:
-        # nothing moved since the rolling checkpoint: its file under the
-        # final name, not a second write (Kuleshov's state is 15 GB)
-        if last is None:
-            raise FileNotFoundError("no epoch ran")
-        os.link(last, path)
-    except OSError:  # also where the file system has no hard links
-        path = save_ckpt(name, epochs_run)
-    logger.log_artifact(path, name)  # W&B mirror
+    if writer:
+        try:
+            # nothing moved since the rolling checkpoint: its file under
+            # the final name, not a second write (Kuleshov's state is 15 GB)
+            if last is None:
+                raise FileNotFoundError("no epoch ran")
+            os.link(last, path)
+        except OSError:  # also where the file system has no hard links
+            path = save_ckpt(name, epochs_run)
+        logger.log_artifact(path, name)  # W&B mirror
     summary = {"val_loss": val_loss, "checkpoint": str(path),
                "epochs": epochs_run}
-    if cfg.get("export_pth") and str(cfg.model).lower() != "gradpeak":
+    if (writer and cfg.get("export_pth")
+            and str(cfg.model).lower() != "gradpeak"):
         # a reference-compatible .pth beside the checkpoint
         summary["export_pth"] = export_checkpoint(
             cfg.model, model.state_dict(), Path(cfg.ckpt_dir) / f"{name}.pth")
@@ -594,22 +645,44 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     return summary
 
 
+def _writer(mesh) -> bool:
+    """Whether this process writes the run's files: rank 0 of a mesh."""
+    return mesh is None or mesh.rank == 0
+
+
+def _shard(mesh) -> Tuple[int, int]:
+    """A loader's ``shard=``: this rank's rows of each global batch."""
+    return (0, 1) if mesh is None else (mesh.rank, mesh.dp)
+
+
+def _say_mesh(what: str, mesh) -> None:
+    if mesh is not None and mesh.rank == 0:
+        print(f"{what} on mesh dp={mesh.shape['dp']} sp={mesh.shape['sp']}",
+              file=sys.stderr)
+
+
 def run(cfg: Config) -> Dict[str, Any]:
     if cfg.get("int8") and not cfg.evaluate:
         raise ValueError("int8=True is a SERVING path (evaluate=True only):"
                          " training runs full-precision — drop the flag or"
                          " add evaluate=True")
+    if cfg.get("mesh") and not live():
+        return run_ranks(run, cfg, _batch_check(cfg))
     if cfg.get("compile_cache"):
         print(f"compile_cache={cfg.compile_cache}: ignored, the port runs "
               f"eager PyTorch and compiles nothing to cache", file=sys.stderr)
     ctx = setup(cfg)
+    mesh = ctx["mesh"]
     # trainable parameters only, like the reference's torchinfo count
     n_params = count_params(dict(ctx["model"].named_parameters()))
     run_name = make_run_name(int(cfg.seed) + int(time.time()) % 100000,
                              cfg.get("run_dir", "runs"))
+    if mesh is not None:  # rank 0's name on every rank
+        run_name = broadcast_object(mesh, run_name)
     logger = MetricsLogger(cfg.get("run_dir", "runs"), run_name,
                            config=dict(cfg),
-                           wandb_group=cfg.logging if cfg.logging else None)
+                           wandb_group=cfg.logging if cfg.logging else None,
+                           write=_writer(mesh))
     logger.set_summary(model_name=cfg.model, total_parameters=n_params)
     try:
         if cfg.evaluate:
@@ -623,8 +696,9 @@ def run(cfg: Config) -> Dict[str, Any]:
             result = train(ctx, logger)
     finally:
         logger.finish()
-    print(f"run {run_name}: " + ", ".join(
-        f"{k}={v}" for k, v in result.items()), file=sys.stderr)
+    if _writer(mesh):
+        print(f"run {run_name}: " + ", ".join(
+            f"{k}={v}" for k, v in result.items()), file=sys.stderr)
     return {"run_name": run_name, **result}
 
 

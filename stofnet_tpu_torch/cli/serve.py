@@ -26,6 +26,24 @@ the exporter's build arguments (its
 ``resolve_zoo_variables_and_overrides``; gradpeak needs no
 ``model_file=``); int8 serving targets model=stofnet only.
 
+``mesh=True [mesh_dp=N]`` splits every served batch over dp devices:
+the daemon stays one process and holds one pipeline replica a mesh
+device (the first mesh_dp cards, all of them by default; on the CPU
+mesh_dp replicas, 1 by default), built from the checkpoint or loaded
+from the artifact, encoded inputs included (the encode stays on the
+host). Each batch goes to the replicas in dp equal slices, every slice
+launched before any result is copied back, and their coords come back
+concatenated in order: rows are independent, so no collective is needed,
+and this is the batch split that JAX's GSPMD makes (its rate over
+several cards is not measured yet). As JAX's ``_mesh_adjust``:
+``max_batch`` must divide by dp, and only dp-divisible buckets are
+served. Departures: a fixed-batch artifact runs its whole batch on each
+replica, so under dp > 1 it is refused (export it with ``batch=b``); and
+an artifact serves only on the device it was exported for, so a mesh
+over several cards is refused for ``artifact=`` (serve ``model_file=``,
+whose replicas are built a card each). ``mesh_sp > 1`` is refused
+(ROADMAP A.6b).
+
 Tuning: ``max_batch=`` (largest coalesced batch, 128), ``max_wait_ms=``
 (how long the oldest request may wait for the batch to fill, 2),
 ``max_pending=N`` (admission control: waveforms in flight; overload is
@@ -43,8 +61,8 @@ Departures from the JAX daemon:
 - Refused, with ``SystemExit``: ``compile_cache=`` (it persists XLA's
   compiles; an artifact of the port compiles nothing when it loads, and
   the kernels' libraries in ``build/kernels`` already persist across
-  restarts) and ``mesh=`` (until ``parallel/mesh.py``). Only
-  ``ckpt_dir=`` is searched for ``model_file=``.
+  restarts) and ``mesh_sp > 1``. Only ``ckpt_dir=`` is searched for
+  ``model_file=``.
 
 Speak to it with ``stofnet_tpu_torch.serving.ServingClient`` (or JAX's,
 or ``examples/serving_client.c``: the wire is the same). On SIGINT or
@@ -56,7 +74,10 @@ from __future__ import annotations
 import signal
 import sys
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from stofnet_tpu_torch import resolve_device
 from stofnet_tpu_torch.cli.export import (
@@ -67,8 +88,11 @@ from stofnet_tpu_torch.cli.export import (
 from stofnet_tpu_torch.serve import (
     load_pipeline, make_input_encoder, make_pipeline,
 )
+from stofnet_tpu_torch.parallel.mesh import (
+    Mesh, config_mesh, local_devices, mesh_dims,
+)
 from stofnet_tpu_torch.serving import (
-    LengthRouter, ServingHost, start_server,
+    LengthRouter, ServingHost, batch_buckets, start_server,
 )
 
 _KNOWN_KEYS = frozenset({
@@ -83,7 +107,6 @@ _KNOWN_KEYS = frozenset({
 })
 # keys of the JAX daemon the port refuses, and why
 _REFUSED = {
-    "mesh": "it comes with the parallel/mesh.py slice (mesh serving)",
     "compile_cache": ("it persists XLA's compiles: an artifact of the port "
                       "compiles nothing when it loads, and the kernels' "
                       "libraries in build/kernels persist across restarts"),
@@ -113,6 +136,9 @@ def build(args: Dict[str, Any]):
                          "(the serving contract's static length)")
     length = int(args["length"])
     device = resolve_device(args.get("device"))
+    mesh = _serving_mesh(args, device)
+    if mesh is not None:
+        device = mesh.devices[0]
     if model == "stofnet":
         state, overrides = resolve_variables_and_overrides(args)
     else:
@@ -130,21 +156,25 @@ def build(args: Dict[str, Any]):
                              length=length, model_name=model, device=device,
                              **pipe_kwargs)
     enc = str(args.get("input_enc") or "f32")
-    raw = make_pipeline(state, overrides, model_name=model, dtype=dtype,
-                        device=device,
-                        input_enc=None if enc == "f32" else enc,
-                        **pipe_kwargs)
     encode = make_input_encoder(enc)
 
-    def pipeline(xb):
-        # the host takes numpy: the coords come back from the card here
-        return raw(*encode(xb)).cpu().numpy()
+    def replica(where: torch.device):
+        raw = make_pipeline(state, overrides, model_name=model, dtype=dtype,
+                            device=where,
+                            input_enc=None if enc == "f32" else enc,
+                            **pipe_kwargs)
 
-    pipeline.route, pipeline.calls = raw.route, raw.calls
-    hostd = ServingHost(pipeline, length,
-                        max_batch=int(args.get("max_batch", 128)),
+        def run(xb):
+            return raw(*encode(xb))
+
+        run.route, run.calls = raw.route, raw.calls
+        return run
+
+    max_batch = int(args.get("max_batch", 128))
+    pipeline, buckets = _mesh_adjust(replica, device, mesh, None, max_batch)
+    hostd = ServingHost(pipeline, length, max_batch=max_batch,
                         max_wait_ms=float(args.get("max_wait_ms", 2.0)),
-                        max_pending=_max_pending(args))
+                        buckets=buckets, max_pending=_max_pending(args))
     try:
         return _finish(hostd, args)
     except BaseException:
@@ -184,8 +214,17 @@ def _build_artifacts(args: Dict[str, Any]):
 
 def _artifact_host(path: str, args: Dict[str, Any]) -> ServingHost:
     """One ServingHost from one artifact: its static length is the routing
-    key, and a fixed-batch artifact is its own single bucket."""
+    key, and a fixed-batch artifact is its own single bucket. Under a mesh
+    every replica loads the artifact on its device, which must be the one
+    it was exported for."""
     raw = load_pipeline(path)
+    mesh = _serving_mesh(args, raw.device)
+    if mesh is not None and any(d != raw.device for d in mesh.devices):
+        raise SystemExit(
+            f"{path} serves only on {raw.device}, the device it was "
+            f"exported for, and the mesh spans {list(map(str, mesh.devices))}"
+            f": serve model_file= (a replica is built on each card) or "
+            f"export one artifact a card")
     (spec,) = raw.in_specs
     length, batch = int(spec.shape[-1]), spec.shape[0]
     fixed = batch if isinstance(batch, int) else None
@@ -196,14 +235,69 @@ def _artifact_host(path: str, args: Dict[str, Any]) -> ServingHost:
             f"max_batch={fixed} (or export it again with batch=b for a "
             f"batch-polymorphic artifact)")
 
-    def pipeline(xb):
-        # the host takes numpy: the coords come back from the card here
-        return raw(xb).cpu().numpy()
+    programs = [raw]  # the first replica's, loaded above
 
+    def replica(where: torch.device):
+        return programs.pop() if programs else load_pipeline(path)
+
+    pipeline, buckets = _mesh_adjust(
+        replica, raw.device, mesh, (fixed,) if fixed is not None else None,
+        max_batch)
     return ServingHost(pipeline, length, max_batch=max_batch,
                        max_wait_ms=float(args.get("max_wait_ms", 2.0)),
-                       buckets=(fixed,) if fixed is not None else None,
-                       max_pending=_max_pending(args))
+                       buckets=buckets, max_pending=_max_pending(args))
+
+
+def _serving_mesh(args: Dict[str, Any], device: torch.device
+                  ) -> Optional[Mesh]:
+    """``mesh=True``'s replicas' mesh (no process group): dp of the cards,
+    or dp replicas on the CPU, with JAX's refusals; None without
+    ``mesh=``."""
+    if not args.get("mesh"):
+        return None
+    dp, sp = mesh_dims(args)
+    return config_mesh(args, devices=local_devices(device, dp, sp))
+
+
+def _mesh_adjust(replica: Callable, device: torch.device,
+                 mesh: Optional[Mesh],
+                 buckets: Optional[Sequence[int]], max_batch: int
+                 ) -> Tuple[Callable, Optional[Tuple[int, ...]]]:
+    """The host's pipeline and buckets from ``replica(device) -> run``
+    (``run(xb)`` returns the coords on ``device`` without waiting for
+    them): ``replica(device)`` alone without a mesh; under one, a replica
+    a mesh device, each batch split into dp equal slices, and only
+    dp-divisible buckets (JAX's ``_mesh_adjust``; ``buckets`` given is a
+    fixed artifact's one bucket, its ``max_batch``). Every slice is
+    launched before any result is copied back, so the replicas' cards
+    run together."""
+    if mesh is None:
+        replicas, dp = [replica(device)], 1
+    else:
+        dp = mesh.dp
+        if max_batch % dp:
+            raise SystemExit(f"max_batch={max_batch} must be divisible by "
+                             f"the dp mesh size {dp}")
+        if buckets is not None and dp > 1:
+            raise SystemExit(
+                f"an artifact exported at batch={max_batch} runs that "
+                f"whole batch on each of the dp={dp} replicas and cannot "
+                f"take a slice of {max_batch // dp} rows: export it with "
+                f"batch=b (batch-polymorphic) to serve it on a mesh")
+        if buckets is None:
+            buckets = tuple(b for b in batch_buckets(max_batch)
+                            if b % dp == 0)
+        replicas = [replica(d) for d in mesh.devices]
+
+    def pipeline(xb):
+        outs = [rep(part) for rep, part in zip(replicas, np.split(xb, dp))]
+        # the host takes numpy: the coords come back from the cards here
+        return np.concatenate([o.cpu().numpy() for o in outs])
+
+    for attr in ("route", "calls"):  # the first replica's
+        if hasattr(replicas[0], attr):
+            setattr(pipeline, attr, getattr(replicas[0], attr))
+    return pipeline, None if buckets is None else tuple(buckets)
 
 
 def _max_pending(args: Dict[str, Any]) -> Optional[int]:

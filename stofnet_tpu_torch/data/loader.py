@@ -42,12 +42,19 @@ class DataLoader:
 
     Items must be tuples; array-like fields are stacked, str fields are
     collected into lists. ``drop_last`` drops a short last batch.
+
+    ``shard=(rank, dp)`` yields rank ``rank``'s rows of each global batch
+    of ``batch_size`` (its ``batch_size / dp`` items, in the
+    single-process order: same split, same shuffle), and reads only
+    those items: a data-parallel rank's loader
+    (``parallel/mesh.shard_batch`` of the global batch).
     """
 
     def __init__(self, dataset, indices: Optional[Sequence[int]] = None,
                  batch_size: int = 4, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
-                 num_workers: int = 0, prefetch_batches: int = 2):
+                 num_workers: int = 0, prefetch_batches: int = 2,
+                 shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.indices = np.asarray(
             indices if indices is not None else np.arange(len(dataset)))
@@ -58,6 +65,13 @@ class DataLoader:
         self.rng = np.random.default_rng(seed)
         self.num_workers = int(num_workers)
         self.prefetch_batches = max(1, int(prefetch_batches))
+        self.rank, self.dp = (int(v) for v in shard)
+        if batch_size % self.dp:
+            raise ValueError(f"batch_size={batch_size} not divisible by "
+                             f"mesh_dp={self.dp}")
+        if self.dp > 1 and not drop_last:
+            raise ValueError("a sharded loader drops the short last batch: "
+                             "drop_last=True")
 
     def set_epoch(self, epoch: int) -> None:
         """Reseed the shuffle stream to (seed, epoch): epoch e's batch order
@@ -75,7 +89,9 @@ class DataLoader:
             self.rng.shuffle(order)
         bs = self.batch_size
         stop = len(order) - (len(order) % bs) if self.drop_last else len(order)
-        return [order[i:i + bs] for i in range(0, stop, bs)]
+        b = bs // self.dp  # this rank's rows of each global batch
+        rows = slice(self.rank * b, (self.rank + 1) * b)
+        return [order[i:i + bs][rows] for i in range(0, stop, bs)]
 
     def __iter__(self) -> Iterator[Tuple]:
         batches = self._batch_indices()

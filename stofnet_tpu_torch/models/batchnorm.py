@@ -14,6 +14,13 @@ It differs from ``nn.BatchNorm1d`` where a test can see it:
   0.95 is 0.05); the update is flax's ``m * ra + (1 - m) * stat`` with
   ``m = 1 - momentum``.
 
+With a ``mesh`` (``parallel/mesh.Mesh``, set by the dp train step) the
+statistics are the global batch's, as GSPMD computes them: each rank's
+``mean`` and ``E[x^2]`` are summed over the ranks inside autograd
+(``utils/collectives.AllReduceSum``) and divided by dp (shards are equal), so the gradient
+flows through the global statistics; plain DDP's per-rank statistics are
+what this avoids.
+
 The buffers carry the reference's names (``running_mean``,
 ``running_var``, ``num_batches_tracked``), so a reference ``.pth`` loads
 strictly; flax keeps no batch count, so ``num_batches_tracked`` stays as
@@ -27,12 +34,15 @@ from typing import Optional
 import torch
 from torch import nn
 
+from stofnet_tpu_torch.utils.collectives import all_reduce_sum
+
 
 class BatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.mesh = None
         self.weight = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("running_mean", torch.empty(features))
@@ -54,8 +64,11 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = tuple(range(x.ndim - 1))
             xf = x.float()
-            mean = xf.mean(dims)
-            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            mean, msq = xf.mean(dims), (xf * xf).mean(dims)
+            if self.mesh is not None:
+                both = all_reduce_sum(self.mesh, torch.stack([mean, msq]))
+                mean, msq = both[0] / self.mesh.dp, both[1] / self.mesh.dp
+            var = torch.clamp_min(msq - mean * mean, 0.0)
             m = 1.0 - self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean

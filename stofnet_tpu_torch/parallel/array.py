@@ -27,8 +27,8 @@ architecture (on the meta device: it holds no data).
 
 Per-member weights make every conv a grouped conv under ``vmap``: members
 do not merge into larger contractions, so on one card the array saves
-processes, loads and launches, not compute. Member sharding over devices
-(JAX's ``shard_members``) comes with ``parallel/mesh.py``.
+processes, loads and launches, not compute. Members ride a mesh's dp axis
+(:func:`shard_members`): each rank keeps its N / dp members.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.gaussian import gaussian_kernel
 from stofnet_tpu_torch.ops.peaks import mask2coords
+from stofnet_tpu_torch.parallel.mesh import Mesh, shard_batch
 from stofnet_tpu_torch.train.loss import blurred_mask
 from stofnet_tpu_torch.train.metrics import toa_rmse
 from stofnet_tpu_torch.train.steps import (
@@ -94,6 +95,23 @@ class ArrayState:
         """Member ``i``'s state dict in the module's key order."""
         every = self.variables()
         return {k: every[k][i] for k in self.model.state_dict()}
+
+
+def shard_members(mesh: Mesh, tree):
+    """This rank's members of ``tree`` over the mesh's dp axis: the member
+    axis is the leading axis of every stacked leaf, which
+    ``parallel/mesh.shard_batch`` shards, so rank r keeps members r * N /
+    dp onwards. An :class:`ArrayState` keeps its members' parameters (new
+    leaves that require gradients), buffers and seeds."""
+    if not isinstance(tree, ArrayState):
+        return shard_batch(mesh, dict(tree))
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in shard_batch(mesh, tree.params).items()}
+    buffers = {k: v.clone() for k, v in
+               shard_batch(mesh, tree.buffers).items()}
+    return ArrayState(tree.model, params, buffers,
+                      list(shard_batch(mesh, torch.tensor(tree.seeds))
+                           .tolist()))
 
 
 def init_array_state(build: Callable[[torch.Generator], nn.Module],

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from stofnet_tpu_torch.models.batchnorm import BatchNorm
 from stofnet_tpu_torch.models.fused import stofnet_apply_fused
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.gaussian import gaussian_kernel
@@ -34,6 +35,9 @@ from stofnet_tpu_torch.train.loss import (
     blurred_mask, heatmap_loss, regression_loss,
 )
 from stofnet_tpu_torch.train.metrics import toa_rmse
+from stofnet_tpu_torch.utils.collectives import (
+    all_reduce, average_gradients, gather_rows, global_mean,
+)
 
 
 class LossConfig(NamedTuple):
@@ -147,7 +151,8 @@ def dropout_seed(seed: int, step: int, micro: int = 0) -> int:
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler, cfg: LossConfig, remat: bool = False,
-                    amp: bool = False, accum: int = 1, seed: int = 0):
+                    amp: bool = False, accum: int = 1, seed: int = 0,
+                    mesh=None):
     """``train_step(frame, gt_sample, gt_true, update_scale=None) ->
     {"loss": ...}`` over ``model``'s parameters, the model in train mode.
 
@@ -174,6 +179,18 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     f32 step sums, and the caller's flags come back after the update.
     cuDNN reads the flags when each call is launched, so the block holds
     the backward too.
+
+    ``mesh`` (``parallel/mesh.Mesh`` over a live process group): the step
+    takes this rank's shard of the batch and computes the global batch's
+    step, as JAX's step under GSPMD: the heatmap loss divides by the
+    blurred mask's maximum over the global batch (an all-reduced max, also
+    under ``accum``); BatchNorm's statistics are the global batch's
+    (``models/batchnorm.py``); the gradients are summed over the ranks and
+    divided by dp before the update (shards are equal, so that is the
+    global mean); Kuleshov's masks are drawn for the global batch from the
+    step's generator and each rank keeps its rows, the single process's
+    masks. The returned loss is the global batch's, on every rank. Under
+    ``accum`` a micro-batch is the ranks' i-th micro-batches together.
     """
     device = model_device(model)
     kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
@@ -182,9 +199,26 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     stats = [b for n, b in model.named_buffers()
              if n.endswith(("running_mean", "running_var"))]
     count = [0]  # updates made, where there is no scheduler
+    params = [p for p in model.parameters() if p.requires_grad]
+    for m in model.modules():  # None clears an earlier step's mesh
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
+
+    def masks_of(generator):
+        """The dropout masks' source: under a mesh, the global batch's
+        masks drawn from ``generator``, this rank's rows kept."""
+        if mesh is None or generator is None:
+            return generator
+
+        def draw(shape):
+            b = shape[0]
+            full = model.keep_mask((b * mesh.dp, *shape[1:]), generator,
+                                   device)
+            return full[mesh.rank * b:(mesh.rank + 1) * b]
+        return draw
 
     def forward(frame, generator):
-        kw = {"generator": generator} if dropout else {}
+        kw = {"generator": masks_of(generator)} if dropout else {}
         if not amp:
             return model(frame, **kw)
         p16 = {k: v.to(torch.bfloat16) for k, v in model.named_parameters()}
@@ -227,17 +261,19 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     def step(frame, gt_sample, gt_true, update_scale):
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        if accum > 1 and frame.shape[0] % accum:
+            raise ValueError(f"batch {frame.shape[0]} not divisible by "
+                             f"accum={accum}")
+        norm_max = None
+        if cfg.model_kind != "regression" and (accum > 1
+                                               or mesh is not None):
+            norm_max = global_norm_max(cfg, kernel, gt_true,
+                                       frame.shape[-1] * cfg.upsample_factor,
+                                       mesh)
         if accum <= 1:
-            loss = loss_of(frame, gt_sample, gt_true, generator(0))
+            loss = loss_of(frame, gt_sample, gt_true, generator(0), norm_max)
             backward(loss)
         else:
-            if frame.shape[0] % accum:
-                raise ValueError(f"batch {frame.shape[0]} not divisible by "
-                                 f"accum={accum}")
-            norm_max = None
-            if cfg.model_kind != "regression":
-                l_out = frame.shape[-1] * cfg.upsample_factor
-                norm_max = blurred_mask(gt_true, l_out, kernel)[1].max()
             loss = torch.zeros((), device=device)
             parts = zip(frame.chunk(accum), gt_sample.chunk(accum),
                         gt_true.chunk(accum))
@@ -246,24 +282,55 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                 backward(part / accum)
                 loss = loss + part.detach()
             loss = loss / accum
+        loss = loss.detach()
+        if mesh is not None:
+            average_gradients(mesh, params)
+            loss = global_mean(mesh, loss)
         _update(optimizer, scheduler, update_scale)
         count[0] += 1
-        return {"loss": loss.detach()}
+        return {"loss": loss}
 
     return train_step
 
 
-def make_eval_finish(cfg: LossConfig, device):
+def global_norm_max(cfg: LossConfig, kernel: torch.Tensor,
+                    gt_true: torch.Tensor, length: int,
+                    mesh=None) -> torch.Tensor:
+    """The blurred mask's maximum over the batch (masks of ``length``),
+    the heatmap loss's normaliser; over the global batch under ``mesh``
+    (an all-reduced max)."""
+    norm_max = blurred_mask(gt_true, length, kernel)[1].max()
+    if mesh is None:
+        return norm_max
+    return all_reduce(mesh, norm_max, "max")
+
+
+def make_eval_finish(cfg: LossConfig, device, mesh=None):
     """``finish(pred, gt_sample, gt_true) -> dict`` of ``loss``,
     ``es_sample``, ``toa_metrics`` and ``masks_pred`` of a computed
     prediction on ``device``, without gradients: the second half of
     :func:`make_eval_step`, also the array eval's
-    (``parallel/array.py``)."""
+    (``parallel/array.py``). Under ``mesh`` each rank finishes its shard
+    and every output is the global batch's: the loss with the global
+    normaliser and averaged over the ranks, the rest gathered in batch
+    order."""
     kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
     loss_fn = _loss(cfg, kernel)
 
     @torch.no_grad()
     def finish(pred, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
+        if mesh is None:
+            return local(pred, gt_sample, gt_true)
+        norm_max = None
+        if cfg.model_kind != "regression":
+            norm_max = global_norm_max(cfg, kernel, gt_true, pred.shape[-1],
+                                       mesh)
+        out = local(pred, gt_sample, gt_true, norm_max)
+        return {k: global_mean(mesh, v) if k == "loss"
+                else gather_rows(mesh, v)
+                for k, v in out.items()}
+
+    def local(pred, gt_sample, gt_true, norm_max=None):
         if cfg.model_kind == "regression":
             es_sample = pred.reshape(pred.shape[0], -1)
         else:
@@ -273,7 +340,7 @@ def make_eval_finish(cfg: LossConfig, device):
                                     max_echoes=cfg.max_echoes)
         gs = gt_sample.reshape(gt_sample.shape[0], -1)
         with full_f32():
-            loss = loss_fn(pred, gt_sample, gt_true)
+            loss = loss_fn(pred, gt_sample, gt_true, norm_max)
         return {"loss": loss, "es_sample": es_sample,
                 "toa_metrics": toa_rmse(gs, es_sample, tol=cfg.etol),
                 "masks_pred": pred}
@@ -281,7 +348,7 @@ def make_eval_finish(cfg: LossConfig, device):
     return finish
 
 
-def make_eval_step(model: nn.Module, cfg: LossConfig):
+def make_eval_step(model: nn.Module, cfg: LossConfig, mesh=None):
     """``eval_step(frame, gt_sample, gt_true) -> dict`` of ``loss``,
     ``es_sample`` (decoded ToAs), ``toa_metrics`` ((B, 7), ``toa_rmse``)
     and ``masks_pred``: the model in eval mode, forward -> ``mask2coords``
@@ -298,6 +365,9 @@ def make_eval_step(model: nn.Module, cfg: LossConfig):
       forward;
     - ``eval_step.finish(pred, gt_sample, gt_true) -> dict``: decode, loss
       and metrics of a computed prediction.
+
+    Under ``mesh`` the forward is this rank's shard and the outputs are
+    the global batch's (:func:`make_eval_finish`).
     """
     @torch.no_grad()
     def forward(frame) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -306,7 +376,7 @@ def make_eval_step(model: nn.Module, cfg: LossConfig):
             pred = model(frame)
         return pred, pred.float().sum()
 
-    finish = make_eval_finish(cfg, model_device(model))
+    finish = make_eval_finish(cfg, model_device(model), mesh)
 
     def eval_step(frame, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
         return finish(forward(frame)[0], gt_sample, gt_true)

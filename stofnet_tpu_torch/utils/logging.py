@@ -37,16 +37,24 @@ def make_run_name(seed: Optional[int] = None,
 
 
 class MetricsLogger:
+    """A run's JSONL stream, summary, figures and W&B mirror.
+    ``write=False`` keeps the summary in memory and writes nothing: a
+    data-parallel rank other than 0, whose rank 0 writes the run's
+    files."""
+
     def __init__(self, run_dir: str | Path, run_name: str,
                  config: Optional[Dict[str, Any]] = None,
-                 wandb_group: Optional[str] = None):
+                 wandb_group: Optional[str] = None, write: bool = True):
         self.run_dir = Path(run_dir)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
         self.run_name = run_name
         self.path = self.run_dir / f"{run_name}.jsonl"
-        self._fh = open(self.path, "a", buffering=1)
+        self.write = write
         self.summary: Dict[str, Any] = {}
         self._wandb = None
+        if not write:
+            return
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        self._fh = open(self.path, "a", buffering=1)
         if wandb_group:
             try:
                 import wandb
@@ -61,6 +69,8 @@ class MetricsLogger:
                                             for k, v in config.items()}})
 
     def log(self, record: Dict[str, Any]) -> None:
+        if not self.write:
+            return
         record = {k: _jsonable(v) for k, v in record.items()}
         record.setdefault("ts", time.time())
         self._fh.write(json.dumps(record) + "\n")
@@ -73,6 +83,8 @@ class MetricsLogger:
 
     def log_figure(self, key: str, fig, path: Optional[Path] = None) -> None:
         """Save a matplotlib figure as PNG and mirror it to W&B."""
+        if not self.write:
+            return
         if path is not None:
             Path(path).parent.mkdir(parents=True, exist_ok=True)
             fig.savefig(path, dpi=110)
@@ -109,6 +121,8 @@ class MetricsLogger:
         self.summary.update({k: _jsonable(v) for k, v in kwargs.items()})
 
     def finish(self) -> None:
+        if not self.write:
+            return
         with open(self.run_dir / f"{self.run_name}_summary.json", "w") as f:
             json.dump(self.summary, f, indent=2)
         if self._wandb is not None:

@@ -204,8 +204,9 @@ def test_lr_sweep_members_share_an_init(chirp_root, tmp_path):
     (dict(evaluate=True, model_files=["no-such-ckpt"]), FileNotFoundError,
      "no-such-ckpt"),
     (dict(evaluate=True), ValueError, "model_files"),
-    (dict(seeds=2, mesh=True), SystemExit, "mesh"),
-    (dict(evaluate=True, model_files=["x"], mesh=True), SystemExit, "mesh"),
+    (dict(seeds=2, mesh=True, mesh_sp=2), ValueError, "mesh_sp must be 1"),
+    (dict(evaluate=True, model_files=["x", "y", "z"], mesh=True,
+          mesh_dp=2), ValueError, "3 members not divisible by mesh dp=2"),
 ], ids=["duplicate_lrs", "seeds_lrs_mismatch", "negative_lr",
         "falsy_th_sweep", "missing_prefix", "no_mode", "mesh_train",
         "mesh_eval"])

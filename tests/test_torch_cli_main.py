@@ -197,12 +197,17 @@ def test_non_finite_loss_raises(dirs, chirp_root):
         pmain.run(cfg)
 
 
-@pytest.mark.parametrize("over,slice_", [
-    (dict(mesh=True), "A.6"),
+@pytest.mark.parametrize("over,error,match", [
+    (dict(mesh=True, mesh_sp=2), SystemExit, "A.6b"),
+    (dict(mesh=True, mesh_dp=3), ValueError,
+     "batch_size=4 not divisible by mesh_dp=3"),
 ])
-def test_later_slices_are_refused(dirs, chirp_root, over, slice_):
+def test_later_slices_are_refused(dirs, chirp_root, over, error, match):
+    """The sp axis waits for ROADMAP A.6b; a batch that dp does not divide
+    is refused as JAX's ``_shard_inputs`` refuses it, before any rank
+    starts."""
     cfg = _cfg("port", dirs, chirp_root, **over)
-    with pytest.raises(SystemExit, match=slice_):
+    with pytest.raises(error, match=match):
         pmain.run(cfg)
 
 

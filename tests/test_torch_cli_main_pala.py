@@ -162,10 +162,10 @@ def test_dataset_and_batches_are_jax_bit_for_bit(kind, evaluate, roots,
 
 
 def test_driver_takes_pala_and_rat_paths(roots, tmp_path):
-    """The refusal of PALA and rat data is gone; mesh= is still refused
-    (``tests/test_torch_cli_main.py``)."""
+    """The refusal of PALA and rat data is gone; mesh_sp > 1 is still
+    refused (``tests/test_torch_cli_main.py``)."""
     assert pmain.dataset_kind(str(roots["pala"])) == "pala"
     assert pmain.dataset_kind(str(roots["rat"])) == "rat"
-    assert "pala" not in pmain._LATER and "mesh" in pmain._LATER
+    assert "pala" not in pmain._LATER and "mesh_sp" in pmain._LATER
     assert pmain.unet_layers("pala") == pmain.unet_layers("rat") == 10
     assert pmain.unet_layers("chirp") == 2

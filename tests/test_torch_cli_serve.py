@@ -144,7 +144,8 @@ def test_int8_daemon_with_encoded_input(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("mesh", True, "mesh"),
+    ("mesh_sp", 2, "A.6b"),
+    ("mesh_dp", 3, "max_batch=8 must be divisible by the dp mesh size 3"),
     ("compile_cache", "cache", "compiles nothing"),
     ("model", "kuleshov", "sample_num="),
     ("bogus", 1, "unknown argument"),
@@ -152,9 +153,13 @@ def test_int8_daemon_with_encoded_input(ckpt, tmp_path):
     ("model_file", None, "model_file="),
 ])
 def test_daemon_refusals(ckpt, key, value, match):
+    """A ``mesh_*`` key is given with ``mesh=True``."""
     _, _, d = ckpt
+    args = _args(d, **{key: value})
+    if key.startswith("mesh_"):
+        args["mesh"] = True
     with pytest.raises(SystemExit, match=match):
-        build(_args(d, **{key: value}))
+        build(args)
 
 
 def test_daemon_needs_a_card_or_device_cpu(ckpt):

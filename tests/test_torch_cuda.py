@@ -617,3 +617,22 @@ def test_device_put_copies_equal_plain_copies(cuda):
     for host, dev in zip(batches, got):
         for h, d in zip(host, dev):
             assert torch.equal(d, torch.from_numpy(h).to(cuda))
+
+
+def test_dp1_nccl_step_equals_the_step_without_a_mesh(cuda, monkeypatch):
+    """A dp=1 mesh on NCCL (world size 1, this process its rank): every
+    collective over one rank is the identity, so the train step's loss
+    and updated parameters equal the step without a mesh bit for bit
+    (cuDNN deterministic in both)."""
+    from stofnet_tpu_torch.parallel.mesh import launch
+    from stofnet_tpu_torch.scripts import dp_check
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    case = dp_check.stofnet_case(8000, 16)
+    alone = dp_check.run_cases([case], "cuda:0")[0]
+    dp = launch(dp_check.run_cases, ([case], "cuda:0"),
+                devices=["cuda:0"], backend="nccl")[0]
+    assert dp["loss"] == alone["loss"] and dp["ranks_equal"]
+    for k, v in alone["params"].items():
+        np.testing.assert_array_equal(dp["params"][k], v, err_msg=k)
