@@ -311,7 +311,8 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    1e-5, atol 1e-6), every rank's parameters rank 0's bit for bit; ms a
    step for the 2 ranks against the single step, and whether gloo itself
    takes CUDA tensors (``parallel/mesh.py`` stages gloo's collectives
-   through the host by rule). Then the daemon with ``mesh=True
+   through the host by rule); the same ranks then run the sp phase's two
+   steps (item 18), one launch of ranks for both phases. Then the daemon with ``mesh=True
    mesh_dp=1`` in bf16 at L=8000, from the data phase's checkpoint and
    from an artifact exported from it, under the daemon phase's traffic:
    every row ``make_pipeline``'s direct coords bit for bit (the rows the
@@ -320,13 +321,36 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    ``cli/array.run mesh=True mesh_dp=1 seeds=2`` for one epoch: each
    member's first loss equal bit for bit to the array phase's ``seeds=2``
    run's. Prints the phase's seconds.
-18. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+18. The sp phase (``parallel/seq.py``, the sp axis of
+   ``parallel/mesh.py``; one card, so every shard on cuda:0), the launch
+   counts set to 0 before each run and read after it: ``make_pipeline``'s
+   bf16 fused route split along L by ``cli/serve._mesh_adjust`` over a
+   mesh listing cuda:0 sp times, at sp = 2, 4, 8 (B=128, L=8000; 1000
+   samples a shard at sp=8, whose pool windows straddle shards) and sp=8
+   at L=16000, over a warm-up and 4 gate batches: both serving kernels
+   launched sp times a batch and no other kernel, the coords equal to
+   the single pipeline's on every row (or, failing that, >= 0.99 of the
+   slots and no more moved rows than the main path's rule), ms a batch
+   beside the single pipeline's, the share of positions computed twice;
+   one batch at L=1000 at sp=2 (the module route on every shard, no
+   kernel) against the bf16 module at >= 0.99 of the slots. Then 2 gloo
+   ranks on cuda:0 at dp=1, sp=2 (``scripts/dp_check``, run by the mesh
+   phase's ranks): the f32 and amp StofNet steps at B=128, L=8000 against
+   the single process's, by
+   ``tests/test_parallel.py``'s rules (f32: loss rtol 1e-5, 99.9 % of the
+   parameters within 1e-5, all within 2 lr; amp: rtol 1e-2, 99 % within
+   1e-4), ms a step beside the single step's. Then the daemon at
+   ``mesh=True mesh_sp=2`` from the data phase's checkpoint (bf16, its
+   two replicas on cuda:0) under the daemon phase's traffic: every row
+   ``make_pipeline``'s direct coords, both kernels twice a batch.
+   Prints the phase's seconds.
+19. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
    launches of its paths: the serving, bench, training, probe, daemon,
-   export, PALA serving and mesh daemon runs, each counted from 0, summed
-   over the paths that launch it; the serving instantiation's launches go
-   to ``sgb_contract_pool`` at L_UNCHUNKED and L_PALA and to
-   ``sgb_contract_pool_dma`` at L, on the fused path and through the
-   daemons), the card's name and power limit, and as the last line
+   export, PALA serving, mesh daemon and sp runs, each counted from 0,
+   summed over the paths that launch it; the serving instantiation's
+   launches go to ``sgb_contract_pool`` at L_UNCHUNKED and L_PALA and to
+   ``sgb_contract_pool_dma`` at L and L_LONG, on the fused path, through
+   the daemons and over the sp shards), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero. It exits non-zero
@@ -397,6 +421,7 @@ from stofnet_tpu_torch.parallel import (
     make_threshold_sweep_step, stack_checkpoint_variables,
 )
 from stofnet_tpu_torch.parallel import mesh as dp_mesh
+from stofnet_tpu_torch.parallel import seq
 from stofnet_tpu_torch.scripts import bench_array, dp_check
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
 from stofnet_tpu_torch.scripts import pala_bmode_figure as figure
@@ -498,6 +523,12 @@ MESH_LOSS_RTOL = 1e-5  # the 2-rank step's loss (tests/test_parallel.py)
 MESH_AGREE = 1e-5  # a parameter within it after the 2-rank step ...
 MESH_SHARE = 0.999  # ... for this share of them, all within 2 lr
 MESH_TIMED = 2  # steps timed after the compared one
+# the sp phase: (L, sp) of the sharded fused route; JAX's long-sequence
+# target is L=16000 over 8 shards (tests/test_parallel.py:248)
+L_LONG = 16000
+SP_SERVE = ((L, 2), (L, 4), (L, 8), (L_LONG, 8))
+SGB_ROW[L_LONG] = "sgb_contract_pool_dma"  # L % 800 == 0 in JAX
+SP_AMP_RTOL, SP_AMP_AGREE, SP_AMP_SHARE = 1e-2, 1e-4, 0.99
 
 
 def log(msg: str) -> None:
@@ -1433,7 +1464,8 @@ def daemon_path(dev, state) -> dict:
     return launches
 
 
-def daemon_traffic(name, args, state, dev, rows, batch, dtype=None):
+def daemon_traffic(name, args, state, dev, rows, batch, dtype=None,
+                   shards=1):
     """Build the daemon of ``args``; DAEMON_CLIENTS clients send
     DAEMON_REQUESTS single waveforms each from the list ``rows`` (client c
     the c-th run of them; their lengths are those the daemon serves) and
@@ -1496,12 +1528,13 @@ def daemon_traffic(name, args, state, dev, rows, batch, dtype=None):
     batches = {n: s["batches"] for n, s in per_length.items()}
     fused = c["sgb_dma.launches"] > 0
     if (c["sgb_dma.launches"] != c["conv_stack.launches"]
-            or (fused and c["sgb_dma.launches"] != sum(batches.values()))):
+            or (fused and c["sgb_dma.launches"]
+                != shards * sum(batches.values()))):
         raise AssertionError(f"{name}: launches {c} on {batches} batches, "
-                             f"not both kernels once a batch")
+                             f"not both kernels {shards} times a batch")
     launches = {"conv_stack_fused": c["conv_stack.launches"]}
     for n, k in batches.items():
-        launches[SGB_ROW[n]] = k if fused else 0
+        launches[SGB_ROW[n]] = shards * k if fused else 0
 
     direct = make_pipeline(state, {"upsample_factor": UP}, dtype=dtype,
                            device=dev)
@@ -3137,22 +3170,34 @@ def mesh_driver(work: Path, data: str) -> None:
         raise AssertionError(f"mesh phase: the driver launched {launched}")
 
 
-def mesh_two_ranks() -> None:
+def sp_cases() -> list:
+    """The sp phase's steps: StofNet f32 and amp at dp=1, sp=2, each rank
+    4000 samples of every row of one B=128 batch at L=8000."""
+    shape = dict(mesh=(1, 2), timed=MESH_TIMED)
+    return [dp_check.stofnet_case(L, B, name="stofnet", **shape),
+            dp_check.stofnet_case(L, B, amp=True, name="stofnet amp",
+                                  **shape)]
+
+
+def mesh_two_ranks() -> list:
     """2 ranks on cuda:0 (gloo) each take 64 rows of one B=128 batch at
     L=8000 through ``scripts/dp_check``, against the single process's
-    step on the whole batch."""
+    step on the whole batch. The same ranks then run :func:`sp_cases`,
+    one launch for both phases; returns those cases' (case, rank 0's
+    result, the single process's result) for :func:`sp_two_ranks`."""
     cases = [dp_check.stofnet_case(L, B, timed=MESH_TIMED),
-             dp_check.sincnet_case(L, B, timed=MESH_TIMED)]
+             dp_check.sincnet_case(L, B, timed=MESH_TIMED), *sp_cases()]
     t0 = time.perf_counter()
     ranks = dp_mesh.launch(dp_check.run_cases, (cases, "cuda:0", True),
                            devices=["cuda:0", "cuda:0"], backend="gloo")
     launch_s = time.perf_counter() - t0
     alone = dp_check.run_cases(cases, "cuda:0")
     gloo = ranks.pop()["gloo_cuda"]
+    sp_runs = list(zip(cases[2:], ranks[2:], alone[2:]))
     lr = OPT["lr"]
     out, bad = {"launch_s": launch_s, "gloo_takes_cuda": gloo,
                 "gloo_route": "host copies, by rule (parallel/mesh.py)"}, []
-    for case, dp, one in zip(cases, ranks, alone):
+    for case, dp, one in zip(cases[:2], ranks, alone):
         diff = np.abs(np.concatenate([np.ravel(dp["params"][k] - v)
                                       for k, v in one["params"].items()]))
         res = dict(loss=[dp["loss"][0], one["loss"][0]],
@@ -3179,6 +3224,7 @@ def mesh_two_ranks() -> None:
     if bad:
         raise AssertionError(f"mesh phase: the 2-rank step misses the "
                              f"single step: {bad}")
+    return sp_runs
 
 
 def mesh_daemon(dev, work: Path, stofnet_ckpt: str) -> dict:
@@ -3237,15 +3283,183 @@ def mesh_array(work: Path, data: str, array_first: torch.Tensor) -> None:
 
 
 def mesh_path(dev, work: Path, data: str, stofnet_ckpt: str,
-              array_first: torch.Tensor) -> dict:
+              array_first: torch.Tensor):
     """The mesh phase (item 17 of the module docstring). Returns the mesh
-    daemon's launches by kernels-line row."""
+    daemon's launches by kernels-line row, and the sp phase's steps that
+    its ranks ran (:func:`mesh_two_ranks`)."""
     t_phase = time.perf_counter()
     mesh_driver(work, data)
-    mesh_two_ranks()
+    sp_runs = mesh_two_ranks()
     launches = mesh_daemon(dev, work, stofnet_ckpt)
     mesh_array(work, data, array_first)
     log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, sp_runs
+
+
+def sp_replica(state):
+    """``replica(device)`` of ``cli/serve._mesh_adjust``: the main path's
+    bf16 pipeline on that device (the fused route at L % 80 == 0)."""
+    def replica(where):
+        return make_pipeline(state, {"upsample_factor": UP}, device=where,
+                             window_size=DECODE["window_size"],
+                             threshold=DECODE["threshold"],
+                             max_echoes=DECODE["max_echoes"])
+    return replica
+
+
+def sp_pipeline(dev, state, sp: int):
+    """The daemon's sp pipeline over a mesh listing ``dev`` sp times (one
+    card): a numpy batch in, the coords as a CPU tensor out; and its
+    replicas' first pipeline (its ``calls``)."""
+    mesh = dp_mesh.make_mesh(1, sp, [dev] * sp)
+    pipe, _ = serve_cli._mesh_adjust(sp_replica(state), dev, mesh, None, B)
+    return (lambda x: torch.from_numpy(pipe(x))), pipe
+
+
+def sp_serving(dev, state, rng) -> dict:
+    """The sharded fused route at each (L, sp) of SP_SERVE against the
+    single pipeline on the same batches, then the module route at
+    L_MODULE over sp=2. Returns the launches by kernels-line row."""
+    single = make_pipeline(state, {"upsample_factor": UP}, device=dev,
+                           window_size=DECODE["window_size"],
+                           threshold=DECODE["threshold"],
+                           max_echoes=DECODE["max_echoes"])
+
+    def run_single(x):
+        return single(x).cpu()
+
+    launches = {"conv_stack_fused": 0}
+    arch = single.arch
+    for length, sp in SP_SERVE:
+        name = f"sp phase, L={length} sp={sp}"
+        run, _ = sp_pipeline(dev, state, sp)
+        warm = gate_batch(B, length, rng)
+        run(warm)  # cuDNN's algorithm choice, not timed
+        run_single(warm)
+        batches = [gate_batch(B, length, rng) for _ in range(N_BATCHES)]
+        want, single_ms = serve_timed(f"{name} single", run_single, batches,
+                                      SERVE[L])
+        reset_launch_counts()
+        got, batch_ms = serve_timed(name, run, batches,
+                                    {"sgb_dma.launches": sp,
+                                     "conv_stack.launches": sp})
+        c = counts()
+        launches[SGB_ROW[length]] = (launches.get(SGB_ROW[length], 0)
+                                     + c["sgb_dma.launches"])
+        launches["conv_stack_fused"] += c["conv_stack.launches"]
+        equal = bool(torch.equal(got, want))
+        rows, moved = row_agreement(got, want)
+        out = dict(rows_equal=equal, coord_agreement=coord_agreement(
+            got, want), row_agreement=rows, rows_moved=moved,
+            launches_per_batch={k: v / N_BATCHES for k, v in c.items() if v},
+            ms_per_batch=float(np.median(batch_ms)), batch_ms=batch_ms,
+            single_ms_per_batch=float(np.median(single_ms)),
+            single_batch_ms=single_ms,
+            redundant_share=seq.redundant_share(length, sp, arch),
+            windows=[w for w, _ in seq.windows(length, sp, arch)])
+        if not equal:  # the main path's rule, on the plain path's witness
+            params = {k: v.to(dev) for k, v in state.items()}
+            with torch.inference_mode():
+                plain = torch.cat([mask2coords(stofnet_apply_reference(
+                    params, torch.from_numpy(x).to(dev)), **DECODE).cpu()
+                    for x in batches])
+            out["witness"] = witness(dev, state, batches, want, plain)
+        log(f"{name}: {json.dumps(out)}")
+        if not equal:
+            base = out["witness"]["plain~plain_cpu"]["moved"]
+            if (out["coord_agreement"] < AGREE_MIN
+                    or moved > 2 * base + ROW_NOISE):
+                raise AssertionError(f"{name}: the sharded coords miss the "
+                                     f"single pipeline's: {out}")
+    run, first = sp_pipeline(dev, state, 2)
+    x = gate_batch(B, L_MODULE, rng)
+    reset_launch_counts()
+    got, batch_ms = serve_timed(f"sp phase, L={L_MODULE} sp=2", run, [x], {})
+    ref = torch.from_numpy(module_coords(
+        state, {"upsample_factor": UP}, x, torch.bfloat16, dev,
+        window_size=DECODE["window_size"], threshold=DECODE["threshold"],
+        max_echoes=DECODE["max_echoes"]))
+    out = dict(route_calls=first.calls, coord_agreement_module_bf16=(
+        coord_agreement(got, ref)), ms=batch_ms[0])
+    log(f"sp phase, L={L_MODULE} sp=2: {json.dumps(out)}")
+    if first.calls != {"fused": 0, "module": 1} or (
+            out["coord_agreement_module_bf16"] < AGREE_MIN):
+        raise AssertionError(f"sp phase, L={L_MODULE}: {out}, not one module "
+                             f"call a shard at >= {AGREE_MIN} of the slots")
+    return launches
+
+
+def sp_two_ranks(sp_runs: list) -> None:
+    """The f32 and amp StofNet steps of 2 gloo ranks on cuda:0 at dp=1,
+    sp=2 (:func:`sp_cases`, run by the mesh phase's ranks) against the
+    single process's."""
+    rules = [(MESH_LOSS_RTOL, MESH_AGREE, MESH_SHARE),
+             (SP_AMP_RTOL, SP_AMP_AGREE, SP_AMP_SHARE)]
+    out, bad = {}, []
+    for (case, got, one), (rtol, agree, share) in zip(sp_runs, rules):
+        diff = np.abs(np.concatenate([np.ravel(got["params"][k] - v)
+                                      for k, v in one["params"].items()]))
+        res = dict(loss=[got["loss"][0], one["loss"][0]],
+                   share_within=float(np.mean(diff < agree)),
+                   max_param_diff=float(diff.max()),
+                   ranks_equal=got["ranks_equal"],
+                   ms_2_ranks=got["ms"], ms_single=one["ms"])
+        if not (abs(res["loss"][0] - res["loss"][1])
+                <= rtol * abs(res["loss"][1]) and res["share_within"] > share
+                and res["max_param_diff"] < 2 * OPT["lr"]
+                and res["ranks_equal"]):
+            bad.append(case["name"])
+        out[case["name"]] = res
+    log(f"sp phase, 2 ranks at sp=2 on one card: {json.dumps(out)}")
+    if len(out) != len(rules) or bad:
+        raise AssertionError(f"sp phase: the sp=2 step misses the single "
+                             f"step: {bad or out}")
+
+
+def sp_daemon(dev, work: Path, stofnet_ckpt: str) -> dict:
+    """The daemon with ``mesh=True mesh_sp=2`` in bf16 at L from the data
+    phase's checkpoint, its two replicas on ``dev``, under
+    :func:`daemon_traffic`. Returns the launches by kernels-line row."""
+    rng = np.random.default_rng(SEED + 8)
+    state = load_model_variables("stofnet", find_checkpoint(
+        work / "ckpts", stofnet_ckpt))
+    state = {k: v.to(dev) for k, v in state.items()}
+    rows = list(gate_batch(DAEMON_CLIENTS * DAEMON_REQUESTS, L, rng)[:, 0])
+    batch = gate_batch(B, L, rng)[:, 0]
+    args = {"model_file": stofnet_ckpt, "ckpt_dir": str(work / "ckpts"),
+            "length": L, "dtype": "bfloat16", "mesh": True, "mesh_sp": 2,
+            "max_batch": B, "max_wait_ms": 2, "port": 0}
+
+    def one_card(device, dp, sp):  # the mesh's devices: cuda:0, sp times
+        return [torch.device(dev)] * ((dp or 1) * sp)
+
+    orig = serve_cli.local_devices
+    serve_cli.local_devices = one_card
+    try:
+        _, launches = daemon_traffic("sp phase, daemon sp=2 from checkpoint",
+                                     args, state, dev, rows, batch,
+                                     dtype=torch.bfloat16, shards=2)
+    finally:
+        serve_cli.local_devices = orig
+    if not all(launches.values()):
+        raise AssertionError(f"sp phase, daemon: a kernel did not launch: "
+                             f"{launches}")
+    return launches
+
+
+def sp_path(dev, work: Path, stofnet_ckpt: str, sp_runs: list) -> dict:
+    """The sp phase (item 18 of the module docstring); ``sp_runs`` are its
+    steps, which the mesh phase's ranks ran. Returns its launches by
+    kernels-line row."""
+    t_phase = time.perf_counter()
+    state = StofNet(generator=torch.Generator().manual_seed(SEED),
+                    device=dev).state_dict()
+    launches = sp_serving(dev, state, np.random.default_rng(SEED + 9))
+    sp_two_ranks(sp_runs)
+    for k, v in sp_daemon(dev, work, stofnet_ckpt).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"sp phase launches: {json.dumps(launches)}")
+    log(f"sp phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3312,7 +3526,10 @@ def main() -> int:
         paths.append(pala_path(dev, work))
         array_first = array_path(dev, work, data)
         sweep_path(work, data, stofnet_ckpt, ckpts)
-        paths.append(mesh_path(dev, work, data, stofnet_ckpt, array_first))
+        launches, sp_runs = mesh_path(dev, work, data, stofnet_ckpt,
+                                      array_first)
+        paths.append(launches)
+        paths.append(sp_path(dev, work, stofnet_ckpt, sp_runs))
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

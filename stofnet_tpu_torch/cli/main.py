@@ -29,10 +29,18 @@ Departures from the JAX driver:
   Only rank 0 writes the run's files (JSONL, summary, checkpoints,
   ``export_pth``, figures, artifacts, traces); every rank reads
   ``model_file=`` and ``resume=``, and rank 0's weights are broadcast.
-  ``mesh_dp`` defaults to the card count (1 on the CPU, where any dp
-  runs: the ranks share the CPU) and may not exceed it. ``mesh_sp > 1``
-  is refused with ``SystemExit`` naming the slice that brings it
-  (ROADMAP A.6b).
+  ``mesh_dp`` defaults to the card count over ``mesh_sp`` (1 on the CPU,
+  where any mesh runs: the ranks share the CPU); dp * sp may not exceed
+  the cards.
+- ``mesh=True mesh_sp=N`` also shards the sample axis of StofNet's
+  frames on chirp data (``parallel/seq.py``): the ranks of one dp row
+  (its sp group) load the same rows, each keeps its L / sp samples of
+  them, and the steps widen each shard with its neighbours' halo, train
+  on the shard's own positions and join the heatmaps of an sp group
+  before the decode. JAX's refusals stay (``batch_size % dp``, ``L %
+  sp``). Refused before any rank starts, with ``SystemExit`` naming
+  ROADMAP A.6c: the zoo, PALA and rat data, and ``int8=True``, under
+  ``mesh_sp > 1``.
 - ``compile_cache=`` is accepted and does nothing (eager PyTorch compiles
   nothing to cache); a line on stderr says so.
 - A fresh model is drawn from ``torch.Generator().manual_seed(seed)``
@@ -67,8 +75,8 @@ from stofnet_tpu_torch.models.registry import (
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.peaks import coords2mask
 from stofnet_tpu_torch.parallel.mesh import (
-    SP_LATER, broadcast_object, config_mesh, gather_rows, live, replicate,
-    run_ranks,
+    SP_LATER, Sharding, broadcast_object, config_mesh, gather_rows, live,
+    refuse_sp, replicate, run_ranks,
 )
 from stofnet_tpu_torch.train.checkpoint import (
     find_checkpoint, load_checkpoint, load_model_variables, save_checkpoint,
@@ -348,8 +356,8 @@ def _int8_eval_step(ctx: Dict[str, Any], loader, finish):
         raise ValueError("int8=True needs at least one eval batch for the "
                          "pre-pool requantization calibration")
     if ctx["mesh"] is not None:  # the global batches' calibration
-        calib = [gather_rows(ctx["mesh"], torch.from_numpy(c)).numpy()
-                 for c in calib]
+        calib = [gather_rows(ctx["mesh"].over_dp(),
+                             torch.from_numpy(c)).numpy() for c in calib]
     ov = {"upsample_factor": int(model.upsample_factor),
           "num_blocks": int(model.num_blocks),
           "semi_global_scale": int(model.semi_global_scale)}
@@ -394,7 +402,7 @@ def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     if use_int8:
         eval_step = _int8_eval_step(ctx, loader, eval_step.finish)
 
-    put = DevicePut(ctx["device"])
+    put = _put(ctx)
     total = {"loss": [], "distance": [], "jaccard": [], "time": []}
     val_step = 0
     # find_threshold runs on every eval batch like the reference;
@@ -431,7 +439,8 @@ def evaluate(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
             # the global batch's masks (gathered in batch order) against
             # its GT, on rank 0
             gt_all = (gt_true if mesh is None else
-                      gather_rows(mesh, torch.from_numpy(gt_true)).numpy())
+                      gather_rows(mesh.over_dp(),
+                                  torch.from_numpy(gt_true)).numpy())
             if writer:
                 pred_np = out["masks_pred"].float().cpu().numpy()
                 masks_true = coords2mask(torch.from_numpy(gt_all),
@@ -545,7 +554,7 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     # in-loop figure panels every N train batches, saved next to the JSONL
     plot_every = int(cfg.get("plot_interval", 800))
     plot_dir = Path(logger.run_dir) / f"{logger.run_name}_figs"
-    put = DevicePut(ctx["device"])
+    put = _put(ctx)
 
     def lr_now() -> float:
         return float(optimizer.param_groups[0]["lr"])
@@ -645,14 +654,40 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     return summary
 
 
+def _sp_refusals(cfg: Config) -> None:
+    """What ``mesh_sp > 1`` does not shard yet, refused before any rank
+    starts (ROADMAP A.6c): the zoo, PALA and rat data, ``int8=True``."""
+    name = str(cfg.model).lower()
+    if name != "stofnet":
+        refuse_sp(cfg, f"model={name}")
+    kind = dataset_kind(cfg.data_dir)
+    if kind != "chirp":
+        refuse_sp(cfg, f"{kind} data")
+    if cfg.get("int8"):
+        refuse_sp(cfg, "int8=True (its per-waveform activation scale is a "
+                       "max over the whole row)")
+
+
 def _writer(mesh) -> bool:
     """Whether this process writes the run's files: rank 0 of a mesh."""
     return mesh is None or mesh.rank == 0
 
 
 def _shard(mesh) -> Tuple[int, int]:
-    """A loader's ``shard=``: this rank's rows of each global batch."""
-    return (0, 1) if mesh is None else (mesh.rank, mesh.dp)
+    """A loader's ``shard=``: this rank's rows of each global batch, by
+    its dp coordinate (the ranks of one sp group load the same rows)."""
+    return (0, 1) if mesh is None else (mesh.dp_index, mesh.dp)
+
+
+def _put(ctx: Dict[str, Any]) -> Callable:
+    """The device copy of a host batch (frame, gt, gt_true): under sp > 1
+    the frame's copy is this rank's L / sp samples (JAX's
+    ``batch_seq_sharding`` of the frame; the loader took the rows)."""
+    put, mesh = DevicePut(ctx["device"]), ctx["mesh"]
+    if mesh is None or mesh.sp == 1:
+        return put
+    samples = Sharding(mesh, (None, None, "sp"))
+    return lambda batch: put((samples.take(batch[0]), *batch[1:]))
 
 
 def _say_mesh(what: str, mesh) -> None:
@@ -666,6 +701,8 @@ def run(cfg: Config) -> Dict[str, Any]:
         raise ValueError("int8=True is a SERVING path (evaluate=True only):"
                          " training runs full-precision — drop the flag or"
                          " add evaluate=True")
+    if cfg.get("mesh"):
+        _sp_refusals(cfg)
     if cfg.get("mesh") and not live():
         return run_ranks(run, cfg, _batch_check(cfg))
     if cfg.get("compile_cache"):

@@ -41,8 +41,21 @@ served. Departures: a fixed-batch artifact runs its whole batch on each
 replica, so under dp > 1 it is refused (export it with ``batch=b``); and
 an artifact serves only on the device it was exported for, so a mesh
 over several cards is refused for ``artifact=`` (serve ``model_file=``,
-whose replicas are built a card each). ``mesh_sp > 1`` is refused
-(ROADMAP A.6b).
+whose replicas are built a card each).
+
+``mesh=True mesh_sp=N`` (a StofNet checkpoint) also splits each row of a
+slice along L over the sp replicas of the slice's dp row (dp * sp
+devices, JAX's ``reshape(dp, sp)``): each replica runs its route's
+forward (``make_pipeline``'s ``heatmap``: the fused kernels at L % 80 ==
+0, the module elsewhere) on its shard's window, the row with the halo
+that StofNet's reach needs (``parallel/seq.py``; a slice of the request
+already on the host), and keeps its own positions; the shards' heatmaps
+are joined in order on the slice's first device and decoded there. Every
+shard is launched before any result is copied back. JAX's refusal stays:
+``length`` must divide by sp. Refused with ``mesh_sp > 1``, naming
+ROADMAP A.6c: the zoo (``model=`` other than stofnet), the int8 route
+(its activations take a per-waveform scale, a max over the whole row
+that a window does not see), ``artifact=`` and ``input_enc=``.
 
 Tuning: ``max_batch=`` (largest coalesced batch, 128), ``max_wait_ms=``
 (how long the oldest request may wait for the batch to fill, 2),
@@ -61,8 +74,8 @@ Departures from the JAX daemon:
 - Refused, with ``SystemExit``: ``compile_cache=`` (it persists XLA's
   compiles; an artifact of the port compiles nothing when it loads, and
   the kernels' libraries in ``build/kernels`` already persist across
-  restarts) and ``mesh_sp > 1``. Only ``ckpt_dir=`` is searched for
-  ``model_file=``.
+  restarts), and under ``mesh_sp > 1`` what sp does not shard yet
+  (above). Only ``ckpt_dir=`` is searched for ``model_file=``.
 
 Speak to it with ``stofnet_tpu_torch.serving.ServingClient`` (or JAX's,
 or ``examples/serving_client.c``: the wire is the same). On SIGINT or
@@ -89,8 +102,9 @@ from stofnet_tpu_torch.serve import (
     load_pipeline, make_input_encoder, make_pipeline,
 )
 from stofnet_tpu_torch.parallel.mesh import (
-    Mesh, config_mesh, local_devices, mesh_dims,
+    Mesh, config_mesh, local_devices, mesh_dims, refuse_sp,
 )
+from stofnet_tpu_torch.parallel.seq import crop, split_windows
 from stofnet_tpu_torch.serving import (
     LengthRouter, ServingHost, batch_buckets, start_server,
 )
@@ -135,8 +149,18 @@ def build(args: Dict[str, Any]):
         raise SystemExit("length= is required with model_file= "
                          "(the serving contract's static length)")
     length = int(args["length"])
+    if model != "stofnet":
+        refuse_sp(args, f"model={model}")
+    if any(args.get(k) for k in INT8_KEYS):
+        refuse_sp(args, "the int8 route (its activations take a "
+                        "per-waveform scale, a max over the whole row)")
+    if str(args.get("input_enc") or "f32") != "f32":
+        refuse_sp(args, f"input_enc={args['input_enc']}")
     device = resolve_device(args.get("device"))
     mesh = _serving_mesh(args, device)
+    if mesh is not None and length % mesh.sp:
+        raise SystemExit(f"sample length {length} not divisible by "
+                         f"mesh_sp={mesh.sp}")
     if mesh is not None:
         device = mesh.devices[0]
     if model == "stofnet":
@@ -168,6 +192,9 @@ def build(args: Dict[str, Any]):
             return raw(*encode(xb))
 
         run.route, run.calls = raw.route, raw.calls
+        for attr in ("heatmap", "decode", "arch"):  # a StofNet pipeline's
+            if hasattr(raw, attr):
+                setattr(run, attr, getattr(raw, attr))
         return run
 
     max_batch = int(args.get("max_batch", 128))
@@ -217,6 +244,7 @@ def _artifact_host(path: str, args: Dict[str, Any]) -> ServingHost:
     key, and a fixed-batch artifact is its own single bucket. Under a mesh
     every replica loads the artifact on its device, which must be the one
     it was exported for."""
+    refuse_sp(args, "artifact= (an exported program decodes whole rows)")
     raw = load_pipeline(path)
     mesh = _serving_mesh(args, raw.device)
     if mesh is not None and any(d != raw.device for d in mesh.devices):
@@ -270,11 +298,15 @@ def _mesh_adjust(replica: Callable, device: torch.device,
     dp-divisible buckets (JAX's ``_mesh_adjust``; ``buckets`` given is a
     fixed artifact's one bucket, its ``max_batch``). Every slice is
     launched before any result is copied back, so the replicas' cards
-    run together."""
+    run together. Under sp > 1 the replicas of a dp row (devices ``d *
+    sp .. d * sp + sp - 1``) each run ``run.heatmap`` on one shard's
+    window of the slice's rows (``parallel/seq.split_windows``), and the
+    row's first replica joins the cropped heatmaps in order and decodes
+    them (``run.decode``)."""
     if mesh is None:
-        replicas, dp = [replica(device)], 1
+        replicas, dp, sp = [replica(device)], 1, 1
     else:
-        dp = mesh.dp
+        dp, sp = mesh.dp, mesh.sp
         if max_batch % dp:
             raise SystemExit(f"max_batch={max_batch} must be divisible by "
                              f"the dp mesh size {dp}")
@@ -289,8 +321,21 @@ def _mesh_adjust(replica: Callable, device: torch.device,
                             if b % dp == 0)
         replicas = [replica(d) for d in mesh.devices]
 
+    def shards(i: int, part) -> List[Tuple[torch.Tensor, Tuple[int, int]]]:
+        """Slice i's shard heatmaps, launched, with each shard's positions
+        within its window, in sp order."""
+        row = replicas[i * sp:(i + 1) * sp]
+        return [(rep.heatmap(w), within) for rep, (w, within) in zip(
+            row, split_windows(part, sp, row[0].arch))]
+
     def pipeline(xb):
-        outs = [rep(part) for rep, part in zip(replicas, np.split(xb, dp))]
+        parts = np.split(xb, dp)
+        if sp == 1:
+            outs = [rep(part) for rep, part in zip(replicas, parts)]
+        else:  # every shard launched, then each slice joined and decoded
+            launched = [shards(i, part) for i, part in enumerate(parts)]
+            outs = [_join(replicas[i * sp], heats)
+                    for i, heats in enumerate(launched)]
         # the host takes numpy: the coords come back from the cards here
         return np.concatenate([o.cpu().numpy() for o in outs])
 
@@ -298,6 +343,18 @@ def _mesh_adjust(replica: Callable, device: torch.device,
         if hasattr(replicas[0], attr):
             setattr(pipeline, attr, getattr(replicas[0], attr))
     return pipeline, None if buckets is None else tuple(buckets)
+
+
+def _join(first: Callable,
+          heats: List[Tuple[torch.Tensor, Tuple[int, int]]]
+          ) -> torch.Tensor:
+    """A dp row's shard heatmaps, each cropped to its own positions and
+    joined in sp order on the device of the row's first replica, decoded
+    there (``first.decode``)."""
+    up = int(first.arch["upsample_factor"])
+    where = heats[0][0].device
+    return first.decode(torch.cat([crop(h, within, up).to(where)
+                                   for h, within in heats], dim=-1))
 
 
 def _max_pending(args: Dict[str, Any]) -> Optional[int]:

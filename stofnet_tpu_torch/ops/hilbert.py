@@ -28,3 +28,14 @@ def analytic_signal(y: torch.Tensor, axis: int = -1) -> torch.Tensor:
 def hilbert_envelope(y: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Magnitude of the analytic signal (the instantaneous envelope)."""
     return torch.abs(analytic_signal(y, axis=axis))
+
+
+def hilbert_transform_features(x: torch.Tensor, concat_oscil: bool = False,
+                               channel_axis: int = 1) -> torch.Tensor:
+    """Envelope features for (B, C, L) frames; with ``concat_oscil`` the raw
+    oscillation is concatenated along the channel axis (the reference's
+    HilbertTransform module)."""
+    env = hilbert_envelope(x, axis=-1)
+    if concat_oscil:
+        return torch.cat([env, x], dim=channel_axis)
+    return env

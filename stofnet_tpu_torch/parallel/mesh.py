@@ -1,5 +1,5 @@
-"""Device meshes and data parallelism on ``torch.distributed`` (replaces
-``stofnet_tpu/parallel/mesh.py``, its dp axis).
+"""Device meshes, data parallelism and sequence parallelism on
+``torch.distributed`` (replaces ``stofnet_tpu/parallel/mesh.py``).
 
 JAX's mesh is one program over the *global* batch: GSPMD partitions it
 over a (dp, sp) ``jax.sharding.Mesh`` and inserts the collectives. PyTorch
@@ -7,15 +7,27 @@ has no GSPMD, so here each rank of a process group (one process a device)
 holds its shard of every batch, and what needs the global batch asks for
 it: the loss's normaliser (an all-reduced max), BatchNorm's statistics
 (:class:`AllReduceSum` inside autograd), the gradients (a sum over the
-ranks, divided by dp) and the evaluation's rows (gathered in batch order).
+ranks, divided by their count) and the evaluation's rows (gathered in
+batch order).
 
 - **dp**: the batch axis. :func:`shard_batch` takes this rank's B / dp
   rows of each batch-major tensor.
-- **sp**: the sample axis, refused everywhere (:data:`SP_LATER`).
+- **sp**: the sample axis, for StofNet. ``shard_batch(seq_axis=)`` takes
+  this rank's L / sp samples of each row; ``parallel/seq.py`` widens the
+  shard by StofNet's reach with a halo from the neighbours, runs the
+  single-device forward on the window and keeps the shard's positions.
+  Refused under sp > 1, naming ROADMAP A.6c (:data:`SP_LATER`): the zoo,
+  PALA and rat data, the int8 route, artifacts and encoded inputs.
+
+Ranks are laid out as JAX lays devices out, ``reshape(dp, sp)``: rank r
+has dp coordinate ``r // sp`` and sp coordinate ``r % sp``. Under a live
+group a mesh also holds its sp group (the ranks of its dp row) and its dp
+group (the ranks of its sp column), which every rank makes in the same
+order.
 
 Ranks meet through :func:`init_distributed` (``torchrun``, or processes
-that a caller starts) or :func:`launch` (this process as rank 0 and dp - 1
-spawned ones, meeting through a ``file://`` store in a temporary
+that a caller starts) or :func:`launch` (this process as rank 0 and the
+others spawned, meeting through a ``file://`` store in a temporary
 directory); :func:`run_ranks` picks one of the two for an entry point's
 ``mesh=True``, and :func:`config_mesh` is the mesh of its ``mesh_dp``
 and ``mesh_sp`` keys (:func:`mesh_dims`). A rank on the card owns
@@ -30,7 +42,8 @@ fails instead of waiting for ever. The collectives themselves are in
 layers import.
 
 A mesh built from explicit ``devices`` outside a group holds replicas in
-one process: the daemon serves each slice of a batch on its replica
+one process: the daemon serves each slice of a batch on its replica, and
+under sp each shard of a slice on the replicas of its dp row
 (``cli/serve.py``).
 """
 
@@ -54,8 +67,9 @@ from stofnet_tpu_torch.utils.collectives import (  # noqa: F401 (re-exported)
 )
 from stofnet_tpu_torch.utils.config import Config
 
-SP_LATER = ("mesh_sp > 1 (sequence parallelism: a halo exchange for each "
-            "conv, the SGB's pooled gathers) comes with ROADMAP A.6b")
+SP_LATER = ("mesh_sp > 1 shards StofNet's sample axis on chirp data; the "
+            "zoo, PALA and rat data, the int8 route, artifacts and encoded "
+            "inputs under sp come with ROADMAP A.6c")
 TIMEOUT = timedelta(seconds=300)
 
 # the device this process joined its group with (init_distributed,
@@ -159,20 +173,36 @@ def local_devices(device: DeviceLike = None, dp: Optional[int] = None,
 
 @dataclass(frozen=True)
 class Mesh:
-    """A (dp, sp) mesh over ``devices`` (rank order). Under a live process
-    group, ``group`` is it and ``rank`` this process's rank, whose device
-    is :attr:`device`; without one, the devices hold replicas in one
-    process."""
+    """A (dp, sp) mesh over ``devices`` (rank order, rank r at dp
+    coordinate ``r // sp`` and sp coordinate ``r % sp``). Under a live
+    process group, ``group`` is it and ``rank`` this process's rank, whose
+    device is :attr:`device`; ``sp_group`` holds the ranks of this rank's
+    dp row and ``dp_group`` those of its sp column. Without one, the
+    devices hold replicas in one process."""
 
     dp: int
     sp: int
     devices: Tuple[torch.device, ...]
     group: Any = None
     rank: int = 0
+    sp_group: Any = None
+    dp_group: Any = None
 
     @property
     def shape(self) -> dict:
         return {"dp": self.dp, "sp": self.sp}
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.sp
+
+    @property
+    def dp_index(self) -> int:
+        return self.rank // self.sp
+
+    @property
+    def sp_index(self) -> int:
+        return self.rank % self.sp
 
     @property
     def device(self) -> torch.device:
@@ -181,6 +211,15 @@ class Mesh:
     @property
     def backend(self) -> Optional[str]:
         return None if self.group is None else dist.get_backend(self.group)
+
+    def over_dp(self) -> "Mesh":
+        """The mesh of this rank's sp column: dp ranks, one a row, over
+        ``dp_group``; its collectives reduce and gather rows. The mesh
+        itself at sp = 1."""
+        if self.sp == 1:
+            return self
+        return Mesh(self.dp, 1, self.devices[self.sp_index::self.sp],
+                    self.dp_group, self.dp_index, None, self.dp_group)
 
 
 def make_mesh(dp: Optional[int] = None, sp: int = 1,
@@ -205,10 +244,29 @@ def make_mesh(dp: Optional[int] = None, sp: int = 1,
         dp = n // sp
     if dp * sp != n:
         raise ValueError(f"dp*sp = {dp * sp} != {n} devices")
-    if sp > 1:
-        raise NotImplementedError(SP_LATER)
-    return Mesh(int(dp), int(sp), devices, group,
-                dist.get_rank() if group is not None else 0)
+    if group is None:
+        return Mesh(int(dp), int(sp), devices)
+    rank = dist.get_rank()
+    sp_group, dp_group = _groups(int(dp), int(sp), rank)
+    return Mesh(int(dp), int(sp), devices, group, rank, sp_group, dp_group)
+
+
+def _groups(dp: int, sp: int, rank: int) -> Tuple[Any, Any]:
+    """This rank's (sp group, dp group) of a (dp, sp) mesh over the live
+    group, made once a shape a process: every rank makes every row's and
+    every column's group, in the same order (``new_group`` is collective).
+    At sp = 1 the dp group is the world and there is no sp group."""
+    if sp == 1:
+        return None, dist.group.WORLD
+    made = _joined.setdefault("groups", {})
+    if (dp, sp) not in made:
+        rows = [dist.new_group([d * sp + k for k in range(sp)],
+                               timeout=TIMEOUT) for d in range(dp)]
+        cols = [dist.new_group([d * sp + k for d in range(dp)],
+                               timeout=TIMEOUT) for k in range(sp)]
+        made[(dp, sp)] = rows, cols
+    rows, cols = made[(dp, sp)]
+    return rows[rank // sp], cols[rank % sp]
 
 
 @dataclass(frozen=True)
@@ -220,15 +278,27 @@ class Sharding:
     spec: Tuple[Optional[str], ...]
 
     def take(self, x):
-        """This rank's part of ``x`` (a tensor or numpy array)."""
-        if "dp" not in self.spec:
-            return x
-        dp, rank = self.mesh.dp, self.mesh.rank
-        if x.shape[0] % dp:
-            raise ValueError(f"batch {x.shape[0]} not divisible by "
-                             f"mesh_dp={dp}")
-        b = x.shape[0] // dp
-        return x[rank * b:(rank + 1) * b]
+        """This rank's part of ``x`` (a tensor or numpy array): along an
+        axis named ``dp`` the block of its dp coordinate, along one named
+        ``sp`` the block of its sp coordinate."""
+        mesh, index = self.mesh, [slice(None)] * x.ndim
+        for axis, name in enumerate(self.spec):
+            if name == "dp":
+                n, i = x.shape[axis], mesh.dp_index
+                if n % mesh.dp:
+                    raise ValueError(f"batch {n} not divisible by "
+                                     f"mesh_dp={mesh.dp}")
+                b = n // mesh.dp
+            elif name == "sp":
+                n, i = x.shape[axis], mesh.sp_index
+                if n % mesh.sp:
+                    raise ValueError(f"sample length {n} not divisible by "
+                                     f"mesh_sp={mesh.sp}")
+                b = n // mesh.sp
+            else:
+                continue
+            index[axis] = slice(i * b, (i + 1) * b)
+        return x[tuple(index)]
 
 
 def batch_sharding(mesh: Mesh, ndim: int) -> Sharding:
@@ -236,9 +306,14 @@ def batch_sharding(mesh: Mesh, ndim: int) -> Sharding:
     return Sharding(mesh, ("dp", *([None] * (ndim - 1))))
 
 
-def batch_seq_sharding(mesh: Mesh, ndim: int, seq_axis: int = -1):
-    """Shard axis 0 over dp and the sample axis over sp: refused."""
-    raise NotImplementedError(SP_LATER)
+def batch_seq_sharding(mesh: Mesh, ndim: int, seq_axis: int = -1
+                       ) -> Sharding:
+    """Shard axis 0 over dp and the sample axis over sp."""
+    seq_axis = seq_axis % ndim
+    spec: List[Optional[str]] = [None] * ndim
+    spec[0] = "dp"
+    spec[seq_axis] = "sp"
+    return Sharding(mesh, tuple(spec))
 
 
 def replicate(mesh: Mesh, module: torch.nn.Module) -> torch.nn.Module:
@@ -250,27 +325,35 @@ def replicate(mesh: Mesh, module: torch.nn.Module) -> torch.nn.Module:
 
 
 def shard_batch(mesh: Mesh, tree, seq_axis: Optional[int] = None):
-    """This rank's rows of every batch-major leaf of ``tree`` (a tensor, a
-    numpy array, or a dict, list or tuple of them); 0-d leaves replicate.
-    ``seq_axis`` shards nothing at sp = 1."""
-    if mesh.sp > 1:
-        raise NotImplementedError(SP_LATER)
+    """This rank's part of every batch-major leaf of ``tree`` (a tensor, a
+    numpy array, or a dict, list or tuple of them): its rows, and with
+    ``seq_axis`` also its samples along that axis of every leaf of two or
+    more axes (:func:`batch_seq_sharding`), as JAX's; 0-d leaves
+    replicate. Frames take ``seq_axis``; GT tensors, sharded over dp
+    only, go in a call without it, as JAX's driver puts them."""
     if isinstance(tree, dict):
-        return {k: shard_batch(mesh, v) for k, v in tree.items()}
+        return {k: shard_batch(mesh, v, seq_axis) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(shard_batch(mesh, v) for v in tree)
+        return type(tree)(shard_batch(mesh, v, seq_axis) for v in tree)
     if tree.ndim == 0:
         return tree
+    if seq_axis is not None and tree.ndim >= 2:
+        return batch_seq_sharding(mesh, tree.ndim, seq_axis).take(tree)
     return batch_sharding(mesh, tree.ndim).take(tree)
 
 
 def mesh_dims(cfg: Mapping[str, Any]) -> Tuple[Optional[int], int]:
-    """(``mesh_dp`` or None, ``mesh_sp``) of an entry point's config;
-    ``mesh_sp > 1`` is refused with ``SystemExit`` (:data:`SP_LATER`)."""
-    sp = int(cfg.get("mesh_sp", 1) or 1)
-    if sp > 1:
-        raise SystemExit(f"mesh_sp={sp} is refused: {SP_LATER}")
-    return int(cfg.get("mesh_dp") or 0) or None, sp
+    """(``mesh_dp`` or None, ``mesh_sp``) of an entry point's config."""
+    return (int(cfg.get("mesh_dp") or 0) or None,
+            int(cfg.get("mesh_sp", 1) or 1))
+
+
+def refuse_sp(cfg: Mapping[str, Any], what: str) -> None:
+    """``SystemExit`` naming ROADMAP A.6c (:data:`SP_LATER`) where a
+    config asks ``mesh_sp > 1`` of ``what``, a path sp does not shard."""
+    sp = mesh_dims(cfg)[1]
+    if cfg.get("mesh") and sp > 1:
+        raise SystemExit(f"mesh_sp={sp} with {what} is refused: {SP_LATER}")
 
 
 def config_mesh(cfg: Mapping[str, Any],

@@ -1,18 +1,23 @@
-"""Data-parallel steps against the single-process step::
+"""Data- and sequence-parallel steps against the single-process step::
 
     python -m stofnet_tpu_torch.scripts.dp_check [--device cpu] [--dp 2]
-        [--length 640] [--batch 8]
+        [--sp 1] [--length 640] [--batch 8]
 
 :func:`run_cases` runs a list of cases, each a model, its weights and one
 global batch: the train step (``train/steps.make_train_step``, f32 or
-amp, ``remat``, ``accum``), the eval step, or a job array's step. Under a live process group
-(a rank of ``parallel/mesh.launch``) each rank feeds its shard of the
-batch through the mesh; alone, the whole batch. Comparing the two runs'
-results is the check: the loss, the parameters and gradients after the
-first step, BatchNorm's running statistics, Kuleshov's dropout masks and
-the eval step's outputs. A rank also reports whether its parameters equal
-every other rank's bit for bit. The command line runs StofNet and SincNet
-cases and prints both runs' differences.
+amp, ``remat``, ``accum``), the eval step, or a job array's step. Under a
+live process group (a rank of ``parallel/mesh.launch``) each rank feeds
+its shard of the batch through the mesh of the case's ``mesh`` shape
+(dp, sp), by default every rank on dp: its rows, and at sp > 1 its
+samples of them (StofNet); alone, the whole batch. Comparing the two
+runs' results is the check: the loss, the parameters and gradients after
+the first step, BatchNorm's running statistics, Kuleshov's dropout masks
+and the eval step's outputs. A rank also reports whether its parameters
+equal every other rank's bit for bit. The command line runs, on dp x sp
+ranks, the StofNet f32 and amp steps and (at sp = 1) SincNet's, and
+prints both runs' differences (``share_within``: the share of the
+parameters within 1e-5) and the ms of 2 steps timed after the
+compared one (rank 0's, host clock).
 """
 
 from __future__ import annotations
@@ -42,7 +47,10 @@ from stofnet_tpu_torch.train.steps import (
 
 
 def _numpy(tree) -> Dict[str, np.ndarray]:
-    return {k: v.detach().float().cpu().numpy() for k, v in tree.items()}
+    """Copies: a CPU tensor's ``numpy()`` shares its memory, which a later
+    step would update."""
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in tree.items()}
 
 
 def run_case(case: Dict[str, Any], device, mesh=None) -> Dict[str, Any]:
@@ -52,9 +60,11 @@ def run_case(case: Dict[str, Any], device, mesh=None) -> Dict[str, Any]:
     from ``seed``), ``frame`` (B, 1, L), ``gt_sample`` (B, G), ``loss``
     (``LossConfig``'s keywords), and optionally ``amp``, ``remat``,
     ``accum``, ``seed``, ``steps`` (compared, 1), ``timed`` (steps timed
-    after those, 0), ``eval`` (the eval step instead), ``masks`` (record
-    Kuleshov's dropout masks) and ``per_rank_stats`` (BatchNorm on each
-    rank's own statistics, as plain DDP: a control that must miss)."""
+    after those, 0), ``eval`` (the eval step instead), ``mesh`` (the
+    (dp, sp) shape of the ranks' mesh, read by :func:`run_cases`),
+    ``masks`` (record Kuleshov's dropout masks) and ``per_rank_stats``
+    (BatchNorm on each rank's own statistics, as plain DDP: a control
+    that must miss)."""
     device = torch.device(device)
     model, _ = build_model(case["model"], device=device,
                            generator=torch.Generator().manual_seed(
@@ -73,8 +83,9 @@ def run_case(case: Dict[str, Any], device, mesh=None) -> Dict[str, Any]:
     batch = [torch.from_numpy(a).to(device) for a in (frame, gt, gt_true)]
     if case.get("members"):
         return run_members(case, device, cfg, batch, mesh)
-    if mesh is not None:
-        batch = dp_mesh.shard_batch(mesh, batch)
+    if mesh is not None:  # frames over dp and sp, GT over dp
+        batch = [dp_mesh.shard_batch(mesh, batch[0], seq_axis=2),
+                 *dp_mesh.shard_batch(mesh, batch[1:])]
     out: Dict[str, Any] = {"name": case.get("name", case["model"])}
     if case.get("eval"):
         res = make_eval_step(model, cfg, mesh)(*batch)
@@ -161,12 +172,15 @@ def run_members(case: Dict[str, Any], device: torch.device,
 def run_cases(cases: Sequence[Dict[str, Any]], device,
               probe_gloo: bool = False) -> List[Dict]:
     """:func:`run_case` of each case: under a live process group through
-    the mesh of its ranks (this rank's results), else alone. With
-    ``probe_gloo``, ranks of a gloo group on the card append
-    :func:`gloo_takes_cuda`'s finding."""
-    mesh = dp_mesh.make_mesh() if dp_mesh.live() else None
-    out = [run_case(c, device if mesh is None else mesh.device, mesh)
-           for c in cases]
+    the mesh of its ranks of the case's ``mesh`` shape (this rank's
+    results), else alone. With ``probe_gloo``, ranks of a gloo group on
+    the card append :func:`gloo_takes_cuda`'s finding."""
+    live = dp_mesh.live()
+    out = []
+    for c in cases:
+        mesh = dp_mesh.make_mesh(*c.get("mesh", (None,))) if live else None
+        out.append(run_case(c, device if mesh is None else mesh.device,
+                            mesh))
     if (probe_gloo and mesh is not None and mesh.backend == "gloo"
             and mesh.device.type == "cuda"):
         out.append({"gloo_cuda": gloo_takes_cuda()})
@@ -228,20 +242,31 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default=None)
     p.add_argument("--dp", type=int, default=2)
+    p.add_argument("--sp", type=int, default=1)
     p.add_argument("--length", type=int, default=640)
     p.add_argument("--batch", type=int, default=8)
     a = p.parse_args(argv)
     device = resolve_device(a.device)
-    cases = [stofnet_case(a.length, a.batch),
-             sincnet_case(a.length, a.batch)]
+    shape = dict(mesh=(a.dp, a.sp), timed=2)
+    cases = [stofnet_case(a.length, a.batch, **shape),
+             stofnet_case(a.length, a.batch, amp=True, name="stofnet amp",
+                          **shape)]
+    if a.sp == 1:
+        cases.append(sincnet_case(a.length, a.batch, **shape))
     alone = run_cases(cases, device)
-    devices = ([dp_mesh.rank_device(device, r) for r in range(a.dp)]
-               if device.type == "cuda" else [device] * a.dp)
+    n = a.dp * a.sp
+    devices = ([dp_mesh.rank_device(device, r) for r in range(n)]
+               if device.type == "cuda" else [device] * n)
     ranks = dp_mesh.launch(run_cases, (cases, device), devices=devices)
     for one, dp in zip(alone, ranks):
         print(json.dumps(dict(
-            model=one["name"], loss=one["loss"], dp_loss=dp["loss"],
+            model=one["name"], dp=a.dp, sp=a.sp, loss=one["loss"],
+            dp_loss=dp["loss"],
             params_max_diff=largest(one["params"], dp["params"]),
+            share_within=float(np.mean(np.concatenate([
+                np.ravel(np.abs(one["params"][k] - dp["params"][k]) < 1e-5)
+                for k in one["params"]]))),
+            ms_single=one["ms"], ms_ranks=dp["ms"],
             buffers_max_diff=largest(one["buffers"], dp["buffers"]),
             ranks_equal=dp["ranks_equal"])))
 

@@ -1,17 +1,19 @@
 """The mesh daemon over several devices against one device::
 
     python -m stofnet_tpu_torch.scripts.mesh_serve_check [--device cpu]
-        [--dp 1 2 4] [--length 8000] [--batch 512] [--requests 20]
+        [--dp 1 2 4] [--sp 1 2 4] [--length 8000 ...] [--batch 512 ...]
+        [--requests 20]
 
 Serves one seeded StofNet checkpoint in bf16 through ``cli/serve.py``
-with ``mesh=True mesh_dp=N`` for each N of ``--dp`` (the first N cards,
-or N replicas on the CPU), one request of ``--batch`` rows at a time, so
-that every request is one batch split into N slices. Prints a JSON line
-for each N: ms a request and rows a second over ``--requests`` requests
-after a warm-up request (host clock, client to client), the kernel
-launches of the run, and whether every row equals the first N's bit for
-bit. Exits 1 where a row differs. Writes nothing but a temporary
-checkpoint.
+with ``mesh=True mesh_dp=N mesh_sp=M`` for each length, each batch and
+each (N, M) of ``--dp`` x ``--sp`` (the first N * M cards, or N * M
+replicas on the CPU), one request of the batch's rows at a time, so that
+every request is one batch split into N slices, each row of a slice into
+M shards. Prints a JSON line for each: ms a request and rows a second
+over ``--requests`` requests after a warm-up request (host clock, client
+to client), the kernel launches a request, and whether every row equals
+the first mesh's of that length and batch bit for bit. Exits 1 where a
+row differs. Writes nothing but a temporary checkpoint.
 """
 
 from __future__ import annotations
@@ -66,39 +68,49 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None)
     ap.add_argument("--dp", type=int, nargs="+", default=None,
-                    help="mesh sizes (default: 1 and every card)")
-    ap.add_argument("--length", type=int, default=8000)
-    ap.add_argument("--batch", type=int, default=512)
+                    help="dp sizes (default: 1 and every card)")
+    ap.add_argument("--sp", type=int, nargs="+", default=[1])
+    ap.add_argument("--length", type=int, nargs="+", default=[8000])
+    ap.add_argument("--batch", type=int, nargs="+", default=[512])
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args(argv)
     device = resolve_device(a.device)
     dps = a.dp or ([1, torch.cuda.device_count()] if device.type == "cuda"
                    else [1, 2])
-    rows = gate_batch(a.batch, a.length,
-                      np.random.default_rng(a.seed))[:, 0]
     state = StofNet(generator=torch.Generator().manual_seed(a.seed),
                     device="cpu").state_dict()
-    first, bad = None, False
+    bad = False
     with tempfile.TemporaryDirectory() as tmp:
         save_checkpoint(Path(tmp) / "meshserve-seed0.pt", state)
-        for dp in dps:
-            reset_launch_counts()
-            got, ms = serve({
-                "model_file": "meshserve", "ckpt_dir": tmp,
-                "length": a.length, "dtype": "bfloat16",
-                "device": str(device), "mesh": True, "mesh_dp": dp,
-                "max_batch": a.batch, "max_wait_ms": 2, "port": 0,
-                "warmup": False}, rows, a.requests)
-            first = got if first is None else first
-            equal = bool(np.array_equal(got, first))
-            bad |= not equal
-            med = float(np.median(ms))
-            print(json.dumps({
-                "dp": dp, "batch": a.batch, "length": a.length,
-                "ms_per_request": med, "request_ms": ms,
-                "rows_per_s": a.batch / med * 1e3, "launches": launches(),
-                "rows_equal_first": equal}), flush=True)
+        for length in a.length:
+            for batch in a.batch:
+                rows = gate_batch(batch, length,
+                                  np.random.default_rng(a.seed))[:, 0]
+                first = None
+                for dp in dps:
+                    for sp in a.sp:
+                        reset_launch_counts()
+                        got, ms = serve({
+                            "model_file": "meshserve", "ckpt_dir": tmp,
+                            "length": length, "dtype": "bfloat16",
+                            "device": str(device), "mesh": True,
+                            "mesh_dp": dp, "mesh_sp": sp,
+                            "max_batch": batch, "max_wait_ms": 2,
+                            "port": 0, "warmup": False}, rows, a.requests)
+                        first = got if first is None else first
+                        equal = bool(np.array_equal(got, first))
+                        bad |= not equal
+                        med = float(np.median(ms))
+                        print(json.dumps({
+                            "dp": dp, "sp": sp, "batch": batch,
+                            "length": length, "ms_per_request": med,
+                            "request_ms": ms,
+                            "rows_per_s": batch / med * 1e3,
+                            "launches_per_request": {
+                                k: v / (a.requests + 1)
+                                for k, v in launches().items()},
+                            "rows_equal_first": equal}), flush=True)
     return 1 if bad else 0
 
 

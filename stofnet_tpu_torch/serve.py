@@ -181,7 +181,11 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
 
     ``pipe.route(length)`` names the route a length takes; ``pipe.calls``
     counts the calls served by each route the pipeline has (``int8``, or
-    ``fused`` and ``module``).
+    ``fused`` and ``module``). ``pipe.heatmap(x)`` is the forward alone,
+    on the route of x's length and counted as a call, ``pipe.decode(heat)``
+    the decode alone, and ``pipe.arch`` the forward's architecture:
+    a length-sharded daemon (``cli/serve.py`` under ``mesh_sp``) runs the
+    forward on each shard's window and decodes the joined rows.
 
     ``model_name`` other than ``stofnet`` serves that model of the
     registry through :func:`zoo_pipeline` (no int8, as in JAX).
@@ -251,8 +255,7 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     calls = dict.fromkeys(("int8",) if int8 is not None
                           else ("fused", "module"), 0)
 
-    @torch.inference_mode()
-    def pipe(x) -> torch.Tensor:
+    def heatmap(x) -> torch.Tensor:
         x = torch.as_tensor(x).to(device).to(torch.float32)
         r = route(x.shape[-1])
         calls[r] += 1
@@ -260,16 +263,25 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
         # thread (a daemon's dispatcher of each length) is inside it
         with precision():
             if r == "int8":
-                heat = int8(x)
-            elif r == "fused":
-                heat = forward(x)
-            else:
-                heat = torch.func.functional_call(module, params, (x,))
+                return int8(x)
+            if r == "fused":
+                return forward(x)
+            return torch.func.functional_call(module, params, (x,))
+
+    def decode(heat) -> torch.Tensor:
         return mask2coords(heat, window_size=window_size,
                            threshold=threshold, upsample_factor=up,
                            max_echoes=max_echoes)
 
+    @torch.inference_mode()
+    def pipe(x) -> torch.Tensor:
+        return decode(heatmap(x))
+
     pipe.route, pipe.calls = route, calls
+    pipe.heatmap = torch.inference_mode()(heatmap)
+    pipe.decode = torch.inference_mode()(decode)
+    pipe.arch = {"upsample_factor": up, "semi_global_scale": scale,
+                 "num_blocks": int(overrides.get("num_blocks", 13))}
     return _wrap_input_enc(pipe, input_enc, device)
 
 

@@ -14,10 +14,28 @@ from stofnet_tpu_torch.ops.peaks import coords2mask
 
 
 def blurred_mask(gt_true: torch.Tensor, length: int,
-                 kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(unblurred spike mask, its blur), both (B, 1, length) f32."""
-    masks_true = coords2mask(gt_true, length)
-    return masks_true, gaussian_blur1d(masks_true, kernel)
+                 kernel: torch.Tensor,
+                 span: Optional[Tuple[int, int]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(unblurred spike mask, its blur), both (B, 1, length) f32.
+
+    ``span=(start, stop)``: positions start..stop-1 of both, the values
+    of the whole masks: the spike mask is built from the global positions
+    over the span widened by the blur's half-width (within the row),
+    blurred there, and cropped (a length shard's masks)."""
+    if span is None:
+        masks_true = coords2mask(gt_true, length)
+        return masks_true, gaussian_blur1d(masks_true, kernel)
+    start, stop = span
+    half = kernel.shape[0] // 2
+    lo, hi = max(0, start - half), min(length, stop + half)
+    if lo == 0:
+        masks = coords2mask(gt_true, hi)
+    else:  # index 0 of a mask is its invalid slot: shift by one past it
+        masks = coords2mask(gt_true - (lo - 1), hi - lo + 1)[..., 1:]
+    blur = gaussian_blur1d(masks, kernel)
+    return (masks[..., start - lo:stop - lo],
+            blur[..., start - lo:stop - lo])
 
 
 def heatmap_loss(
@@ -29,6 +47,7 @@ def heatmap_loss(
     mask_amplitude: float = 20.0,
     lambda_value: float = 1e-2,
     norm_max: Optional[torch.Tensor] = None,
+    span: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blurred-spike MSE + lambda * L1-to-zero.
 
@@ -40,13 +59,19 @@ def heatmap_loss(
         norm_max: the blurred mask's maximum over the full batch, for a
             micro-batch of gradient accumulation; the batch's own maximum
             when None.
+        span: ``(start, length)``: ``masks_pred`` holds positions start..
+            of masks of ``length`` (a length shard's heatmap).
 
     Returns:
-        (scalar loss, (B, 1, L_out) unblurred GT spike mask).
+        (scalar loss, (B, 1, L_out) unblurred GT spike mask; over
+        ``span``, a mean over the shard's positions).
     """
     if kernel is None:
         kernel = gaussian_kernel(kernel_size, sigma)
-    masks_true, blur = blurred_mask(gt_true, masks_pred.shape[-1], kernel)
+    n = masks_pred.shape[-1]
+    masks_true, blur = (
+        blurred_mask(gt_true, n, kernel) if span is None
+        else blurred_mask(gt_true, span[1], kernel, (span[0], span[0] + n)))
     # normalize by the GLOBAL max over the batch, then scale
     blur = blur / (blur.max() if norm_max is None else norm_max
                    ) * mask_amplitude

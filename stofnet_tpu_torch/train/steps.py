@@ -31,12 +31,15 @@ from stofnet_tpu_torch.models.fused import stofnet_apply_fused
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.gaussian import gaussian_kernel
 from stofnet_tpu_torch.ops.peaks import mask2coords
+from stofnet_tpu_torch.parallel.seq import (
+    crop, module_arch, seq_forward, widen,
+)
 from stofnet_tpu_torch.train.loss import (
     blurred_mask, heatmap_loss, regression_loss,
 )
 from stofnet_tpu_torch.train.metrics import toa_rmse
 from stofnet_tpu_torch.utils.collectives import (
-    all_reduce, average_gradients, gather_rows, global_mean,
+    all_reduce, average_gradients, gather_rows, gather_seq, global_mean,
 )
 
 
@@ -110,27 +113,39 @@ def _update(optimizer, scheduler, update_scale) -> None:
 
 
 def _heatmap_loss(cfg: LossConfig, kernel: torch.Tensor):
-    def loss_fn(pred, gt_true, norm_max=None):
+    def loss_fn(pred, gt_true, norm_max=None, span=None):
         return heatmap_loss(pred, gt_true, kernel=kernel,
                             mask_amplitude=cfg.mask_amplitude,
                             lambda_value=cfg.lambda_value,
-                            norm_max=norm_max)[0]
+                            norm_max=norm_max, span=span)[0]
     return loss_fn
 
 
 def _loss(cfg: LossConfig, kernel: torch.Tensor):
-    """``loss_fn(pred, gt_sample, gt_true, norm_max=None)`` of the model
-    kind: the regression target is the first valid ToA of ``gt_sample``,
-    its validity from ``gt_true`` in input units."""
+    """``loss_fn(pred, gt_sample, gt_true, norm_max=None, span=None)`` of
+    the model kind: the regression target is the first valid ToA of
+    ``gt_sample``, its validity from ``gt_true`` in input units; a heatmap
+    over ``span`` is a length shard's (``heatmap_loss``)."""
     if cfg.model_kind == "regression":
-        def loss_fn(pred, gt_sample, gt_true, norm_max=None):
+        def loss_fn(pred, gt_sample, gt_true, norm_max=None, span=None):
             gt_units = (gt_true.reshape(gt_sample.shape)
                         // cfg.upsample_factor)
             return regression_loss(pred, gt_sample, gt_units)[0]
         return loss_fn
     heat = _heatmap_loss(cfg, kernel)
-    return lambda pred, gt_sample, gt_true, norm_max=None: heat(
-        pred, gt_true, norm_max)
+    return lambda pred, gt_sample, gt_true, norm_max=None, span=None: heat(
+        pred, gt_true, norm_max, span)
+
+
+def _seq_arch(model: nn.Module, cfg: LossConfig, mesh) -> Optional[dict]:
+    """StofNet's architecture where ``mesh`` shards the sample axis (sp >
+    1), else None; refuses what sp does not shard (ROADMAP A.6c)."""
+    if mesh is None or mesh.sp == 1:
+        return None
+    if cfg.model_kind != "heatmap":
+        raise ValueError("sequence parallelism shards heatmap models only "
+                         "(ROADMAP A.6c)")
+    return module_arch(model)
 
 
 def model_device(model: nn.Module) -> torch.device:
@@ -191,6 +206,15 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     step's generator and each rank keeps its rows, the single process's
     masks. The returned loss is the global batch's, on every rank. Under
     ``accum`` a micro-batch is the ranks' i-th micro-batches together.
+
+    A mesh with sp > 1 (StofNet only) shards the sample axis too: the
+    step takes this rank's L / sp samples of its rows, widens them with
+    the neighbours' halo (``parallel/seq.widen``, once a step, without
+    gradient), runs the model on the window and keeps its own positions;
+    the loss is over those positions, against the GT mask built there from
+    the global coordinates (``heatmap_loss(span=)``), the normaliser the
+    maximum over every rank, and the gradients the mean over all dp x sp
+    ranks: each rank's is its equal share of the global mean.
     """
     device = model_device(model)
     kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
@@ -200,6 +224,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
              if n.endswith(("running_mean", "running_var"))]
     count = [0]  # updates made, where there is no scheduler
     params = [p for p in model.parameters() if p.requires_grad]
+    arch = _seq_arch(model, cfg, mesh)
     for m in model.modules():  # None clears an earlier step's mesh
         if isinstance(m, BatchNorm):
             m.mesh = mesh
@@ -214,7 +239,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             b = shape[0]
             full = model.keep_mask((b * mesh.dp, *shape[1:]), generator,
                                    device)
-            return full[mesh.rank * b:(mesh.rank + 1) * b]
+            return full[mesh.dp_index * b:(mesh.dp_index + 1) * b]
         return draw
 
     def forward(frame, generator):
@@ -226,7 +251,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                                           (frame.to(torch.bfloat16),), kw)
         return pred.to(torch.float32)
 
-    def loss_of(frame, gt_sample, gt_true, generator, norm_max=None):
+    def loss_of(frame, gt_sample, gt_true, generator, norm_max=None,
+                within=None, span=None):
         if remat:
             # the recomputed forward draws the first one's dropout masks
             state = None if generator is None else generator.get_state()
@@ -238,7 +264,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             pred = checkpoint(again, frame, use_reentrant=False)
         else:
             pred = forward(frame, generator)
-        return loss_fn(pred, gt_sample, gt_true, norm_max)
+        if within is not None:  # a length shard's own positions
+            pred = crop(pred, within, cfg.upsample_factor)
+        return loss_fn(pred, gt_sample, gt_true, norm_max, span)
 
     def backward(loss):
         kept = [b.clone() for b in stats] if remat else ()
@@ -264,21 +292,29 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         if accum > 1 and frame.shape[0] % accum:
             raise ValueError(f"batch {frame.shape[0]} not divisible by "
                              f"accum={accum}")
-        norm_max = None
+        norm_max = within = span = None
+        up = cfg.upsample_factor
+        length = frame.shape[-1] * up
+        if arch is not None:
+            n = frame.shape[-1]
+            frame, within = widen(mesh, frame, arch)
+            length = n * mesh.sp * up
+            span = (mesh.sp_index * n * up, length)
         if cfg.model_kind != "regression" and (accum > 1
                                                or mesh is not None):
-            norm_max = global_norm_max(cfg, kernel, gt_true,
-                                       frame.shape[-1] * cfg.upsample_factor,
-                                       mesh)
+            norm_max = global_norm_max(cfg, kernel, gt_true, length, mesh,
+                                       None if span is None else span[0])
         if accum <= 1:
-            loss = loss_of(frame, gt_sample, gt_true, generator(0), norm_max)
+            loss = loss_of(frame, gt_sample, gt_true, generator(0), norm_max,
+                           within, span)
             backward(loss)
         else:
             loss = torch.zeros((), device=device)
             parts = zip(frame.chunk(accum), gt_sample.chunk(accum),
                         gt_true.chunk(accum))
             for i, (f, gs, gtr) in enumerate(parts):
-                part = loss_of(f, gs, gtr, generator(i), norm_max)
+                part = loss_of(f, gs, gtr, generator(i), norm_max, within,
+                               span)
                 backward(part / accum)
                 loss = loss + part.detach()
             loss = loss / accum
@@ -295,11 +331,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
 def global_norm_max(cfg: LossConfig, kernel: torch.Tensor,
                     gt_true: torch.Tensor, length: int,
-                    mesh=None) -> torch.Tensor:
+                    mesh=None, start: Optional[int] = None) -> torch.Tensor:
     """The blurred mask's maximum over the batch (masks of ``length``),
     the heatmap loss's normaliser; over the global batch under ``mesh``
-    (an all-reduced max)."""
-    norm_max = blurred_mask(gt_true, length, kernel)[1].max()
+    (an all-reduced max over every rank), each rank's over its length /
+    sp positions from ``start`` where it holds a length shard."""
+    span = None if start is None else (start, start + length // mesh.sp)
+    norm_max = blurred_mask(gt_true, length, kernel, span)[1].max()
     if mesh is None:
         return norm_max
     return all_reduce(mesh, norm_max, "max")
@@ -367,16 +405,27 @@ def make_eval_step(model: nn.Module, cfg: LossConfig, mesh=None):
       and metrics of a computed prediction.
 
     Under ``mesh`` the forward is this rank's shard and the outputs are
-    the global batch's (:func:`make_eval_finish`).
+    the global batch's (:func:`make_eval_finish`). With sp > 1 (StofNet)
+    the forward takes this rank's L / sp samples of its rows, runs on the
+    window that ``parallel/seq.widen`` exchanges, and the sp group joins
+    its shards' heatmaps in sp order: ``forward`` returns whole rows,
+    which the decode reads (its NMS and ranking span the row), and the
+    rest runs over the dp column as at sp = 1.
     """
+    arch = _seq_arch(model, cfg, mesh)
+
     @torch.no_grad()
     def forward(frame) -> Tuple[torch.Tensor, torch.Tensor]:
         model.eval()
         with full_f32():
-            pred = model(frame)
+            pred = (model(frame) if arch is None
+                    else seq_forward(model, frame, mesh, arch))
+        if arch is not None:
+            pred = gather_seq(mesh, pred)
         return pred, pred.float().sum()
 
-    finish = make_eval_finish(cfg, model_device(model), mesh)
+    finish = make_eval_finish(cfg, model_device(model),
+                              None if mesh is None else mesh.over_dp())
 
     def eval_step(frame, gt_sample, gt_true) -> Dict[str, torch.Tensor]:
         return finish(forward(frame)[0], gt_sample, gt_true)

@@ -1,8 +1,10 @@
-"""Collectives over a data-parallel mesh's process group (the dp half of
-``stofnet_tpu_torch/parallel/mesh.py``, which re-exports them).
+"""Collectives over a mesh's process groups (``parallel/mesh.py``, which
+re-exports them).
 
 Each function takes a mesh (``parallel/mesh.Mesh``: its ``group``,
-``dp``, ``device`` and ``backend``) and runs on ``torch.distributed``. They
+``size``, ``device`` and ``backend``; :func:`gather_seq` its
+``sp_group``) and runs on ``torch.distributed``: over the whole mesh, or
+over one dp column where the caller passes ``mesh.over_dp()``. They
 live here, apart from the mesh, so that the layers that need the global
 batch (``models/batchnorm.py``, ``train/steps.py``) import them at the top
 without importing ``parallel/``, which imports those layers. Gloo's
@@ -64,20 +66,34 @@ def all_reduce_sum(mesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def global_mean(mesh, x: torch.Tensor) -> torch.Tensor:
-    """The mean of a per-rank mean over equal shards: the global batch's,
-    without gradient."""
-    return all_reduce(mesh, x.detach().clone()) / mesh.dp
+    """The mean of a per-rank mean over equal shards (of rows, or of rows
+    and samples): the global batch's, without gradient."""
+    return all_reduce(mesh, x.detach().clone()) / mesh.size
+
+
+def _gather(mesh, t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    where = (torch.device("cpu") if mesh.backend == "gloo"
+             else mesh.device)
+    wire = t.detach().to(where).contiguous()
+    parts = [torch.empty_like(wire) for _ in range(n)]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
 
 
 def gather_rows(mesh, t: torch.Tensor) -> torch.Tensor:
     """Every rank's ``t`` (equal shapes) concatenated along axis 0 in rank
-    order: the global batch's rows, on every rank, on ``t``'s device."""
-    where = (torch.device("cpu") if mesh.backend == "gloo"
-             else mesh.device)
-    wire = t.detach().to(where).contiguous()
-    parts = [torch.empty_like(wire) for _ in range(mesh.dp)]
-    dist.all_gather(parts, wire, group=mesh.group)
-    return torch.cat(parts).to(t.device)
+    order, on every rank, on ``t``'s device: over ``mesh.over_dp()``, the
+    global batch's rows."""
+    return _gather(mesh, t, mesh.group, mesh.size, 0)
+
+
+def gather_seq(mesh, t: torch.Tensor) -> torch.Tensor:
+    """The sp group's shards of ``t`` (equal shapes) joined along the last
+    axis in sp order: whole rows, on every rank of the group, on ``t``'s
+    device. ``t`` itself at sp = 1."""
+    if mesh.sp == 1:
+        return t
+    return _gather(mesh, t, mesh.sp_group, mesh.sp, -1)
 
 
 def broadcast(mesh, tensors: Iterable[torch.Tensor]) -> None:
@@ -96,7 +112,8 @@ def broadcast_object(mesh, obj):
 
 def average_gradients(mesh, params: Iterable[torch.Tensor]) -> None:
     """Each parameter's gradient becomes the mean over the ranks: the
-    global batch's gradient, where each rank's is its equal shard's mean.
+    global batch's gradient, where each rank's is its equal shard's mean
+    (of rows, or of rows and samples).
     One all-reduce a dtype, over the gradients flattened."""
     by_dtype: dict = {}
     for p in params:
@@ -104,7 +121,7 @@ def average_gradients(mesh, params: Iterable[torch.Tensor]) -> None:
             by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
     for grads in by_dtype.values():
         flat = all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]))
-        flat /= mesh.dp
+        flat /= mesh.size
         with torch.no_grad():
             for g, v in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(v.view_as(g))

@@ -240,6 +240,12 @@ def _resolve(value: Any, root: Dict[str, Any],
     return _INTERP.sub(sub, value)
 
 
+def convert_to_dot_notation(d: Dict[str, Any]) -> Config:
+    """Attribute-style access over a plain dict (the reference's
+    utils/dict_dot.py helper)."""
+    return Config(d)
+
+
 def load_config(path: str | Path) -> Config:
     path = Path(path)
     raw = read_flat_yaml(path.read_text(), str(path))

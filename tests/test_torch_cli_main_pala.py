@@ -163,7 +163,7 @@ def test_dataset_and_batches_are_jax_bit_for_bit(kind, evaluate, roots,
 
 def test_driver_takes_pala_and_rat_paths(roots, tmp_path):
     """The refusal of PALA and rat data is gone; mesh_sp > 1 is still
-    refused (``tests/test_torch_cli_main.py``)."""
+    refused for them (ROADMAP A.6c, ``tests/test_torch_cli_mesh_sp.py``)."""
     assert pmain.dataset_kind(str(roots["pala"])) == "pala"
     assert pmain.dataset_kind(str(roots["rat"])) == "rat"
     assert "pala" not in pmain._LATER and "mesh_sp" in pmain._LATER

@@ -243,7 +243,7 @@ def test_mesh_daemon_rows_equal_the_daemons(served, source):
      "by the dp mesh size 2"),
     (dict(artifact=4, max_batch=4), "exported at batch=4 runs that whole "
      "batch on each of the dp=2 replicas"),
-    (dict(mesh_sp=2), "A.6b"),
+    (dict(mesh_sp=2, input_enc="s16"), "A.6c"),
 ])
 def test_mesh_daemon_refusals(served, over, match):
     """tests/test_serving_codecs.py:254: JAX's refusals; a fixed

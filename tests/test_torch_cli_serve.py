@@ -144,7 +144,7 @@ def test_int8_daemon_with_encoded_input(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("mesh_sp", 2, "A.6b"),
+    ("mesh_sp", 3, "sample length 800 not divisible by mesh_sp=3"),
     ("mesh_dp", 3, "max_batch=8 must be divisible by the dp mesh size 3"),
     ("compile_cache", "cache", "compiles nothing"),
     ("model", "kuleshov", "sample_num="),

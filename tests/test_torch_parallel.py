@@ -274,15 +274,17 @@ def test_make_mesh_refuses_as_jax(kw, n):
 
 
 @pytest.mark.parametrize("call", [
-    lambda m: dp_mesh.make_mesh(dp=2, sp=2, devices=["cpu"] * 4),
-    lambda m: dp_mesh.batch_seq_sharding(m, 3, seq_axis=2),
+    lambda m: dp_mesh.make_mesh(dp=2, sp=2, devices=["cpu"] * 4).shape,
+    lambda m: dp_mesh.batch_seq_sharding(m, 3, seq_axis=2).spec,
     lambda m: dp_mesh.shard_batch(
-        dp_mesh.Mesh(1, 2, (torch.device("cpu"),) * 2), np.zeros((2, 4))),
+        dp_mesh.Mesh(1, 2, (torch.device("cpu"),) * 2), np.zeros((2, 4)),
+        seq_axis=1).shape,
 ], ids=["make_mesh", "batch_seq_sharding", "shard_batch"])
 def test_sp_is_refused_naming_a6b(call):
+    """The three calls that refused sp > 1 until ROADMAP A.6b now run, as
+    JAX's: a (2, 2) mesh, the (dp, None, sp) spec, a rank's samples."""
     mesh = dp_mesh.make_mesh(dp=2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        call(mesh)
+    assert call(mesh) in ({"dp": 2, "sp": 2}, ("dp", None, "sp"), (2, 2))
 
 
 def test_mesh_outside_a_group_holds_replicas():
