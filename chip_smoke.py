@@ -45,17 +45,17 @@
    ``manual_dma_bandwidth`` line.
 4. Serves through ``serve.make_pipeline`` with a seeded random-init
    StofNet (different-armadillo architecture, x4) at two lengths, each
-   over one warm-up batch and 4 fresh batches of 128 echo-bearing
+   over one warm-up batch and 2 fresh batches of 128 echo-bearing
    waveforms: at L=8000 and at L_UNCHUNKED=2000 (L % 800 != 0) the
    serving SGB kernel and the conv stack must launch once on every batch,
    and no other kernel; the counts are set to 0 before each length and
    read after it. At each length >= 0.99
    of the coords must lie within 1 sample of the plain path's (the same
    forward through the plain versions). Prints the agreement over coord
-   slots and over rows with a detection, ms per batch (median of the 4),
+   slots and over rows with a detection, ms per batch (median of the 2),
    witnesses of where decoded positions move (the plain path on the CPU,
    the StofNet module in bf16 and in f32), and device time by kernel over
-   the 4 batches served again under the profiler. Fails when the kernel
+   the 2 batches served again under the profiler. Fails when the kernel
    path moves more rows against the plain path than twice those that the
    plain path moves between the card and the CPU (f32 summation order
    alone), plus 4. Then one batch of 128 at L_MODULE=1000 (L % 80 != 0),
@@ -82,7 +82,7 @@
    floor beside its bound, and requires one
    forward + backward of the op to stay below the 1.05 GB of one
    (128, 8000, 512) bf16 plane of device memory.
-6. The bench's paths (``bench_paths.py``) over a gate batch and 4 fresh
+6. The bench's paths (``bench_paths.py``) over a gate batch and 2 fresh
    batches: ``try_fused_pipeline`` (the streamed SGB kernel, the conv stack
    as plain convs) must pass its gate against the plain path on the card
    (``stofnet_apply_reference(fused_stack=False)``),
@@ -93,7 +93,7 @@
    ``StofNet`` module (the bench's own gate) is printed. Then
    ``try_packed_pipeline`` (plain PyTorch, no kernel) gated on and held to
    >= 0.99 of the bf16 ``StofNet`` module's coord slots. Each path prints
-   ms per batch (median of the 4), waveforms/s and device time by kernel
+   ms per batch (median of the 2), waveforms/s and device time by kernel
    under the profiler.
 7. Trains: ``train.make_fused_train_step`` (bf16 forward, f32 masters,
    AdamW with the cosine schedule) on the same architecture (weights from
@@ -124,7 +124,7 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    serving weights written by ``train/checkpoint.save_checkpoint``, at
    L=8000, max_batch 128, max_wait_ms 2, its dtype gate left at auto
    (the gate's agreement and verdict are printed) and every bucket warmed
-   before the server binds: 8 client threads send 64 single echo-bearing
+   before the server binds: 8 client threads send 32 single echo-bearing
    waveforms each and one more client a batch of 128 over the s8c wire.
    Every returned row must equal ``make_pipeline``'s direct coords for it
    bit for bit (the s8c rows: on the decoded wire rows). Prints
@@ -152,10 +152,10 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    the seeded weights, a batch-polymorphic artifact (``batch="b"``), one
    at the fixed batch 128 and a weightless one (the state from its
    ``.weights.npz`` sidecar), each exported, saved and loaded on the card
-   (export and load seconds, file size): on 4 fresh gate batches each must
+   (export and load seconds, file size): on 2 fresh gate batches each must
    launch the serving SGB kernel and the conv stack once a batch through
    their custom ops and give ``make_pipeline``'s direct coords bit for
-   bit; ms per batch (median of 4) beside the direct pipeline's, and the
+   bit; ms per batch (median of 2) beside the direct pipeline's, and the
    device time of the weight layouts the weightless program runs on every
    call. Then the daemon from two artifacts (``artifact=``, L=8000 and
    L=2000, both batch-polymorphic) under the daemon phase's traffic, half
@@ -174,10 +174,10 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    requires the native text loader to be built. Then, at B=128 and the
    config's defaults otherwise (f32, crop 0.75, SNR 30, th 0.5, 64 echoes,
    4 loader threads), with ``profile_dir=``: 2 epochs in f32 with
-   ``export_pth=True``, the loader alone over the train split (4 threads
-   and 1), 2 epochs with ``amp=True``, and ``evaluate=True`` from the f32
-   run's checkpoint over the 2 test batches in f32 and with ``int8=True
-   compute_dtype=bfloat16``. The readings come from outside the driver
+   ``export_pth=True``, the loader alone over LOADER_BATCHES batches of
+   the train split (4 threads and 1), 2 epochs with ``amp=True``, and
+   ``evaluate=True`` from the f32 run's checkpoint over the 2 test
+   batches in f32 and with ``int8=True compute_dtype=bfloat16``. The readings come from outside the driver
    (``DriverProbe``). The profiler traces steps 2..6, all in the first
    epoch, so the times are the second epoch's, which runs with the
    profiler off: ms a train step (median), training waveforms/s end to
@@ -204,9 +204,9 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    samples at rf_scale_factor 10; the seconds of the draw printed),
    through ``serve.make_pipeline(model_name=...)`` on the card at B=128
    and its driver length (L=8000; the unet 32000 after its rf fold), in
-   f32 and in bf16: a warm-up batch and 4 timed gate batches (ms a batch,
+   f32 and in bf16: a warm-up batch and 2 timed gate batches (ms a batch,
    waveforms/s, peak memory; the first again under the profiler, device
-   time by kernel), then 8 rows of the first batch against the
+   time by kernel), then 4 rows of the first batch against the
    same pipeline on the CPU: in f32 >= 0.99 of the coord slots within 1
    sample (gradpeak too; moved rows printed), zonzini's ToA within 1e-4
    relative; in bf16 the agreement and ``probe_dtype_agreement`` printed,
@@ -224,9 +224,10 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    launch counts set to 0 before it and held at 0 after it: each family
    through ``cli/export.py model=<name>`` at its zoo-phase length (L; the
    unet 32000) in f32 and bf16, batch-polymorphic, baked (Kuleshov
-   weightless at ``sample_num=800``: its 1.2e9 weights in a 5 GB
-   sidecar), loaded with ``load_pipeline`` and served over a warm-up batch
-   and 2 gate batches of B against ``make_pipeline(model_name=)`` on the
+   weightless at ``sample_num=800``, its 1.2e9 weights in a 5 GB sidecar,
+   in bf16 only: the six others run the f32 export), loaded with
+   ``load_pipeline`` and served over a warm-up batch and 1 gate batch of
+   B against ``make_pipeline(model_name=)`` on the
    card on the same state (under ``full_f32``, as a loaded program runs):
    every row equal bit for bit. Then the daemon at bf16 twice, from the
    checkpoint (``model=<name>``) and from the bf16 artifact
@@ -327,7 +328,7 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    bf16 fused route split along L by ``cli/serve._mesh_adjust`` over a
    mesh listing cuda:0 sp times, at sp = 2, 4, 8 (B=128, L=8000; 1000
    samples a shard at sp=8, whose pool windows straddle shards) and sp=8
-   at L=16000, over a warm-up and 4 gate batches: both serving kernels
+   at L=16000, over a warm-up and 2 gate batches: both serving kernels
    launched sp times a batch and no other kernel, the coords equal to
    the single pipeline's on every row (or, failing that, >= 0.99 of the
    slots and no more moved rows than the main path's rule), ms a batch
@@ -344,7 +345,27 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    two replicas on cuda:0) under the daemon phase's traffic: every row
    ``make_pipeline``'s direct coords, both kernels twice a batch.
    Prints the phase's seconds.
-19. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+19. The zoo-sp phase (``parallel/seq.py``'s rule of each family), the
+   launch counts set to 0 before it and held at 0 after it: every family
+   of the registry from the zoo phase's checkpoints (GradPeak without
+   weights) in f32 and bf16 at the zoo phase's configuration (B=128,
+   L=8000; the unet at L * 4), its single forward and its sharded forward
+   (``parallel/seq.local_forward``: a thread a shard, every shard on the
+   card) at sp = 2 and 4 over a warm-up and 1 batch, ms a batch of
+   each beside the share of positions computed twice, each batch gated:
+   bit for bit, or JAX's tolerances (a heatmap's decoded coords within 1
+   sample on >= 0.99 of the slots, Zonzini's ToA rel 1e-4); GradPeak's
+   rows equal. The same on PALA data at L=10240 for the 10-layer unet
+   (its window the row) and ESPCN. Then each trainable family's f32 step
+   at dp=1, sp=2 on the mesh phase's two gloo ranks (its launch, B=128 at
+   the family's length, Kuleshov at L=2000), against the single step:
+   the loss rtol 1e-5, every parameter within 2 lr, 99.9 % within 1e-5
+   (the BatchNorm families: gradients rtol 1e-3, atol 1e-4 of the
+   largest, running statistics rtol 1e-5). Last the daemon at
+   ``model=espcn`` and ``model=zonzini mesh_sp=2`` from the zoo phase's
+   checkpoints (both replicas on the card), one B=128 request against
+   ``make_pipeline``'s direct rows. Prints the phase's seconds.
+20. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
    launches of its paths: the serving, bench, training, probe, daemon,
    export, PALA serving, mesh daemon and sp runs, each counted from 0,
    summed over the paths that launch it; the serving instantiation's
@@ -362,6 +383,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import io
+import itertools
 import json
 import shutil
 import subprocess
@@ -424,6 +446,9 @@ from stofnet_tpu_torch.parallel import mesh as dp_mesh
 from stofnet_tpu_torch.parallel import seq
 from stofnet_tpu_torch.scripts import bench_array, dp_check
 from stofnet_tpu_torch.scripts import dma_probe as probe_script
+from stofnet_tpu_torch.scripts.mesh_serve_check import (
+    ZONZINI_RTOL,  # Zonzini's ToA: card against CPU, sharded against whole
+)
 from stofnet_tpu_torch.scripts import pala_bmode_figure as figure
 from stofnet_tpu_torch.serve import (
     export_pipeline, export_pipeline_weightless, load_pipeline, make_pipeline,
@@ -455,7 +480,7 @@ DECODE = dict(window_size=20, threshold=None, upsample_factor=UP,
               max_echoes=8)
 SEED = 0
 TOL = 2e-2  # max|kernel - plain| <= TOL * max|plain|: bf16 outputs
-N_BATCHES = 4
+N_BATCHES = 2  # gate batches a serving path
 ROW_NOISE = 4  # rows of counting noise allowed beside the summation witness
 PEAK_BF16 = 989e12  # FLOP/s, H100 SXM dense bf16 (data sheet)
 PEAK_F32 = 67e12  # FLOP/s, H100 SXM f32 on the CUDA cores (data sheet)
@@ -470,7 +495,7 @@ DMA_SEEDS = 3  # seeds of the streamed SGB kernel's check at L=800
 HOST_CALLS = 1000  # back-to-back calls of the canary's host-time reading
 PROFILE_CALLS = 100  # calls of the canary's device-time reading
 DAEMON_CLIENTS = 8  # client threads of single-waveform requests
-DAEMON_REQUESTS = 64  # single-waveform requests per client
+DAEMON_REQUESTS = 32  # single-waveform requests per client
 DAEMON_ECHOES = 64  # cli/serve.py's default max_echoes
 GATE_ROWS, GATE_SEED = 16, 3008  # the daemon's dtype gate batch (L=8000)
 # the data phase's stand-in: 2 classes x 16 positions, 40 train and 8 test
@@ -479,6 +504,7 @@ GATE_ROWS, GATE_SEED = 16, 3008  # the daemon's dtype gate batch (L=8000)
 DRIVER_DATA = dict(n_positions=16, n_train_per_pos=40, n_test_per_pos=8,
                    sample_num=800)
 PROFILE_STEPS = 5  # the driver's profile_steps default
+LOADER_BATCHES = 2  # batches of the loader alone at each thread count
 # the zoo phase: the registry's families at the driver's chirp
 # configuration (the stand-in's 800 IQ samples at rf_scale_factor 10, fs of
 # data/synthetic's sensor specs); the unet serves at L * UP after its fold
@@ -487,12 +513,11 @@ ZOO = ("edsr", "espcn", "zonzini", "unet", "sincnet", "kuleshov",
 ZOO_OVERRIDES = dict(dataset_kind="chirp", upsample_factor=UP,
                      sample_num=DRIVER_DATA["sample_num"], rf_scale_factor=10,
                      fs=DEFAULT_SPECS["fhz_sample"])
-ZOO_ROWS = 8  # rows of a batch held against the CPU's pipeline
-ZONZINI_RTOL = 1e-4  # its ToA, card against CPU in f32
+ZOO_ROWS = 4  # rows of a batch held against the CPU's pipeline
 ZOO_LOSS_ROWS = 16  # rows of the first batch in the first-loss check
 ZOO_LOSS_RTOL = 1e-5  # TF32 moved StofNet's loss by 3.3e-5
 ZOO_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
-ZOO_EXPORT_BATCHES = 2  # timed batches of each zoo artifact, after a warm-up
+ZOO_EXPORT_BATCHES = 1  # timed batches of each zoo artifact, after a warm-up
 # the PALA phase: generate_pala_dataset at scripts/pala_bmode_figure.py's
 # geometry (128 channels, 1024 samples, 3 angles, 24 frames a sequence, 3
 # targets; 2 sequences); the driver at ch_gap 32 (4 channels a frame) and
@@ -522,13 +547,33 @@ MESH_PARAM_RTOL = 1e-4  # relative L2 after an epoch, mesh against none
 MESH_LOSS_RTOL = 1e-5  # the 2-rank step's loss (tests/test_parallel.py)
 MESH_AGREE = 1e-5  # a parameter within it after the 2-rank step ...
 MESH_SHARE = 0.999  # ... for this share of them, all within 2 lr
-MESH_TIMED = 2  # steps timed after the compared one
+MESH_TIMED = 1  # steps timed after the compared one
 # the sp phase: (L, sp) of the sharded fused route; JAX's long-sequence
 # target is L=16000 over 8 shards (tests/test_parallel.py:248)
 L_LONG = 16000
 SP_SERVE = ((L, 2), (L, 4), (L, 8), (L_LONG, 8))
 SGB_ROW[L_LONG] = "sgb_contract_pool_dma"  # L % 800 == 0 in JAX
 SP_AMP_RTOL, SP_AMP_AGREE, SP_AMP_SHARE = 1e-2, 1e-4, 0.99
+# the zoo-sp phase: every family sharded over sp of the one card against
+# its single forward, at the zoo phase's configuration (B, L; Kuleshov at
+# its batch there, B); the driver steps in the mesh phase's two ranks at
+# sp=2 (Kuleshov at ZOO_SP_STEP_L: at L its 1.2e9 gradients would cross
+# gloo's host copies twice a step); the daemon for two families
+ZOO_SP = (2, 4)
+ZOO_SP_BATCHES = 1  # timed batches of each (family, dtype, sp), after one
+ZOO_SP_PALA = ("unet", "espcn")  # on PALA data at L_PALA
+ZOO_SP_STEP_L = {"kuleshov": 2000}
+ZOO_SP_DAEMON = ("espcn", "zonzini")
+ZOO_SP_BN = ("sincnet", "unet", "kuleshov")
+# Kuleshov's f32 gradients of the down path lie 1.5e-3 to 4e-3 (relative
+# L2) from an f64 step's on the card, the single step's as far as the
+# ranks' (measured on one H100): held to the f64 witness instead of to
+# each other, a tensor at most ZOO_SP_F64_RATIO times as far as the
+# single step's; tensors whose f64 gradient is rounding noise (a conv
+# bias before a BatchNorm) are held only by the 2 lr rule
+ZOO_SP_F64 = ("kuleshov",)
+ZOO_SP_F64_RATIO = 2.0
+ZOO_SP_NOISE = 1e-6  # of the largest tensor's f64 gradient norm
 
 
 def log(msg: str) -> None:
@@ -2087,9 +2132,10 @@ def first_loss_on_cpu(cfg, init_state) -> float:
 
 
 def loader_alone(cfg) -> dict:
-    """The training loader's own rate, with no device work: one pass over
-    the train split of a fresh dataset built like the driver's, at the
-    driver's default thread count and with one thread."""
+    """The training loader's own rate, with no device work: the first
+    LOADER_BATCHES batches of the train split of a fresh dataset built
+    like the driver's, at the driver's default thread count and with one
+    thread."""
     out = {}
     for workers in (default_num_workers(), 0):
         ds, _ = cli_main.build_dataset(cfg.copy())
@@ -2098,10 +2144,11 @@ def loader_alone(cfg) -> dict:
                             drop_last=True, seed=int(cfg.seed),
                             num_workers=workers)
         t0 = time.perf_counter()
-        items = sum(len(batch[1]) for batch in loader)
+        items = sum(len(batch[1]) for batch in itertools.islice(
+            loader, LOADER_BATCHES))
         dt = time.perf_counter() - t0
         out[f"threads_{max(workers, 1)}"] = dict(
-            items_per_s=items / dt, ms_per_batch=dt / len(loader) * 1e3)
+            items_per_s=items / dt, ms_per_batch=dt / LOADER_BATCHES * 1e3)
     log(f"data phase, the loader alone: {json.dumps(out)}")
     return out
 
@@ -2424,7 +2471,9 @@ def equal_rows(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def zoo_export_family(dev, name: str, work: Path, ckpts: dict, rng) -> None:
     """One family through ``cli/export.py model=<name>`` in f32 and bf16
-    (batch-polymorphic; Kuleshov weightless, the others baked), each
+    (batch-polymorphic; Kuleshov weightless and in bf16 only: its f32
+    artifact would repeat the route of its bf16 one over 5 GB of sidecar
+    again, and the six others run the f32 export; the others baked), each
     artifact loaded and served over a warm-up batch and ZOO_EXPORT_BATCHES
     gate batches against ``make_pipeline(model_name=)`` on the card on the
     same state (under ``full_f32``, as a loaded program runs); then the
@@ -2443,7 +2492,8 @@ def zoo_export_family(dev, name: str, work: Path, ckpts: dict, rng) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     res: dict = {"length": length, "bake_weights": name != "kuleshov"}
     paths = {}
-    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
+    for label, dtype in dtypes[name == "kuleshov":]:
         fresh_peak()
         out = out_dir / f"{name}_{label}.pt2"
         t0 = time.perf_counter()
@@ -3185,15 +3235,19 @@ def mesh_two_ranks() -> list:
     step on the whole batch. The same ranks then run :func:`sp_cases`,
     one launch for both phases; returns those cases' (case, rank 0's
     result, the single process's result) for :func:`sp_two_ranks`."""
+    zoo = zoo_sp_cases()
     cases = [dp_check.stofnet_case(L, B, timed=MESH_TIMED),
-             dp_check.sincnet_case(L, B, timed=MESH_TIMED), *sp_cases()]
+             dp_check.sincnet_case(L, B, timed=MESH_TIMED), *sp_cases(),
+             *zoo]
     t0 = time.perf_counter()
     ranks = dp_mesh.launch(dp_check.run_cases, (cases, "cuda:0", True),
                            devices=["cuda:0", "cuda:0"], backend="gloo")
     launch_s = time.perf_counter() - t0
     alone = dp_check.run_cases(cases, "cuda:0")
     gloo = ranks.pop()["gloo_cuda"]
-    sp_runs = list(zip(cases[2:], ranks[2:], alone[2:]))
+    n = len(cases) - len(zoo)
+    sp_runs = list(zip(cases[2:n], ranks[2:n], alone[2:n]))
+    zoo_runs = list(zip(cases[n:], ranks[n:], alone[n:]))
     lr = OPT["lr"]
     out, bad = {"launch_s": launch_s, "gloo_takes_cuda": gloo,
                 "gloo_route": "host copies, by rule (parallel/mesh.py)"}, []
@@ -3224,7 +3278,7 @@ def mesh_two_ranks() -> list:
     if bad:
         raise AssertionError(f"mesh phase: the 2-rank step misses the "
                              f"single step: {bad}")
-    return sp_runs
+    return sp_runs, zoo_runs
 
 
 def mesh_daemon(dev, work: Path, stofnet_ckpt: str) -> dict:
@@ -3285,15 +3339,15 @@ def mesh_array(work: Path, data: str, array_first: torch.Tensor) -> None:
 def mesh_path(dev, work: Path, data: str, stofnet_ckpt: str,
               array_first: torch.Tensor):
     """The mesh phase (item 17 of the module docstring). Returns the mesh
-    daemon's launches by kernels-line row, and the sp phase's steps that
-    its ranks ran (:func:`mesh_two_ranks`)."""
+    daemon's launches by kernels-line row, and the sp and zoo-sp phases'
+    steps that its ranks ran (:func:`mesh_two_ranks`)."""
     t_phase = time.perf_counter()
     mesh_driver(work, data)
-    sp_runs = mesh_two_ranks()
+    sp_runs, zoo_runs = mesh_two_ranks()
     launches = mesh_daemon(dev, work, stofnet_ckpt)
     mesh_array(work, data, array_first)
     log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches, sp_runs
+    return launches, sp_runs, zoo_runs
 
 
 def sp_replica(state):
@@ -3463,6 +3517,313 @@ def sp_path(dev, work: Path, stofnet_ckpt: str, sp_runs: list) -> dict:
     return launches
 
 
+def zoo_sp_cases() -> list:
+    """The zoo-sp phase's driver steps: every trainable family's f32 step
+    at dp=1, sp=2 on one B=128 batch at its driver length (Kuleshov at
+    ZOO_SP_STEP_L), run by the mesh phase's ranks."""
+    out = []
+    for name in ZOO:
+        if name == "gradpeak":
+            continue
+        length = ZOO_SP_STEP_L.get(name, zoo_length(name))
+        case = dp_check.zoo_case(name, length, B, seed=SEED, mesh=(1, 2),
+                                 timed=1, name=f"{name} sp=2")
+        if name not in ("kuleshov",):
+            case["arch"] = dict(ZOO_OVERRIDES)
+        out.append(case)
+    return out
+
+
+def zoo_sp_model(name: str, state: dict, dtype, dev, **over):
+    """The family's module at the zoo phase's configuration on ``dev`` in
+    eval mode, holding ``state``."""
+    model, _ = build_model(name, **{**ZOO_OVERRIDES, **over}, dtype=dtype,
+                           device="meta", th=None)
+    if state:
+        model.load_state_dict({k: v.to(dev) for k, v in state.items()},
+                              strict=True, assign=True)
+    else:
+        model.to(dev)
+    if name == "gradpeak":
+        model.device = torch.device(dev)
+    return model.eval()
+
+
+def zoo_sp_gate(name: str, got: torch.Tensor, want: torch.Tensor,
+                up: int) -> dict:
+    """The sharded output against the single forward's: bit for bit, or
+    JAX's tolerances (a heatmap's decoded coords within 1 sample on >=
+    0.99 of the slots; Zonzini's ToA within ZONZINI_RTOL)."""
+    res = dict(equal=bool(torch.equal(got, want)),
+               max_abs_diff=float((got.float() - want.float()).abs().max()))
+    if name == "zonzini":
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-12))
+                    .max())
+        res.update(max_rel_diff=rel,
+                   ok=res["equal"] or rel <= ZONZINI_RTOL)
+        return res
+    if name == "gradpeak":
+        res["ok"] = res["equal"]
+        return res
+    kw = dict(window_size=DECODE["window_size"], threshold=None,
+              upsample_factor=up, max_echoes=DECODE["max_echoes"])
+    a, b = mask2coords(got, **kw).cpu(), mask2coords(want, **kw).cpu()
+    res["coords_equal"] = bool(torch.equal(a, b))
+    res["coord_agreement"] = float(((a - b).abs() <= 1.0).float().mean())
+    res["ok"] = res["coords_equal"] or res["coord_agreement"] >= AGREE_MIN
+    return res
+
+
+def zoo_sp_family(dev, name: str, state: dict, rows_of, phase: str,
+                  **over) -> dict:
+    """One family in f32 and bf16: the single forward and the sharded one
+    (``parallel/seq.local_forward``: a thread a shard, every shard on
+    ``dev``) at each sp of ZOO_SP over a warm-up and ZOO_SP_BATCHES timed
+    batches (``rows_of(i)``: batch i, numpy), ms a batch (CUDA-synced
+    host clock) and the gate of :func:`zoo_sp_gate`."""
+    out = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        fresh_peak()
+        model = zoo_sp_model(name, state, dtype, dev, **over)
+        arch = seq.model_arch(model)
+        up = int(arch["upsample_factor"])
+        precision = (full_f32 if dtype == torch.float32 or name == "gradpeak"
+                     else contextlib.nullcontext)
+        xs = [torch.from_numpy(rows_of(i)).to(dev)
+              for i in range(ZOO_SP_BATCHES + 1)]
+        length = xs[0].shape[-1]
+
+        def timed(fn):
+            outs, ms = [], []
+            for i, x in enumerate(xs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.inference_mode(), precision():
+                    y = fn(x)
+                torch.cuda.synchronize()
+                if i:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    outs.append(y)
+            return outs, ms
+
+        want, single_ms = timed(model)
+        res = dict(length=length, single_ms_per_batch=float(
+            np.median(single_ms)), single_batch_ms=single_ms)
+        for sp in ZOO_SP:
+            def sharded(x, sp=sp):
+                parts = seq.local_forward(model, x, sp, arch)
+                return (torch.cat(parts, -1) if arch["family"] in seq.HEATMAP
+                        else parts[0])
+            got, ms = timed(sharded)
+            gates = [zoo_sp_gate(name, g, w, up) for g, w in zip(got, want)]
+            res[f"sp{sp}"] = dict(
+                ms_per_batch=float(np.median(ms)), batch_ms=ms,
+                redundant_share=seq.redundant_share(length, sp, arch),
+                gate=gates, equal=all(g["equal"] for g in gates))
+            if not all(g["ok"] for g in gates):
+                raise AssertionError(f"{phase}, {name} {label} sp={sp}: "
+                                     f"the sharded forward misses the "
+                                     f"single one: {gates}")
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"{phase}, {name} {label}: {json.dumps(res)}")
+        out[label] = res
+        del model, want
+    return out
+
+
+def zoo_sp_forwards(dev, work: Path, ckpts: dict, rng) -> None:
+    """Every family (the zoo phase's trained checkpoints; gradpeak has no
+    weights) and, on PALA data, the unet (10 layers: its reach spans the
+    row, so each shard's window is the row) and ESPCN at L_PALA."""
+    for name in ZOO:
+        state = ({} if name == "gradpeak" else load_model_variables(
+            name, find_checkpoint(work / "ckpts", ckpts[name])))
+        length = zoo_length(name)
+        batches = [gate_batch(B, length, rng)
+                   for _ in range(ZOO_SP_BATCHES + 1)]
+        zoo_sp_family(dev, name, state, batches.__getitem__,
+                      "zoo-sp phase")
+        del state
+    cfg = merge_cli(load_config(cli_main.DEFAULT_CONFIG), [
+        f"data_dir={work / 'pala_synth'}", "evaluate=True", "ch_gap=32",
+        "rf_scale_factor=10", "sequences=[0]"])
+    ds, _ = cli_main.build_dataset(cfg)
+    loader = iter(DataLoader(ds, batch_size=PALA_FRAMES, drop_last=True))
+    frames = [cli_main.batch_to_arrays(next(loader), "pala")[0]
+              for _ in range(ZOO_SP_BATCHES + 1)]
+    for name in ZOO_SP_PALA:
+        over = dict(dataset_kind="pala", rf_scale_factor=10,
+                    sample_num=PALA_DATA["n_samples"])
+        model, _ = build_model(name, **{**ZOO_OVERRIDES, **over},
+                               device="cpu", generator=torch.Generator()
+                               .manual_seed(SEED))
+        zoo_sp_family(dev, name, model.state_dict(), frames.__getitem__,
+                      "zoo-sp phase, pala", **over)
+
+
+def f64_grads(case: dict, dev) -> dict:
+    """The gradients of the single step of ``case`` in f64 on ``dev`` (the
+    model, the batch and the loss in f64; the dropout masks the f32
+    step's): the witness of a family whose f32 gradients are far from
+    exact on the card."""
+    model = build_model(case["model"], device=dev, generator=torch.Generator()
+                        .manual_seed(int(case["seed"])),
+                        **case["arch"])[0].double()
+    opt, sch = make_optimizer(model.parameters(), steps_per_epoch=1)
+    step = make_train_step(model, opt, sch, LossConfig(**case["loss"]),
+                           seed=int(case["seed"]))
+    gt = case["gt_sample"]
+    gt_true = np.round(gt[:, None, :] * case["loss"]["upsample_factor"])
+    step(torch.from_numpy(case["frame"]).double().to(dev),
+         torch.from_numpy(gt).double().to(dev),
+         torch.from_numpy(gt_true.astype(np.int32)).to(dev))
+    return {k: p.grad.cpu().numpy() for k, p in model.named_parameters()}
+
+
+def f64_witness(got: dict, one: dict, ref: dict) -> dict:
+    """Per tensor whose f64 gradient is not rounding noise: the relative
+    L2 distance of the ranks' and of the single step's f32 gradients from
+    the f64 witness."""
+    norms = {k: float(np.linalg.norm(v)) for k, v in ref.items()}
+    top = max(norms.values())
+    out = {}
+    for k, r in ref.items():
+        if norms[k] <= ZOO_SP_NOISE * top:
+            continue
+        out[k] = [float(np.linalg.norm(got[k] - r) / norms[k]),
+                  float(np.linalg.norm(one[k] - r) / norms[k])]
+    return out
+
+
+def zoo_sp_two_ranks(runs: list, dev) -> None:
+    """Each family's f32 step of the mesh phase's 2 gloo ranks on cuda:0
+    at dp=1, sp=2 (:func:`zoo_sp_cases`) against the single process's:
+    the loss rtol 1e-5, every parameter within 2 lr, and 99.9 % within
+    1e-5, or for a BatchNorm family (whose conv biases before a BatchNorm
+    take gradients of rounding noise, which AdamW's first step turns into
+    updates of up to lr) the gradients rtol 1e-3, atol 1e-4 of the
+    largest (Kuleshov: against its f64 witness, :data:`ZOO_SP_F64`) and
+    the running statistics rtol 1e-5, atol 1e-6."""
+    out, bad = {}, []
+    for case, got, one in runs:
+        name = case["model"]
+        diff = np.abs(np.concatenate([np.ravel(got["params"][k] - v)
+                                      for k, v in one["params"].items()]))
+        res = dict(length=case["frame"].shape[-1],
+                   loss=[got["loss"][0], one["loss"][0]],
+                   share_within=float(np.mean(diff < MESH_AGREE)),
+                   max_param_diff=float(diff.max()),
+                   ranks_equal=got["ranks_equal"],
+                   ms_2_ranks=got["ms"], ms_single=one["ms"])
+        ok = (abs(res["loss"][0] - res["loss"][1])
+              <= MESH_LOSS_RTOL * abs(res["loss"][1])
+              and res["max_param_diff"] < 2 * OPT["lr"]
+              and res["ranks_equal"])
+        if name in ZOO_SP_BN:
+            scale = max(float(np.abs(g).max())
+                        for g in one["grads"].values())
+            res["grads_max_diff"] = max(
+                float(np.abs(g - one["grads"][k]).max())
+                for k, g in got["grads"].items())
+            if name in ZOO_SP_F64:
+                wit = f64_witness(got["grads"], one["grads"],
+                                  f64_grads(case, dev))
+                res["f64_rel_l2_ranks_single"] = wit
+                res["grads_off"] = [k for k, (a, b) in wit.items()
+                                    if a > ZOO_SP_F64_RATIO * b + 1e-6]
+            else:
+                res["grads_off"] = [
+                    k for k, g in got["grads"].items()
+                    if not np.allclose(g, one["grads"][k], rtol=1e-3,
+                                       atol=1e-4 * scale)]
+            stats = [k for k in one["buffers"]
+                     if k.endswith(ZOO_BUFFERS[:2])]
+            res["stats_off"] = {
+                k: float(np.abs(got["buffers"][k] - one["buffers"][k]).max())
+                for k in stats if not np.allclose(
+                    got["buffers"][k], one["buffers"][k], rtol=1e-5,
+                    atol=1e-6)}
+            ok = ok and not res["grads_off"] and not res["stats_off"]
+        else:
+            ok = ok and res["share_within"] > MESH_SHARE
+        if not ok:
+            bad.append(case["name"])
+        out[case["name"]] = res
+    log(f"zoo-sp phase, 2 ranks at sp=2 on one card: {json.dumps(out)}")
+    if len(out) != len(zoo_sp_cases()) or bad:
+        raise AssertionError(f"zoo-sp phase: the sp=2 step misses the "
+                             f"single step: {bad or out}")
+
+
+def zoo_sp_daemon(dev, work: Path, ckpts: dict, rng) -> None:
+    """``cli/serve.py model=<family> mesh=True mesh_sp=2`` in f32 from the
+    zoo phase's checkpoints (both replicas on ``dev``), one batch of B
+    rows as one request, against ``make_pipeline``'s direct rows."""
+    def one_card(device, dp, sp):  # the mesh's devices: dev, sp times
+        return [torch.device(dev)] * ((dp or 1) * sp)
+
+    orig = serve_cli.local_devices
+    serve_cli.local_devices = one_card
+    try:
+        for name in ZOO_SP_DAEMON:
+            args = {"model": name, "model_file": ckpts[name],
+                    "ckpt_dir": str(work / "ckpts"), "length": L,
+                    "dtype": "float32", "mesh": True, "mesh_sp": 2,
+                    "max_batch": B, "max_wait_ms": 2, "port": 0,
+                    "warmup": False, "th": "Null",
+                    "max_echoes": DECODE["max_echoes"], **{
+                        k: v for k, v in ZOO_OVERRIDES.items()
+                        if k != "sample_num"}}
+            state, over = cli_export.resolve_zoo_variables_and_overrides(
+                args, name)
+            rows = gate_batch(B, L, rng)
+            want = make_pipeline(state, over, model_name=name, device=dev,
+                                 dtype=torch.float32, threshold=None,
+                                 max_echoes=DECODE["max_echoes"])(rows).cpu()
+            hostd, server, port = serve_cli.build(args)
+            try:
+                with ServingClient(("127.0.0.1", port)) as client:
+                    client.infer(rows[:, 0])  # warm-up
+                    t0 = time.perf_counter()
+                    got = torch.from_numpy(np.asarray(
+                        client.infer(rows[:, 0])))
+                    ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                server.shutdown()
+                server.server_close()
+                hostd.close()
+            res = zoo_sp_gate(name, got.reshape(want.shape).float(),
+                              want.float(), 1)
+            if name != "zonzini":  # the coords themselves, not a heatmap
+                agree = float(((got - want).abs() <= 1.0).float().mean())
+                res = dict(equal=bool(torch.equal(got, want)),
+                           coord_agreement=agree,
+                           ok=bool(torch.equal(got, want))
+                           or agree >= AGREE_MIN)
+            res["ms_per_request"] = ms
+            log(f"zoo-sp phase, daemon {name} sp=2: {json.dumps(res)}")
+            if not res["ok"]:
+                raise AssertionError(f"zoo-sp phase, daemon {name}: {res}")
+    finally:
+        serve_cli.local_devices = orig
+
+
+def zoo_sp_path(dev, work: Path, ckpts: dict, zoo_runs: list) -> None:
+    """The zoo-sp phase (item 19 of the module docstring), the launch
+    counts set to 0 before it and held at 0 after it: JAX's zoo under
+    GSPMD reaches no Pallas kernel."""
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    rng = np.random.default_rng(SEED + 10)
+    zoo_sp_forwards(dev, work, ckpts, rng)
+    zoo_sp_two_ranks(zoo_runs, dev)
+    zoo_sp_daemon(dev, work, ckpts, rng)
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"zoo-sp phase: a kernel launched: {launched}")
+    log(f"zoo-sp phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def default_flags() -> None:
     """PyTorch's own TF32 defaults (cuDNN's on, cuBLAS's off), which a
     daemon process serves under: the phases after the kernel checks run
@@ -3526,10 +3887,11 @@ def main() -> int:
         paths.append(pala_path(dev, work))
         array_first = array_path(dev, work, data)
         sweep_path(work, data, stofnet_ckpt, ckpts)
-        launches, sp_runs = mesh_path(dev, work, data, stofnet_ckpt,
-                                      array_first)
+        launches, sp_runs, zoo_runs = mesh_path(dev, work, data,
+                                                stofnet_ckpt, array_first)
         paths.append(launches)
         paths.append(sp_path(dev, work, stofnet_ckpt, sp_runs))
+        zoo_sp_path(dev, work, ckpts, zoo_runs)
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

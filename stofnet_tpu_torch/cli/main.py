@@ -32,15 +32,20 @@ Departures from the JAX driver:
   ``mesh_dp`` defaults to the card count over ``mesh_sp`` (1 on the CPU,
   where any mesh runs: the ranks share the CPU); dp * sp may not exceed
   the cards.
-- ``mesh=True mesh_sp=N`` also shards the sample axis of StofNet's
-  frames on chirp data (``parallel/seq.py``): the ranks of one dp row
-  (its sp group) load the same rows, each keeps its L / sp samples of
-  them, and the steps widen each shard with its neighbours' halo, train
-  on the shard's own positions and join the heatmaps of an sp group
-  before the decode. JAX's refusals stay (``batch_size % dp``, ``L %
-  sp``). Refused before any rank starts, with ``SystemExit`` naming
-  ROADMAP A.6c: the zoo, PALA and rat data, and ``int8=True``, under
-  ``mesh_sp > 1``.
+- ``mesh=True mesh_sp=N`` also shards the sample axis of the frames of
+  every registry model, on chirp, PALA and rat data (PALA's and rat's
+  channel-flattened rows, ``batch_to_arrays``), by the family's rule
+  (``parallel/seq.py``): the ranks of one dp row (its sp group) load the
+  same rows, each keeps its L / sp samples of them, and the steps run
+  each shard's forward (a window widened by its neighbours' halo, or
+  Kuleshov's layer-wise halos), train on the shard's own positions (or,
+  for Zonzini, on the sp group's joined pool) and join an sp group's
+  outputs before the decode. JAX's refusals stay (``batch_size % dp``,
+  ``L % sp``). Refused before any rank starts, with ``SystemExit``
+  naming ROADMAP A.6c: ``int8=True`` under ``mesh_sp > 1``.
+- ``accum=N`` on a mesh: each rank loads its slice of each of JAX's
+  micro-batches (``utils/collectives.accum_rows``), so ``batch_size`` must
+  divide by ``mesh_dp * accum``.
 - ``compile_cache=`` is accepted and does nothing (eager PyTorch compiles
   nothing to cache); a line on stderr says so.
 - A fresh model is drawn from ``torch.Generator().manual_seed(seed)``
@@ -512,7 +517,8 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     train_idx, val_idx = split_dataset(len(ds), 0.2, seed=int(cfg.seed))
     train_loader = DataLoader(ds, train_idx, batch_size=int(cfg.batch_size),
                               shuffle=True, drop_last=True, seed=int(cfg.seed),
-                              num_workers=nw, shard=_shard(mesh))
+                              num_workers=nw, shard=_shard(mesh),
+                              accum=int(cfg.get("accum", 1) or 1))
     val_loader = DataLoader(ds, val_idx, batch_size=int(cfg.batch_size),
                             drop_last=True, num_workers=nw,
                             shard=_shard(mesh))
@@ -656,13 +662,7 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
 
 def _sp_refusals(cfg: Config) -> None:
     """What ``mesh_sp > 1`` does not shard yet, refused before any rank
-    starts (ROADMAP A.6c): the zoo, PALA and rat data, ``int8=True``."""
-    name = str(cfg.model).lower()
-    if name != "stofnet":
-        refuse_sp(cfg, f"model={name}")
-    kind = dataset_kind(cfg.data_dir)
-    if kind != "chirp":
-        refuse_sp(cfg, f"{kind} data")
+    starts (ROADMAP A.6c): ``int8=True``."""
     if cfg.get("int8"):
         refuse_sp(cfg, "int8=True (its per-waveform activation scale is a "
                        "max over the whole row)")

@@ -43,17 +43,21 @@ an artifact serves only on the device it was exported for, so a mesh
 over several cards is refused for ``artifact=`` (serve ``model_file=``,
 whose replicas are built a card each).
 
-``mesh=True mesh_sp=N`` (a StofNet checkpoint) also splits each row of a
-slice along L over the sp replicas of the slice's dp row (dp * sp
-devices, JAX's ``reshape(dp, sp)``): each replica runs its route's
-forward (``make_pipeline``'s ``heatmap``: the fused kernels at L % 80 ==
-0, the module elsewhere) on its shard's window, the row with the halo
-that StofNet's reach needs (``parallel/seq.py``; a slice of the request
-already on the host), and keeps its own positions; the shards' heatmaps
-are joined in order on the slice's first device and decoded there. Every
-shard is launched before any result is copied back. JAX's refusal stays:
-``length`` must divide by sp. Refused with ``mesh_sp > 1``, naming
-ROADMAP A.6c: the zoo (``model=`` other than stofnet), the int8 route
+``mesh=True mesh_sp=N`` (a checkpoint of any family) also splits each
+row of a slice along L over the sp replicas of the slice's dp row (dp *
+sp devices, JAX's ``reshape(dp, sp)``). Each replica runs its forward
+(``make_pipeline``'s ``heatmap``: for StofNet the fused kernels at L % 80
+== 0, the module elsewhere) on its shard's window, the row with the halo
+that the family's reach needs (``parallel/seq.py``; a slice of the
+request already on the host; GradPeak's is the row), and keeps its own
+positions; the shards' outputs are joined in order on the slice's first
+device and decoded there. Every shard is launched before any result is
+copied back. Zonzini and Kuleshov join inside their forward: their
+replicas run its shard form (``zoo_pipeline``'s ``shard``), one thread
+each, all dp rows together, joined in process
+(``parallel/seq.ThreadExchange``: Zonzini's pool and Kuleshov's halos
+and dense head summed). JAX's refusal stays: ``length`` must divide by
+sp. Refused with ``mesh_sp > 1``, naming ROADMAP A.6c: the int8 route
 (its activations take a per-waveform scale, a max over the whole row
 that a window does not see), ``artifact=`` and ``input_enc=``.
 
@@ -104,7 +108,9 @@ from stofnet_tpu_torch.serve import (
 from stofnet_tpu_torch.parallel.mesh import (
     Mesh, config_mesh, local_devices, mesh_dims, refuse_sp,
 )
-from stofnet_tpu_torch.parallel.seq import crop, split_windows
+from stofnet_tpu_torch.parallel.seq import (
+    HEATMAP, family_of, forward_kwargs, own_output, run_shards, shard_of,
+)
 from stofnet_tpu_torch.serving import (
     LengthRouter, ServingHost, batch_buckets, start_server,
 )
@@ -149,8 +155,6 @@ def build(args: Dict[str, Any]):
         raise SystemExit("length= is required with model_file= "
                          "(the serving contract's static length)")
     length = int(args["length"])
-    if model != "stofnet":
-        refuse_sp(args, f"model={model}")
     if any(args.get(k) for k in INT8_KEYS):
         refuse_sp(args, "the int8 route (its activations take a "
                         "per-waveform scale, a max over the whole row)")
@@ -192,7 +196,7 @@ def build(args: Dict[str, Any]):
             return raw(*encode(xb))
 
         run.route, run.calls = raw.route, raw.calls
-        for attr in ("heatmap", "decode", "arch"):  # a StofNet pipeline's
+        for attr in ("heatmap", "decode", "arch", "shard"):
             if hasattr(raw, attr):
                 setattr(run, attr, getattr(raw, attr))
         return run
@@ -300,9 +304,10 @@ def _mesh_adjust(replica: Callable, device: torch.device,
     launched before any result is copied back, so the replicas' cards
     run together. Under sp > 1 the replicas of a dp row (devices ``d *
     sp .. d * sp + sp - 1``) each run ``run.heatmap`` on one shard's
-    window of the slice's rows (``parallel/seq.split_windows``), and the
-    row's first replica joins the cropped heatmaps in order and decodes
-    them (``run.decode``)."""
+    window of the slice's rows (``parallel/seq.shard_of``), and the row's
+    first replica joins the cropped heatmaps in order and decodes them
+    (``run.decode``); Zonzini's and Kuleshov's replicas (``run.shard``)
+    run their shards on a thread each, joined in process."""
     if mesh is None:
         replicas, dp, sp = [replica(device)], 1, 1
     else:
@@ -321,21 +326,45 @@ def _mesh_adjust(replica: Callable, device: torch.device,
                             if b % dp == 0)
         replicas = [replica(d) for d in mesh.devices]
 
-    def shards(i: int, part) -> List[Tuple[torch.Tensor, Tuple[int, int]]]:
-        """Slice i's shard heatmaps, launched, with each shard's positions
-        within its window, in sp order."""
+    def shards(i: int, part) -> List[torch.Tensor]:
+        """Slice i's shard outputs, launched, each on its own positions,
+        in sp order: each replica's forward on its shard's window."""
         row = replicas[i * sp:(i + 1) * sp]
-        return [(rep.heatmap(w), within) for rep, (w, within) in zip(
-            row, split_windows(part, sp, row[0].arch))]
+        arch, length = row[0].arch, part.shape[-1]
+        outs = []
+        for k, rep in enumerate(row):
+            shard = shard_of(arch, length, sp, k, None)
+            a, b = shard.window
+            outs.append(own_output(arch, rep.heatmap(
+                part[..., a:b], **forward_kwargs(arch, shard)), shard))
+        return outs
+
+    def joined(parts) -> List[List[torch.Tensor]]:
+        """Zonzini's and Kuleshov's shard outputs of every slice: every
+        replica runs ``run.shard`` on its shard (its window of its slice,
+        or Kuleshov's own samples) on a thread of its own, all submitted
+        together, each dp row joined through one
+        ``parallel/seq.ThreadExchange``."""
+        arch = replicas[0].arch
+
+        def one(n: int, exchange) -> torch.Tensor:
+            part = parts[n // sp]
+            shard = shard_of(arch, part.shape[-1], sp, n % sp, exchange)
+            a, b = shard.window or shard.own
+            return replicas[n].shard(np.ascontiguousarray(part[..., a:b]),
+                                     shard)
+        outs = run_shards(one, sp, rows=dp)
+        return [outs[i * sp:(i + 1) * sp] for i in range(dp)]
 
     def pipeline(xb):
         parts = np.split(xb, dp)
         if sp == 1:
             outs = [rep(part) for rep, part in zip(replicas, parts)]
         else:  # every shard launched, then each slice joined and decoded
-            launched = [shards(i, part) for i, part in enumerate(parts)]
-            outs = [_join(replicas[i * sp], heats)
-                    for i, heats in enumerate(launched)]
+            launched = (joined(parts) if hasattr(replicas[0], "shard") else
+                        [shards(i, part) for i, part in enumerate(parts)])
+            outs = [_join(replicas[i * sp], row)
+                    for i, row in enumerate(launched)]
         # the host takes numpy: the coords come back from the cards here
         return np.concatenate([o.cpu().numpy() for o in outs])
 
@@ -345,16 +374,15 @@ def _mesh_adjust(replica: Callable, device: torch.device,
     return pipeline, None if buckets is None else tuple(buckets)
 
 
-def _join(first: Callable,
-          heats: List[Tuple[torch.Tensor, Tuple[int, int]]]
-          ) -> torch.Tensor:
-    """A dp row's shard heatmaps, each cropped to its own positions and
-    joined in sp order on the device of the row's first replica, decoded
-    there (``first.decode``)."""
-    up = int(first.arch["upsample_factor"])
-    where = heats[0][0].device
-    return first.decode(torch.cat([crop(h, within, up).to(where)
-                                   for h, within in heats], dim=-1))
+def _join(first: Callable, outs: List[torch.Tensor]) -> torch.Tensor:
+    """A dp row's shard outputs, each on its own positions, joined on the
+    device of the row's first replica and decoded there (``first.decode``):
+    a heatmap's in sp order, Zonzini's and GradPeak's, whole on every
+    shard, as the first shard's."""
+    where = outs[0].device
+    pred = (torch.cat([o.to(where) for o in outs], dim=-1)
+            if family_of(first.arch) in HEATMAP else outs[0])
+    return first.decode(pred)
 
 
 def _max_pending(args: Dict[str, Any]) -> Optional[int]:

@@ -21,6 +21,8 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from stofnet_tpu_torch.utils.collectives import accum_rows
+
 _STAGING_SETS = 3  # pinned buffer sets of DevicePut; any count >= 1 is
 # correct, since a refill waits on its set's last copy
 
@@ -47,14 +49,17 @@ class DataLoader:
     of ``batch_size`` (its ``batch_size / dp`` items, in the
     single-process order: same split, same shuffle), and reads only
     those items: a data-parallel rank's loader
-    (``parallel/mesh.shard_batch`` of the global batch).
+    (``parallel/mesh.shard_batch`` of the global batch). With ``accum``
+    (a training loader of ``accum`` micro-batches) they are the rows of
+    ``utils/collectives.accum_rows``: the rank's dp slice of each
+    micro-batch, in micro-batch order.
     """
 
     def __init__(self, dataset, indices: Optional[Sequence[int]] = None,
                  batch_size: int = 4, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
                  num_workers: int = 0, prefetch_batches: int = 2,
-                 shard: Tuple[int, int] = (0, 1)):
+                 shard: Tuple[int, int] = (0, 1), accum: int = 1):
         self.dataset = dataset
         self.indices = np.asarray(
             indices if indices is not None else np.arange(len(dataset)))
@@ -66,9 +71,8 @@ class DataLoader:
         self.num_workers = int(num_workers)
         self.prefetch_batches = max(1, int(prefetch_batches))
         self.rank, self.dp = (int(v) for v in shard)
-        if batch_size % self.dp:
-            raise ValueError(f"batch_size={batch_size} not divisible by "
-                             f"mesh_dp={self.dp}")
+        self._rows = accum_rows(batch_size, self.dp, self.rank,
+                                int(accum) if self.dp > 1 else 1)
         if self.dp > 1 and not drop_last:
             raise ValueError("a sharded loader drops the short last batch: "
                              "drop_last=True")
@@ -89,9 +93,7 @@ class DataLoader:
             self.rng.shuffle(order)
         bs = self.batch_size
         stop = len(order) - (len(order) % bs) if self.drop_last else len(order)
-        b = bs // self.dp  # this rank's rows of each global batch
-        rows = slice(self.rank * b, (self.rank + 1) * b)
-        return [order[i:i + bs][rows] for i in range(0, stop, bs)]
+        return [order[i:i + bs][self._rows] for i in range(0, stop, bs)]
 
     def __iter__(self) -> Iterator[Tuple]:
         batches = self._batch_indices()

@@ -21,6 +21,14 @@ statistics are the global batch's, as GSPMD computes them: each rank's
 flows through the global statistics; plain DDP's per-rank statistics are
 what this avoids.
 
+Under sequence parallelism (inside :func:`positions`, which
+``parallel/seq.py`` opens around a shard's forward) a rank's input is a
+window of its rows whose halo other shards own: the statistics are then
+sums over the shard's *own* positions at this layer's resolution
+(``shard.own_slice``), never the halo, with their count, summed over
+every rank (dp x sp, inside autograd; over the sp group in one process)
+and divided by the global count, so each global position counts once.
+
 The buffers carry the reference's names (``running_mean``,
 ``running_var``, ``num_batches_tracked``), so a reference ``.pth`` loads
 strictly; flax keeps no batch count, so ``num_batches_tracked`` stays as
@@ -29,12 +37,28 @@ loaded.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
 
 from stofnet_tpu_torch.utils.collectives import all_reduce_sum
+
+_shard = threading.local()  # the length shard a thread's forward runs
+
+
+@contextlib.contextmanager
+def positions(shard) -> Iterator[None]:
+    """BatchNorm's training statistics in this block count ``shard``'s own
+    positions (a ``parallel/seq.Shard``; None: every position)."""
+    before = getattr(_shard, "value", None)
+    _shard.value = shard
+    try:
+        yield
+    finally:
+        _shard.value = before
 
 
 class BatchNorm(nn.Module):
@@ -64,8 +88,12 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = tuple(range(x.ndim - 1))
             xf = x.float()
-            mean, msq = xf.mean(dims), (xf * xf).mean(dims)
-            if self.mesh is not None:
+            shard = getattr(_shard, "value", None)
+            if shard is not None:
+                mean, msq = self._own_stats(xf, shard, dims)
+            else:
+                mean, msq = xf.mean(dims), (xf * xf).mean(dims)
+            if self.mesh is not None and shard is None:
                 both = all_reduce_sum(self.mesh, torch.stack([mean, msq]))
                 mean, msq = both[0] / self.mesh.dp, both[1] / self.mesh.dp
             var = torch.clamp_min(msq - mean * mean, 0.0)
@@ -81,3 +109,14 @@ class BatchNorm(nn.Module):
         y = (x - mean) * mul + self.bias
         out = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return y.to(out)
+
+    def _own_stats(self, xf: torch.Tensor, shard, dims):
+        """(mean, E[x^2]) over every shard's own positions: this shard's
+        sums and count, summed over the mesh (or the sp group)."""
+        lo, hi = shard.own_slice(xf.shape[-2])
+        own = xf[..., lo:hi, :]
+        count = own.new_full(own.shape[-1:], own.numel() // own.shape[-1])
+        sums = torch.stack([own.sum(dims), (own * own).sum(dims), count])
+        sums = (all_reduce_sum(self.mesh, sums) if self.mesh is not None
+                else shard.exchange.sum(sums))
+        return sums[0] / sums[2], sums[1] / sums[2]

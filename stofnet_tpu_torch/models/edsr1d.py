@@ -68,6 +68,19 @@ class EDSR1D(nn.Module):
         return h.transpose(1, 2).to(torch.float32)
 
 
+def reach(model: EDSR1D) -> int:
+    """The largest distance, in input samples, between an output position
+    and an input sample it reads: the SAME convs' half-widths at the input
+    rate (conv_input, both convs of every residual block, conv_mid: 18 at
+    the defaults; the residual adds reach no further), then conv_output's
+    at the upsampled rate, rounded up to input samples (1)."""
+    convs = [model.conv_input, model.conv_mid]
+    convs += [c for b in model.residual_blocks for c in (b.conv1, b.conv2)]
+    r = int(model.upscale_factor)
+    last = max(same(model.conv_output.kernel_size[0]))
+    return sum(max(same(c.kernel_size[0])) for c in convs) + -(-last // r)
+
+
 def rewrite_flax_key(key: str) -> str:
     """flax ``residual_blocks_{i}.conv{j}`` -> torch
     ``residual_blocks.{i}.conv{j}``."""

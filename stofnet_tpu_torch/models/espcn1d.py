@@ -55,3 +55,12 @@ class ESPCN1D(nn.Module):
         h = conv_layer(self.conv3, h, same(3), dt)
         h = sample_shuffle(h.transpose(1, 2), self.upscale_factor)
         return torch.sigmoid(h).to(torch.float32)
+
+
+def reach(model: ESPCN1D) -> int:
+    """The largest distance, in input samples, between an output position
+    and an input sample it reads: the three SAME convs' half-widths at the
+    input rate (4 at k5, k3, k3); the shuffle maps input position p onto
+    outputs r p .. r p + r - 1 and reaches no further."""
+    return sum(max(same(c.kernel_size[0]))
+               for c in (model.conv1, model.conv2, model.conv3))

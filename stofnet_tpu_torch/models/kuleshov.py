@@ -28,6 +28,7 @@ from stofnet_tpu_torch import DeviceLike, resolve_device
 from stofnet_tpu_torch.models.batchnorm import BatchNorm
 from stofnet_tpu_torch.models.init import materialize
 from stofnet_tpu_torch.ops.conv import conv_layer, dense
+from stofnet_tpu_torch.utils.collectives import block
 
 N_FILTERS = (128, 256, 512, 512)
 N_FILTERSIZES = (65, 33, 17, 9)
@@ -72,15 +73,20 @@ def keep_mask(shape, generator: Optional[torch.Generator],
         1.0 - DROPOUT)
 
 
-def _dropout(h: torch.Tensor, generator) -> torch.Tensor:
+def _dropout(h: torch.Tensor, generator, part=None) -> torch.Tensor:
     """flax's Dropout: keep with probability 1 - rate, kept values scaled
     by 1 / (1 - rate). The keep mask is drawn from ``generator`` (a
     ``torch.Generator`` or None), or is ``generator(shape)`` where it is a
     function: masks drawn ahead of the forward, as the array step draws
-    each member's (``parallel/array.py``)."""
+    each member's (``parallel/array.py``). ``part=(lo, hi, w)``: ``h``
+    holds positions lo..hi of a tensor of w, whose whole mask is drawn
+    and sliced, so a length shard keeps the single process's mask."""
     keep = 1.0 - DROPOUT
-    mask = (generator(h.shape) if callable(generator)
-            else keep_mask(h.shape, generator, h.device))
+    shape = h.shape if part is None else (h.shape[0], part[2], h.shape[2])
+    mask = (generator(shape) if callable(generator)
+            else keep_mask(shape, generator, h.device))
+    if part is not None:
+        mask = mask[:, part[0]:part[1]]
     return torch.where(mask, h / keep, torch.zeros_like(h))
 
 
@@ -121,9 +127,14 @@ class Kuleshov(nn.Module):
                 fc_dimensions(input_length, num_layers), output_length)
         materialize(self, device, generator)
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None,
+                shard=None) -> torch.Tensor:
         """``generator``: the dropout masks' source in train mode (see
-        :func:`_dropout`)."""
+        :func:`_dropout`). ``shard`` (``parallel/seq.Shard``): ``x`` is
+        this shard's samples of each row, and the forward runs sharded
+        layer by layer (:meth:`_sharded`)."""
+        if shard is not None:
+            return self._sharded(x, shard, generator)
         dt = self.dtype
         h = x[:, :, : self.input_length].transpose(1, 2)
         if dt is not None:
@@ -148,6 +159,98 @@ class Kuleshov(nn.Module):
         h = conv_layer(self.final_conv, h, dtype=dt)
         h = h.reshape(h.shape[0], -1)  # SubPixel1D channel interleave
         h = dense(self.output_fc, h, dt)
+        return h[:, None, :].to(torch.float32)
+
+
+    def _sharded(self, x: torch.Tensor, shard, generator) -> torch.Tensor:
+        """The forward with every tensor's time axis in sp contiguous
+        blocks (``utils/collectives.block``), as GSPMD shards it: each
+        layer computes this shard's block of its output and fetches the
+        inputs that block reads from the blocks that hold them
+        (``shard.exchange.fetch``: a VALID conv's taps past the block, the
+        shuffle's source positions, the time concat's two tensors).
+        BatchNorm's statistics are the sums over every block
+        (``models/batchnorm.py``); each dropout mask is the whole tensor's,
+        sliced. The dense head's contraction over the flattened axis is
+        sharded: this shard's features times its columns of the weight,
+        summed over the sp group, then the bias. The output is the whole
+        row's, on every shard."""
+        ex, sp, me = shard.exchange, shard.sp, shard.index
+        if shard.length != self.input_length:
+            raise ValueError(f"Kuleshov shards rows of input_length="
+                             f"{self.input_length}, not {shard.length}")
+        dt = self.dtype
+
+        def conv(h, w, layer):
+            k, s = layer.kernel_size[0], layer.stride[0]
+            w2 = (w - k) // s + 1
+            if w2 < sp:
+                raise ValueError(f"Kuleshov at L={self.input_length}: a "
+                                 f"layer of {w2} positions leaves a shard "
+                                 f"of mesh_sp={sp} none")
+
+            def need(j):
+                p0, p1 = block(w2, sp, j)
+                return s * p0, s * (p1 - 1) + k
+            return conv_layer(layer, ex.fetch([(h, w, need)]), dtype=dt), w2
+
+        def shuffle(h, w):
+            def need(j):
+                p0, p1 = block(2 * w, sp, j)
+                return p0 // 2, (p1 - 1) // 2 + 1
+            p0, p1 = block(2 * w, sp, me)
+            off = p0 - 2 * (p0 // 2)
+            y = _pixel_shuffle_time(ex.fetch([(h, w, need)]))
+            return y[:, off:off + p1 - p0], 2 * w
+
+        def concat(u, d):
+            (hu, nu), (hd, nd) = u, d
+            total = nu + nd
+
+            def in_u(j):
+                c0, c1 = block(total, sp, j)
+                return min(c0, nu), min(c1, nu)
+
+            def in_d(j):
+                c0, c1 = block(total, sp, j)
+                return max(c0, nu) - nu, max(c1, nu) - nu
+            return ex.fetch([(hu, nu, in_u), (hd, nd, in_d)]), total
+
+        def drop(h, w):
+            return _dropout(h, generator, (*block(w, sp, me), w))
+
+        h = x.transpose(1, 2)
+        if dt is not None:
+            h = h.to(dt)
+        w = self.input_length
+        skips = [(h, w)]
+        for i in range(self.num_layers):
+            h, w = conv(h, w, getattr(self, f"down_conv{i}"))
+            h = F.leaky_relu(h, 0.01)
+            h = F.leaky_relu(getattr(self, f"down_bn{i}")(h), 0.2)
+            skips.append((h, w))
+        h, w = conv(h, w, self.bottleneck)
+        if self.training:
+            h = drop(h, w)
+        h = F.leaky_relu(h, 0.2)
+        for i in range(self.num_layers):
+            h, w = conv(h, w, getattr(self, f"up_conv{i}"))
+            h = getattr(self, f"up_bn{i}")(h)
+            if self.training:
+                h = drop(h, w)
+            h, w = shuffle(h, w)
+            h, w = concat((h, w), skips[len(skips) - 1 - i])
+        h, w = conv(h, w, self.final_conv)
+        lo, hi = block(w, sp, me)
+        flat = h.reshape(h.shape[0], -1)  # SubPixel1D: columns 2 lo..2 hi
+        weight = self.output_fc.weight[:, 2 * lo:2 * hi]
+        bias = self.output_fc.bias
+        if dt is not None:  # the products of dt's values, summed in f32
+            flat, weight, bias = (flat.to(dt).float(), weight.to(dt).float(),
+                                  bias.to(dt))
+        # dense's one rounding to dt, of the partial products' f32 sum
+        out = ex.sum(torch.matmul(flat, weight.t()))
+        h = (out if dt is None else out.to(dt)) + bias
         return h[:, None, :].to(torch.float32)
 
 

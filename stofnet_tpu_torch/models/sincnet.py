@@ -126,6 +126,16 @@ class SincNet(nn.Module):
         return h.transpose(1, 2).to(torch.float32)
 
 
+def reach(model: SincNet) -> int:
+    """The largest distance, in input samples, between an output position
+    and an input sample it reads: the sinc conv's half-width (511 at 1023
+    taps), then each SAME conv's (5, 4, 3): 523 at the driver's stack.
+    BatchNorm is pointwise; under sequence parallelism its training
+    statistics are the sp group's joined sums (``models/batchnorm.py``)."""
+    first = model.conv[0].kernel_size // 2
+    return first + sum(max(same(c.kernel_size[0])) for c in model.conv[1:])
+
+
 def rewrite_flax_key(key: str) -> str:
     """flax ``sinc_conv`` -> ``conv.0``, ``conv{i}`` -> ``conv.{i}``,
     ``bn{i}`` -> ``bn.{i}``."""

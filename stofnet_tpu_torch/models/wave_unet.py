@@ -70,8 +70,14 @@ class WaveUnet(nn.Module):
             self.out = nn.Sequential(nn.Conv1d(ci + 1, 1, 1))
         materialize(self, device, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """``shard`` (``parallel/seq.Shard``): ``x`` is the window
+        ``shard.window`` of a row of ``shard.length`` samples, its start on
+        the grid of ``2 ** n_layers`` (so ``h[:, ::2]`` keeps the global
+        even positions), and each x2 resample runs on the global grid."""
         dt = self.dtype
+        start, length = ((0, x.shape[-1]) if shard is None
+                         else (shard.window[0], shard.length))
         h = x.transpose(1, 2)  # (B, L, 1)
         if dt is not None:
             h = h.to(dt)
@@ -83,12 +89,36 @@ class WaveUnet(nn.Module):
             h = h[:, ::2, :]  # stride 2 by slicing
         h = _run(self.middle, h, dt)
         for i, dec in enumerate(self.decoder):
-            h = linear_resample(h, h.shape[1] * 2, axis=1)
+            lv = self.n_layers - 1 - i  # the level it upsamples onto
+            grid = None if shard is None else (
+                length >> (lv + 1), length >> lv, start >> (lv + 1),
+                start >> lv)
+            h = linear_resample(h, h.shape[1] * 2, axis=1, window=grid)
             h = torch.cat([h, skips[self.n_layers - i - 1]], dim=-1)
             h = _run(dec.main, h, dt)
         h = torch.cat([h, inp], dim=-1)
         h = torch.tanh(conv_layer(self.out[0], h, dtype=dt))
         return h.transpose(1, 2).to(torch.float32)
+
+
+def reach(model: WaveUnet) -> int:
+    """The largest distance, in input samples, between an output position
+    and an input sample it reads, and the window's alignment: level i
+    (after i decimations) holds input positions ``2**i p``. Each encoder
+    conv reaches its half-width at its level's scale, the middle conv at
+    ``2**n``, each decoder its resample (one position at the level below)
+    and its conv's half-width at its own level; a shard's first position
+    rounds to its level's grid, at most ``2**n`` samples. 65 samples at
+    two layers; at PALA's ten it exceeds a 10240-sample row, whose window
+    is then the whole row."""
+    n = int(model.n_layers)
+    out = sum(max(same(e.main[0].kernel_size[0])) << i
+              for i, e in enumerate(model.encoder))
+    out += max(same(model.middle[0].kernel_size[0])) << n
+    for i, d in enumerate(model.decoder):
+        lv = n - 1 - i
+        out += (1 << (lv + 1)) + (max(same(d.main[0].kernel_size[0])) << lv)
+    return out + (1 << n)
 
 
 def rewrite_flax_key(key: str) -> str:

@@ -15,21 +15,31 @@ import torch
 
 
 def linear_resample(data: torch.Tensor, num_out: int,
-                    axis: int = -1) -> torch.Tensor:
+                    axis: int = -1, window=None) -> torch.Tensor:
     """Linear interpolation of ``axis`` onto ``num_out`` points spanning the
     same support (endpoints included: linspace / interp1d semantics). A
-    single point is repeated, as JAX's gather of index -1 wraps to it."""
+    single point is repeated, as JAX's gather of index -1 wraps to it.
+
+    ``window=(n, m, in_start, out_start)``: ``data`` holds the points
+    ``in_start..`` of a row of ``n`` and the result is the points
+    ``out_start..out_start + num_out`` of its resampling onto ``m``: the
+    whole row's positions and fractions, which are not shift-invariant
+    (align-corners), so a length shard resamples on the global grid.
+    A point whose neighbours lie outside ``data`` reads the nearest held
+    one (a window's edge, which its halo crops)."""
     axis = axis % data.ndim
-    n = data.shape[axis]
-    t = np.linspace(0.0, n - 1.0, num_out)
+    n_here = data.shape[axis]
+    n, m, in_start, out_start = (
+        (n_here, num_out, 0, 0) if window is None
+        else (int(v) for v in window))
+    t = np.linspace(0.0, n - 1.0, m)[out_start:out_start + num_out]
     i0 = np.clip(np.floor(t).astype(np.int64), 0, max(n - 2, 0))
     real = data.real.dtype if data.is_complex() else data.dtype
     shape = [num_out] + [1] * (data.ndim - axis - 1)
     frac = torch.from_numpy((t - i0).astype(np.float32)).to(
         data.device, real).reshape(shape)
-    idx = torch.from_numpy(i0).to(data.device)
-    lo = data.index_select(axis, idx)
-    hi = data.index_select(axis, torch.clamp(idx + 1, max=n - 1))
+    lo, hi = (data.index_select(axis, torch.from_numpy(np.clip(
+        i - in_start, 0, n_here - 1)).to(data.device)) for i in (i0, i0 + 1))
     return lo + (hi - lo) * frac
 
 

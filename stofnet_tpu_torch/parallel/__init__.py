@@ -13,7 +13,7 @@ from stofnet_tpu_torch.parallel.mesh import (
     make_mesh, replicate, shard_batch,
 )
 from stofnet_tpu_torch.parallel.seq import (
-    module_arch, reach, seq_forward, split_windows, widen, window,
+    SeqPlan, local_forward, model_arch, reach, split_windows, widen, window,
 )
 
 _ARRAY = (
@@ -26,8 +26,8 @@ _ARRAY = (
 __all__ = [
     "init_distributed", "make_mesh", "batch_sharding", "batch_seq_sharding",
     "replicate", "shard_batch", "Mesh", "launch",
-    "reach", "window", "widen", "seq_forward", "split_windows",
-    "module_arch", *_ARRAY,
+    "reach", "window", "widen", "split_windows", "model_arch", "SeqPlan",
+    "local_forward", *_ARRAY,
 ]
 
 

@@ -12,12 +12,15 @@ batch order).
 
 - **dp**: the batch axis. :func:`shard_batch` takes this rank's B / dp
   rows of each batch-major tensor.
-- **sp**: the sample axis, for StofNet. ``shard_batch(seq_axis=)`` takes
-  this rank's L / sp samples of each row; ``parallel/seq.py`` widens the
-  shard by StofNet's reach with a halo from the neighbours, runs the
-  single-device forward on the window and keeps the shard's positions.
-  Refused under sp > 1, naming ROADMAP A.6c (:data:`SP_LATER`): the zoo,
-  PALA and rat data, the int8 route, artifacts and encoded inputs.
+- **sp**: the sample axis, for every registry model.
+  ``shard_batch(seq_axis=)`` takes this rank's L / sp samples of each row;
+  ``parallel/seq.py`` runs the family's shard form: a window widened by
+  the family's reach with a halo from the neighbours, the single-device
+  forward on it and the shard's own positions kept (BatchNorm's
+  statistics over own positions), or a join over the sp group (Zonzini's
+  pool, Kuleshov's layer halos and dense head, GradPeak's rankings).
+  Refused under sp > 1, naming ROADMAP A.6c (:data:`SP_LATER`): the int8
+  route, artifacts and encoded inputs.
 
 Ranks are laid out as JAX lays devices out, ``reshape(dp, sp)``: rank r
 has dp coordinate ``r // sp`` and sp coordinate ``r % sp``. Under a live
@@ -56,20 +59,22 @@ from dataclasses import dataclass
 from datetime import timedelta
 from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from stofnet_tpu_torch import DeviceLike, resolve_device
 from stofnet_tpu_torch.utils.collectives import (  # noqa: F401 (re-exported)
-    AllReduceSum, all_reduce, all_reduce_sum, average_gradients, broadcast,
-    broadcast_object, gather_rows, global_mean,
+    AllReduceSum, accum_rows, all_reduce, all_reduce_sum, average_gradients,
+    broadcast, broadcast_object, gather_rows, global_mean,
 )
 from stofnet_tpu_torch.utils.config import Config
 
-SP_LATER = ("mesh_sp > 1 shards StofNet's sample axis on chirp data; the "
-            "zoo, PALA and rat data, the int8 route, artifacts and encoded "
-            "inputs under sp come with ROADMAP A.6c")
+SP_LATER = ("mesh_sp > 1 shards the sample axis of every registry model "
+            "on chirp, PALA and rat data; the int8 route, artifacts and "
+            "encoded inputs under sp come with the next slice of ROADMAP "
+            "A.6c")
 TIMEOUT = timedelta(seconds=300)
 
 # the device this process joined its group with (init_distributed,
@@ -222,6 +227,15 @@ class Mesh:
                     self.dp_group, self.dp_index, None, self.dp_group)
 
 
+    def over_sp(self) -> "Mesh":
+        """The mesh of this rank's dp row: sp ranks over ``sp_group``,
+        whose collectives join the shards of the row's batch."""
+        row = self.devices[self.dp_index * self.sp:
+                           (self.dp_index + 1) * self.sp]
+        return Mesh(1, self.sp, row, self.sp_group, self.sp_index,
+                    self.sp_group, None)
+
+
 def make_mesh(dp: Optional[int] = None, sp: int = 1,
               devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
     """Build a (dp, sp) mesh. ``dp`` defaults to n_devices // sp.
@@ -324,19 +338,30 @@ def replicate(mesh: Mesh, module: torch.nn.Module) -> torch.nn.Module:
     return module
 
 
-def shard_batch(mesh: Mesh, tree, seq_axis: Optional[int] = None):
+def shard_batch(mesh: Mesh, tree, seq_axis: Optional[int] = None,
+                accum: int = 1):
     """This rank's part of every batch-major leaf of ``tree`` (a tensor, a
     numpy array, or a dict, list or tuple of them): its rows, and with
     ``seq_axis`` also its samples along that axis of every leaf of two or
     more axes (:func:`batch_seq_sharding`), as JAX's; 0-d leaves
     replicate. Frames take ``seq_axis``; GT tensors, sharded over dp
-    only, go in a call without it, as JAX's driver puts them."""
+    only, go in a call without it, as JAX's driver puts them. A training
+    batch of ``accum`` micro-batches gives each rank the rows of
+    ``utils/collectives.accum_rows``: its slice of each micro-batch."""
     if isinstance(tree, dict):
-        return {k: shard_batch(mesh, v, seq_axis) for k, v in tree.items()}
+        return {k: shard_batch(mesh, v, seq_axis, accum)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(shard_batch(mesh, v, seq_axis) for v in tree)
+        return type(tree)(shard_batch(mesh, v, seq_axis, accum)
+                          for v in tree)
     if tree.ndim == 0:
         return tree
+    if accum > 1 and mesh.dp > 1:  # the rank's rows as its dp block
+        n = tree.shape[0]
+        order = np.concatenate([accum_rows(n, mesh.dp, r, accum)
+                                for r in range(mesh.dp)])
+        tree = tree[torch.from_numpy(order) if torch.is_tensor(tree)
+                    else order]
     if seq_axis is not None and tree.ndim >= 2:
         return batch_seq_sharding(mesh, tree.ndim, seq_axis).take(tree)
     return batch_sharding(mesh, tree.ndim).take(tree)

@@ -1,7 +1,7 @@
 """Data- and sequence-parallel steps against the single-process step::
 
     python -m stofnet_tpu_torch.scripts.dp_check [--device cpu] [--dp 2]
-        [--sp 1] [--length 640] [--batch 8]
+        [--sp 1] [--length 640] [--batch 8] [--model stofnet ...]
 
 :func:`run_cases` runs a list of cases, each a model, its weights and one
 global batch: the train step (``train/steps.make_train_step``, f32 or
@@ -9,7 +9,8 @@ amp, ``remat``, ``accum``), the eval step, or a job array's step. Under a
 live process group (a rank of ``parallel/mesh.launch``) each rank feeds
 its shard of the batch through the mesh of the case's ``mesh`` shape
 (dp, sp), by default every rank on dp: its rows, and at sp > 1 its
-samples of them (StofNet); alone, the whole batch. Comparing the two
+samples of them (by the family's sharding rule); alone, the whole
+batch. Comparing the two
 runs' results is the check: the loss, the parameters and gradients after
 the first step, BatchNorm's running statistics, Kuleshov's dropout masks
 and the eval step's outputs. A rank also reports whether its parameters
@@ -17,7 +18,10 @@ equal every other rank's bit for bit. The command line runs, on dp x sp
 ranks, the StofNet f32 and amp steps and (at sp = 1) SincNet's, and
 prints both runs' differences (``share_within``: the share of the
 parameters within 1e-5) and the ms of 2 steps timed after the
-compared one (rank 0's, host clock).
+compared one (rank 0's, host clock). ``--model`` names the registry
+families to run instead (StofNet's f32 and amp steps, another family's
+f32 step, GradPeak's eval step; :func:`zoo_case`, Kuleshov's input the
+whole row).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from stofnet_tpu_torch.parallel import (
     init_array_state, make_array_train_step, shard_members,
 )
 from stofnet_tpu_torch.parallel import mesh as dp_mesh
+from stofnet_tpu_torch.parallel import seq
 from stofnet_tpu_torch.train.steps import (
     LossConfig, make_eval_step, make_optimizer, make_train_step,
 )
@@ -62,9 +67,12 @@ def run_case(case: Dict[str, Any], device, mesh=None) -> Dict[str, Any]:
     ``accum``, ``seed``, ``steps`` (compared, 1), ``timed`` (steps timed
     after those, 0), ``eval`` (the eval step instead), ``mesh`` (the
     (dp, sp) shape of the ranks' mesh, read by :func:`run_cases`),
-    ``masks`` (record Kuleshov's dropout masks) and ``per_rank_stats``
-    (BatchNorm on each rank's own statistics, as plain DDP: a control
-    that must miss)."""
+    ``masks`` (record Kuleshov's dropout masks), and controls that must
+    miss: ``per_rank_stats`` (BatchNorm on each rank's own statistics, as
+    plain DDP), ``halo_stats`` (under sp, BatchNorm's statistics over the
+    whole window, halo included) and ``contiguous_rows`` (under
+    ``accum``, each rank its contiguous block of the batch, so its i-th
+    micro-batch is not JAX's)."""
     device = torch.device(device)
     model, _ = build_model(case["model"], device=device,
                            generator=torch.Generator().manual_seed(
@@ -84,8 +92,11 @@ def run_case(case: Dict[str, Any], device, mesh=None) -> Dict[str, Any]:
     if case.get("members"):
         return run_members(case, device, cfg, batch, mesh)
     if mesh is not None:  # frames over dp and sp, GT over dp
-        batch = [dp_mesh.shard_batch(mesh, batch[0], seq_axis=2),
-                 *dp_mesh.shard_batch(mesh, batch[1:])]
+        accum = 1 if case.get("eval") else int(case.get("accum", 1))
+        if case.get("contiguous_rows"):  # a control that must miss
+            accum = 1
+        batch = [dp_mesh.shard_batch(mesh, batch[0], 2, accum),
+                 *dp_mesh.shard_batch(mesh, batch[1:], accum=accum)]
     out: Dict[str, Any] = {"name": case.get("name", case["model"])}
     if case.get("eval"):
         res = make_eval_step(model, cfg, mesh)(*batch)
@@ -104,7 +115,10 @@ def run_case(case: Dict[str, Any], device, mesh=None) -> Dict[str, Any]:
             if isinstance(m, BatchNorm):
                 m.mesh = None
     masks: List[np.ndarray] = []
-    record = contextlib.nullcontext()
+    record = contextlib.ExitStack()
+    if case.get("halo_stats"):
+        record.enter_context(mock.patch.object(
+            seq.Shard, "own_slice", lambda self, n: (0, n)))
     if case.get("masks"):
         draw = kuleshov_module.keep_mask
 
@@ -114,7 +128,8 @@ def run_case(case: Dict[str, Any], device, mesh=None) -> Dict[str, Any]:
             return m
 
         model.keep_mask = keep
-        record = mock.patch.object(kuleshov_module, "keep_mask", keep)
+        record.enter_context(mock.patch.object(kuleshov_module, "keep_mask",
+                                               keep))
     losses = []
     with record:
         for i in range(int(case.get("steps", 1))):
@@ -234,6 +249,44 @@ def sincnet_case(length: int, batch: int, seed: int = 3,
                 loss=dict(upsample_factor=1, max_echoes=8), **kw)
 
 
+# each family's build arguments and loss keywords for zoo_case: heatmap
+# families at their registry upsample factor, Zonzini and GradPeak on the
+# regression loss, Kuleshov's input the whole row (sample_num * 4)
+ZOO_ARCH = {
+    "stofnet": ({}, dict(upsample_factor=4)),
+    "espcn": ({}, dict(upsample_factor=4)),
+    "edsr": ({}, dict(upsample_factor=4)),
+    "sincnet": (dict(fs=1e6, rf_scale_factor=1), dict(upsample_factor=1)),
+    "unet": (dict(n_layers=2), dict(upsample_factor=1)),
+    "zonzini": ({}, dict(upsample_factor=4, model_kind="regression")),
+    "kuleshov": (dict(rf_scale_factor=4), dict(upsample_factor=4)),
+    "gradpeak": (dict(rf_scale_factor=4),
+                 dict(upsample_factor=4, model_kind="regression")),
+}
+
+
+def zoo_case(model: str, length: int, batch: int, seed: int = 0,
+             **kw) -> Dict[str, Any]:
+    """A case of registry family ``name`` at ``length`` on seeded noise
+    with one echo a row (the weights drawn from ``seed``); GradPeak's is
+    an eval case (it has no parameters)."""
+    rng = np.random.default_rng(seed)
+    arch, loss = ZOO_ARCH[model]
+    arch = dict(arch)
+    if model == "kuleshov":
+        arch["sample_num"] = length // arch["rf_scale_factor"]
+    case = dict(model=model, arch=arch, seed=seed,
+                frame=rng.standard_normal((batch, 1, length)).astype(
+                    np.float32),
+                gt_sample=rng.uniform(5, length - 5, (batch, 1)).astype(
+                    np.float32),
+                loss=dict(max_echoes=8, **loss), name=model)
+    if model == "gradpeak":
+        case["eval"] = True
+    case.update(kw)
+    return case
+
+
 def largest(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> float:
     return max((float(np.max(np.abs(a[k] - b[k]))) for k in a), default=0.0)
 
@@ -245,13 +298,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--length", type=int, default=640)
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--model", nargs="+", default=None,
+                   help="registry families (default: StofNet, and SincNet "
+                        "at sp=1)")
     a = p.parse_args(argv)
     device = resolve_device(a.device)
     shape = dict(mesh=(a.dp, a.sp), timed=2)
-    cases = [stofnet_case(a.length, a.batch, **shape),
-             stofnet_case(a.length, a.batch, amp=True, name="stofnet amp",
-                          **shape)]
-    if a.sp == 1:
+    cases = []
+    for name in a.model or ["stofnet"]:
+        if name == "stofnet":
+            cases += [stofnet_case(a.length, a.batch, **shape),
+                      stofnet_case(a.length, a.batch, amp=True,
+                                   name="stofnet amp", **shape)]
+        else:
+            cases.append(zoo_case(name, a.length, a.batch, **shape))
+    if a.sp == 1 and a.model is None:
         cases.append(sincnet_case(a.length, a.batch, **shape))
     alone = run_cases(cases, device)
     n = a.dp * a.sp
@@ -259,6 +320,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                if device.type == "cuda" else [device] * n)
     ranks = dp_mesh.launch(run_cases, (cases, device), devices=devices)
     for one, dp in zip(alone, ranks):
+        if "params" not in one:  # an eval case (GradPeak)
+            print(json.dumps(dict(
+                model=one["name"], dp=a.dp, sp=a.sp,
+                rows_equal=bool(np.array_equal(one["es_sample"],
+                                               dp["es_sample"])),
+                loss=float(one["loss"]), dp_loss=float(dp["loss"]))))
+            continue
         print(json.dumps(dict(
             model=one["name"], dp=a.dp, sp=a.sp, loss=one["loss"],
             dp_loss=dp["loss"],

@@ -32,6 +32,7 @@ pipeline sums in full f32, whatever the caller's flags.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 from pathlib import Path
 from typing import (
@@ -45,6 +46,7 @@ import torch
 from stofnet_tpu_torch import DeviceLike, resolve_device
 from stofnet_tpu_torch.data.synthetic import gate_batch
 from stofnet_tpu_torch.models.fused import FUSED_SCALES, fused_forward
+from stofnet_tpu_torch.models import batchnorm
 from stofnet_tpu_torch.models.int8 import (
     QCONFIG, quantize_stofnet, stofnet_apply_int8,
 )
@@ -53,6 +55,7 @@ from stofnet_tpu_torch.models.stofnet import StofNet
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.kernels.sgb import POOL
 from stofnet_tpu_torch.ops.peaks import mask2coords
+from stofnet_tpu_torch.parallel import seq
 from stofnet_tpu_torch.serving.codecs import (
     chunk_len, encode_s8c, encode_s16, parse_s8c,
 )
@@ -303,7 +306,21 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
     gradpeak with ``max_echoes`` slots and its threshold the detector's.
     An f32 model, and gradpeak, which computes in f32 whatever the dtype,
     run under ``full_f32``. ``pipe.route`` and ``pipe.calls`` as the
-    StofNet pipeline's, with the one route ``module``."""
+    StofNet pipeline's, with the one route ``module``.
+
+    A length-sharded daemon (``cli/serve.py`` under ``mesh_sp``) reads
+    ``pipe.arch``, the family's rule (``parallel/seq.model_arch``), and
+    ``pipe.decode(pred)``, the decode (or the regression's reshape) of
+    the joined rows. A windowed family's replicas run ``pipe.heatmap(x,
+    **kw)``, the forward alone on a shard's window (``kw``: the unet's
+    ``shard``), as StofNet's do. Zonzini and Kuleshov join inside their
+    forward (``parallel/seq.JOINED``): each replica of a dp row runs
+    ``pipe.shard(x, shard)``, the forward as a ``parallel/seq.Shard``
+    (its window, or Kuleshov's own samples; the joins through the shard's
+    exchange), one thread each. ``functional_call`` swaps a module's
+    tensors, so that form runs on a copy of the skeleton of its own,
+    made at its first call (not inside a trace), and replicas run it on
+    threads of their own."""
     device = resolve_device(device)
     name = model_name.lower()
     model, up, want = _zoo_skeleton(name, dtype, threshold, max_echoes,
@@ -319,19 +336,43 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
 
     calls = {"module": 0}  # not pipe's own attribute: no reference cycle
 
-    @torch.inference_mode()
-    def pipe(x) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device).to(torch.float32)
-        calls["module"] += 1
-        with precision():
-            pred = torch.func.functional_call(model, params, (x,))
+    def finish(pred) -> torch.Tensor:
         if name in REGRESSION:
             return pred.reshape(pred.shape[0], -1).to(torch.float32)
         return mask2coords(pred, window_size=window_size,
                            threshold=threshold, upsample_factor=up,
                            max_echoes=max_echoes)
 
+    def forward(x, **kw) -> torch.Tensor:
+        x = torch.as_tensor(x).to(device).to(torch.float32)
+        calls["module"] += 1
+        with precision():
+            return torch.func.functional_call(model, params, (x,), kw)
+
+    @torch.inference_mode()
+    def pipe(x) -> torch.Tensor:
+        return finish(forward(x))
+
     pipe.route, pipe.calls = (lambda length: "module"), calls
+    pipe.arch, pipe.decode = seq.model_arch(model), torch.inference_mode()(
+        finish)
+    if pipe.arch["family"] not in seq.JOINED:
+        pipe.heatmap = torch.inference_mode()(forward)
+        return pipe
+    arch, own = pipe.arch, []  # own: the shard form's skeleton
+
+    @torch.inference_mode()
+    def shard(x, where: seq.Shard) -> torch.Tensor:
+        if not own:
+            own.append(copy.deepcopy(model))
+        x = torch.as_tensor(x).to(device).to(torch.float32)
+        calls["module"] += 1
+        with precision(), batchnorm.positions(where):
+            pred = torch.func.functional_call(
+                own[0], params, (x,), seq.forward_kwargs(arch, where))
+        return seq.own_output(arch, pred, where)
+
+    pipe.shard = shard
     return pipe
 
 

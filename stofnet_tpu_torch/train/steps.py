@@ -31,15 +31,13 @@ from stofnet_tpu_torch.models.fused import stofnet_apply_fused
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.gaussian import gaussian_kernel
 from stofnet_tpu_torch.ops.peaks import mask2coords
-from stofnet_tpu_torch.parallel.seq import (
-    crop, module_arch, seq_forward, widen,
-)
+from stofnet_tpu_torch.parallel.seq import SeqPlan
 from stofnet_tpu_torch.train.loss import (
     blurred_mask, heatmap_loss, regression_loss,
 )
 from stofnet_tpu_torch.train.metrics import toa_rmse
 from stofnet_tpu_torch.utils.collectives import (
-    all_reduce, average_gradients, gather_rows, gather_seq, global_mean,
+    all_reduce, average_gradients, gather_rows, global_mean,
 )
 
 
@@ -137,15 +135,12 @@ def _loss(cfg: LossConfig, kernel: torch.Tensor):
         pred, gt_true, norm_max, span)
 
 
-def _seq_arch(model: nn.Module, cfg: LossConfig, mesh) -> Optional[dict]:
-    """StofNet's architecture where ``mesh`` shards the sample axis (sp >
-    1), else None; refuses what sp does not shard (ROADMAP A.6c)."""
+def _seq_plan(model: nn.Module, mesh) -> Optional[SeqPlan]:
+    """The model's length-shard plan where ``mesh`` shards the sample axis
+    (sp > 1), else None."""
     if mesh is None or mesh.sp == 1:
         return None
-    if cfg.model_kind != "heatmap":
-        raise ValueError("sequence parallelism shards heatmap models only "
-                         "(ROADMAP A.6c)")
-    return module_arch(model)
+    return SeqPlan(model, mesh)
 
 
 def model_device(model: nn.Module) -> torch.device:
@@ -205,16 +200,25 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     global mean); Kuleshov's masks are drawn for the global batch from the
     step's generator and each rank keeps its rows, the single process's
     masks. The returned loss is the global batch's, on every rank. Under
-    ``accum`` a micro-batch is the ranks' i-th micro-batches together.
+    ``accum`` each rank's batch must hold its slice of each of JAX's
+    micro-batches in order (the rows ``utils/collectives.accum_rows``
+    chooses, which ``DataLoader(accum=)`` and
+    ``parallel/mesh.shard_batch(accum=)`` take): chunk i of every rank is
+    then JAX's micro-batch i, global rows ``[i B / N, (i + 1) B / N)``,
+    for BatchNorm's statistics and the masks.
 
-    A mesh with sp > 1 (StofNet only) shards the sample axis too: the
-    step takes this rank's L / sp samples of its rows, widens them with
-    the neighbours' halo (``parallel/seq.widen``, once a step, without
-    gradient), runs the model on the window and keeps its own positions;
-    the loss is over those positions, against the GT mask built there from
-    the global coordinates (``heatmap_loss(span=)``), the normaliser the
-    maximum over every rank, and the gradients the mean over all dp x sp
-    ranks: each rank's is its equal share of the global mean.
+    A mesh with sp > 1 shards the sample axis too, by the family's rule
+    (``parallel/seq.SeqPlan``): the step takes this rank's L / sp samples
+    of its rows, widens them with the neighbours' halo (once a step,
+    without gradient; Kuleshov instead fetches each layer's halo inside
+    autograd), runs the model as that shard (BatchNorm's statistics on
+    its own positions, summed over every rank) and keeps its own
+    positions. A heatmap loss is over those positions, against the GT
+    mask built there from the global coordinates (``heatmap_loss(span=)``),
+    the normaliser the maximum over every rank; Zonzini's prediction is
+    the row's, joined over the sp group, so its loss counts each row once
+    on every rank of the group. The gradients are the mean over all dp x
+    sp ranks: each rank's is its equal share of the global mean.
     """
     device = model_device(model)
     kernel = gaussian_kernel(cfg.kernel_size, cfg.sigma, device=device)
@@ -224,7 +228,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
              if n.endswith(("running_mean", "running_var"))]
     count = [0]  # updates made, where there is no scheduler
     params = [p for p in model.parameters() if p.requires_grad]
-    arch = _seq_arch(model, cfg, mesh)
+    plan = _seq_plan(model, mesh)
     for m in model.modules():  # None clears an earlier step's mesh
         if isinstance(m, BatchNorm):
             m.mesh = mesh
@@ -242,17 +246,23 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             return full[mesh.dp_index * b:(mesh.dp_index + 1) * b]
         return draw
 
-    def forward(frame, generator):
+    def forward(frame, generator, shard=None):
         kw = {"generator": masks_of(generator)} if dropout else {}
-        if not amp:
-            return model(frame, **kw)
-        p16 = {k: v.to(torch.bfloat16) for k, v in model.named_parameters()}
-        pred = torch.func.functional_call(model, p16,
-                                          (frame.to(torch.bfloat16),), kw)
-        return pred.to(torch.float32)
+
+        def run(x, **more):
+            if not amp:
+                return model(x, **kw, **more)
+            p16 = {k: v.to(torch.bfloat16)
+                   for k, v in model.named_parameters()}
+            pred = torch.func.functional_call(
+                model, p16, (x.to(torch.bfloat16),), {**kw, **more})
+            return pred.to(torch.float32)
+        if shard is None:
+            return run(frame)
+        return plan.forward(run, frame, shard)  # a length shard's own
 
     def loss_of(frame, gt_sample, gt_true, generator, norm_max=None,
-                within=None, span=None):
+                shard=None, span=None):
         if remat:
             # the recomputed forward draws the first one's dropout masks
             state = None if generator is None else generator.get_state()
@@ -260,12 +270,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             def again(f):
                 if generator is not None:
                     generator.set_state(state)
-                return forward(f, generator)
+                return forward(f, generator, shard)
             pred = checkpoint(again, frame, use_reentrant=False)
         else:
-            pred = forward(frame, generator)
-        if within is not None:  # a length shard's own positions
-            pred = crop(pred, within, cfg.upsample_factor)
+            pred = forward(frame, generator, shard)
         return loss_fn(pred, gt_sample, gt_true, norm_max, span)
 
     def backward(loss):
@@ -292,28 +300,29 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         if accum > 1 and frame.shape[0] % accum:
             raise ValueError(f"batch {frame.shape[0]} not divisible by "
                              f"accum={accum}")
-        norm_max = within = span = None
+        norm_max = shard = span = None
         up = cfg.upsample_factor
         length = frame.shape[-1] * up
-        if arch is not None:
+        if plan is not None:
             n = frame.shape[-1]
-            frame, within = widen(mesh, frame, arch)
+            frame, shard = plan.shard(frame)
             length = n * mesh.sp * up
-            span = (mesh.sp_index * n * up, length)
+            if plan.heatmap:
+                span = (mesh.sp_index * n * up, length)
         if cfg.model_kind != "regression" and (accum > 1
                                                or mesh is not None):
             norm_max = global_norm_max(cfg, kernel, gt_true, length, mesh,
                                        None if span is None else span[0])
         if accum <= 1:
             loss = loss_of(frame, gt_sample, gt_true, generator(0), norm_max,
-                           within, span)
+                           shard, span)
             backward(loss)
         else:
             loss = torch.zeros((), device=device)
             parts = zip(frame.chunk(accum), gt_sample.chunk(accum),
                         gt_true.chunk(accum))
             for i, (f, gs, gtr) in enumerate(parts):
-                part = loss_of(f, gs, gtr, generator(i), norm_max, within,
+                part = loss_of(f, gs, gtr, generator(i), norm_max, shard,
                                span)
                 backward(part / accum)
                 loss = loss + part.detach()
@@ -405,23 +414,25 @@ def make_eval_step(model: nn.Module, cfg: LossConfig, mesh=None):
       and metrics of a computed prediction.
 
     Under ``mesh`` the forward is this rank's shard and the outputs are
-    the global batch's (:func:`make_eval_finish`). With sp > 1 (StofNet)
-    the forward takes this rank's L / sp samples of its rows, runs on the
-    window that ``parallel/seq.widen`` exchanges, and the sp group joins
-    its shards' heatmaps in sp order: ``forward`` returns whole rows,
-    which the decode reads (its NMS and ranking span the row), and the
-    rest runs over the dp column as at sp = 1.
+    the global batch's (:func:`make_eval_finish`). With sp > 1 the
+    forward takes this rank's L / sp samples of its rows and runs as that
+    shard by its family's rule (``parallel/seq.SeqPlan``); a heatmap's
+    shards are gathered over the sp group in sp order, Zonzini's and
+    GradPeak's predictions are joined already: ``forward`` returns whole
+    rows, which the decode reads (its NMS and ranking span the row), and
+    the rest runs over the dp column as at sp = 1.
     """
-    arch = _seq_arch(model, cfg, mesh)
+    plan = _seq_plan(model, mesh)
 
     @torch.no_grad()
     def forward(frame) -> Tuple[torch.Tensor, torch.Tensor]:
         model.eval()
         with full_f32():
-            pred = (model(frame) if arch is None
-                    else seq_forward(model, frame, mesh, arch))
-        if arch is not None:
-            pred = gather_seq(mesh, pred)
+            if plan is None:
+                pred = model(frame)
+            else:
+                x, shard = plan.shard(frame)
+                pred = plan.join(plan.forward(model, x, shard))
         return pred, pred.float().sum()
 
     finish = make_eval_finish(cfg, model_device(model),

@@ -14,10 +14,37 @@ on the rank's card.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
+
+
+def block(length: int, sp: int, index: int) -> Tuple[int, int]:
+    """The positions [lo, hi) of block ``index`` of ``sp`` contiguous
+    blocks of a ``length``-position axis (a length shard's, at L % sp ==
+    0 its L / sp samples)."""
+    return length * index // sp, length * (index + 1) // sp
+
+
+def accum_rows(batch: int, dp: int, rank: int, accum: int = 1
+               ) -> np.ndarray:
+    """The rows of a global batch of ``batch`` that dp rank ``rank`` holds,
+    in order. At ``accum`` 1 its contiguous block, ``batch / dp`` rows.
+    Under ``accum`` N the step splits each rank's rows into N equal
+    chunks, and chunk i must be the rank's part of JAX's micro-batch i,
+    global rows ``[i B / N, (i + 1) B / N)`` (``jnp.reshape`` of the global
+    batch): so the rank holds block ``rank`` of ``dp`` of each
+    micro-batch, the micro-batches in order. BatchNorm's statistics and
+    the dropout masks of a micro-batch are then those of JAX's."""
+    if batch % (dp * accum):
+        what = "mesh_dp" if accum == 1 else f"mesh_dp * accum = {dp}*{accum}"
+        raise ValueError(f"batch_size={batch} not divisible by {what}")
+    micro, b = batch // accum, batch // (accum * dp)
+    return np.concatenate([np.arange(i * micro + rank * b,
+                                     i * micro + (rank + 1) * b)
+                           for i in range(accum)])
 
 
 def _on_wire(mesh, t: torch.Tensor, op: Callable) -> torch.Tensor:

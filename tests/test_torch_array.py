@@ -49,6 +49,9 @@ from stofnet_tpu_torch.train import (
     LossConfig, heatmap_loss, make_eval_step, make_optimizer,
     make_train_step, toa_rmse,
 )
+from tests.test_torch_threads import share_cores
+
+share_cores()  # this xdist worker's share of the cores
 
 LENGTH = 800
 ARCH = dict(num_features=16, num_blocks=3)

@@ -34,6 +34,9 @@ from stofnet_tpu_torch.train import (
     load_checkpoint, make_optimizer, make_train_step,
 )
 from stofnet_tpu_torch.utils.config import load_config
+from tests.test_torch_threads import share_cores
+
+share_cores()  # this xdist worker's share of the cores
 
 COMMON = dict(model="stofnet", rf_scale_factor=4, max_echoes=8,
               plot_interval=0)

@@ -198,14 +198,15 @@ def test_non_finite_loss_raises(dirs, chirp_root):
 
 
 @pytest.mark.parametrize("over,error,match", [
-    (dict(mesh=True, mesh_sp=2, model="edsr"), SystemExit, "A.6c"),
+    (dict(mesh=True, mesh_sp=2, evaluate=True, int8=True), SystemExit,
+     "A.6c"),
     (dict(mesh=True, mesh_dp=3), ValueError,
      "batch_size=4 not divisible by mesh_dp=3"),
 ])
 def test_later_slices_are_refused(dirs, chirp_root, over, error, match):
-    """The zoo under sp waits for ROADMAP A.6c; a batch that dp does not
-    divide is refused as JAX's ``_shard_inputs`` refuses it, before any
-    rank starts."""
+    """int8 under sp waits for the next slice of ROADMAP A.6c; a batch
+    that dp does not divide is refused as JAX's ``_shard_inputs`` refuses
+    it, before any rank starts."""
     cfg = _cfg("port", dirs, chirp_root, **over)
     with pytest.raises(error, match=match):
         pmain.run(cfg)

@@ -45,6 +45,9 @@ from stofnet_tpu_torch.serve import export_pipeline, save_pipeline
 from stofnet_tpu_torch.serving import ServingClient
 from stofnet_tpu_torch.train.checkpoint import save_checkpoint
 from stofnet_tpu_torch.utils.config import load_config
+from tests.test_torch_threads import share_cores
+
+share_cores()  # this xdist worker's share of the cores
 
 RF = 4
 COMMON = dict(batch_size=4, rf_scale_factor=RF, max_echoes=8,

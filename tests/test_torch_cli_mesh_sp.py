@@ -29,6 +29,7 @@ from stofnet_tpu_torch.data.pala import generate_pala_dataset
 from stofnet_tpu_torch.data.synthetic import (
     gate_batch, generate_chirp_dataset,
 )
+from stofnet_tpu_torch.models.registry import build_model
 from stofnet_tpu_torch.models.stofnet import StofNet
 from stofnet_tpu_torch.models.torch_import import (
     params_to_state_dict, save_torch_state_dict,
@@ -41,6 +42,9 @@ from stofnet_tpu_torch.serve import (
 from stofnet_tpu_torch.serving import ServingClient
 from stofnet_tpu_torch.train.checkpoint import save_checkpoint
 from stofnet_tpu_torch.utils.config import load_config
+from tests.test_torch_threads import share_cores
+
+share_cores()  # this xdist worker's share of the cores
 
 RF = 4
 COMMON = dict(batch_size=4, rf_scale_factor=RF, max_echoes=8,
@@ -113,14 +117,13 @@ def test_evaluate_on_the_sp_mesh_matches_one_device(chirp, over):
 
 
 @pytest.mark.parametrize("over,error,match", [
-    *[(dict(model=name), SystemExit, "A.6c") for name in ZOO],
-    (dict(evaluate=True, int8=True), SystemExit, "int8=True"),
+    (dict(evaluate=True, int8=True), SystemExit, "int8=True.*A.6c"),
     (dict(mesh_sp=3, epochs=1), Exception,
      "sample length 1600 not divisible by mesh_sp=3"),
-], ids=[*ZOO, "int8", "length"])
+], ids=["int8", "length"])
 def test_driver_sp_refusals(chirp, over, error, match):
-    """Every family but StofNet, and int8, refused before any rank
-    starts; a length that sp does not divide refused by the ranks as
+    """int8 refused before any rank starts, naming the next slice of
+    ROADMAP A.6c; a length that sp does not divide refused by the ranks as
     JAX's ``_shard_inputs`` refuses it."""
     root, base = chirp
     with pytest.raises(error, match=match):
@@ -128,13 +131,111 @@ def test_driver_sp_refusals(chirp, over, error, match):
     assert not live()
 
 
-def test_driver_refuses_pala_data_under_sp(tmp_path):
-    root = generate_pala_dataset(tmp_path / "pala_synth", n_sequences=1,
-                                 n_frames=2, n_channels=8, n_samples=100)
-    cfg = _cfg(tmp_path, root, evaluate=True, sequences=[0], ch_gap=4,
-               **SP)
-    with pytest.raises(SystemExit, match="pala data.*A.6c"):
-        pmain.run(cfg)
+def _metrics_match(mesh, one):
+    """``tests/test_cli_e2e.py:241``'s gates of a sharded evaluation
+    against one device: the mean distance and the Jaccard index rel 1e-4,
+    the loss rel 1e-3."""
+    assert mesh["total_distance_mean"] == pytest.approx(
+        one["total_distance_mean"], rel=1e-4, abs=1e-5, nan_ok=True)
+    assert mesh["total_jaccard"] == pytest.approx(one["total_jaccard"],
+                                                  rel=1e-4, nan_ok=True)
+    assert mesh["val_loss"] == pytest.approx(one["val_loss"], rel=1e-3)
+
+
+ESPCN = dict(model="espcn", th=None)
+DP_SP = dict(SP, mesh_dp=2)
+
+
+def test_espcn_evaluates_on_the_dp_sp_mesh_as_one_device(chirp):
+    """``tests/test_cli_e2e.py:241``: ESPCN (a fresh seeded draw) on chirp
+    data at dp=2 x sp=2 against one device."""
+    root, base = chirp
+    ev = dict(ESPCN, evaluate=True)
+    _metrics_match(pmain.run(_cfg(base, root, **ev, **DP_SP)),
+                   pmain.run(_cfg(base, root, **ev)))
+
+
+def test_espcn_trains_on_the_dp_sp_mesh_as_one_device(chirp):
+    """``tests/test_cli_e2e.py:258``: ESPCN trains end to end at dp=2 x
+    sp=2; its first loss is the run's without a mesh (rtol 1e-5) and its
+    checkpoint is written."""
+    root, base = chirp
+    over = dict(ESPCN, epochs=1)
+    cfg = _cfg(base, root, **over, **DP_SP)
+    mesh = pmain.run(cfg)
+    one_cfg = _cfg(base, root, **over)
+    one = pmain.run(one_cfg)
+    assert np.isfinite(mesh["val_loss"]) and Path(
+        mesh["checkpoint"]).is_file()
+    np.testing.assert_allclose(_train_losses(cfg, mesh["run_name"])[0],
+                               _train_losses(one_cfg, one["run_name"])[0],
+                               rtol=1e-5)
+    assert mesh["val_loss"] == pytest.approx(one["val_loss"], rel=1e-3)
+
+
+@pytest.mark.parametrize("kind,over", [
+    ("pala", dict(DP_SP, sequences=[0, 1], ch_gap=16, etol=400)),
+    ("rat", dict(SP, sequences=[0, 1], ch_gap=16, etol=400)),
+], ids=["pala_dp2_sp2", "rat_sp2"])
+def test_pala_evaluates_on_the_sp_mesh_as_one_device(tmp_path, kind, over):
+    """``tests/test_cli_e2e.py:330``: ESPCN on the channel-flattened PALA
+    batch (per-channel multi-target GT, ``ch_gap``) at dp=2 x sp=2, and on
+    rat data at sp=2, against one device."""
+    root = generate_pala_dataset(tmp_path / f"{kind}_synth", n_sequences=2,
+                                 n_frames=3, n_channels=32, n_samples=100)
+    common = dict(ESPCN, evaluate=True, rf_scale_factor=2, batch_size=2,
+                  **{k: v for k, v in over.items() if k not in DP_SP})
+    mesh_over = {k: v for k, v in over.items() if k in DP_SP}
+    _metrics_match(pmain.run(_cfg(tmp_path / "m", root, **common,
+                                  **mesh_over)),
+                   pmain.run(_cfg(tmp_path / "s", root, **common)))
+
+
+def test_pala_trains_on_the_sp_mesh_as_one_device(tmp_path):
+    """ESPCN trains one epoch on the channel-flattened PALA batch at
+    dp=2 x sp=2: its first loss is the run's without a mesh (rtol 1e-5),
+    its validation loss rel 1e-3."""
+    root = generate_pala_dataset(tmp_path / "pala_synth", n_sequences=2,
+                                 n_frames=6, n_channels=32, n_samples=100)
+    over = dict(ESPCN, epochs=1, rf_scale_factor=2, batch_size=2,
+                sequences=[0, 1], ch_gap=16)
+    cfg = _cfg(tmp_path / "m", root, **over, **DP_SP)
+    mesh = pmain.run(cfg)
+    one_cfg = _cfg(tmp_path / "s", root, **over)
+    one = pmain.run(one_cfg)
+    np.testing.assert_allclose(_train_losses(cfg, mesh["run_name"])[0],
+                               _train_losses(one_cfg, one["run_name"])[0],
+                               rtol=1e-5)
+    assert mesh["val_loss"] == pytest.approx(one["val_loss"], rel=1e-3)
+
+
+@pytest.mark.parametrize("name", ["edsr", "zonzini", "unet", "sincnet",
+                                  "kuleshov", "gradpeak"])
+def test_zoo_runs_on_the_sp_mesh_as_one_device(chirp, name):
+    """Every other family through the driver at sp=2 against one device:
+    one epoch of training (the first loss rtol 1e-5, the validation loss
+    rel 1e-3; at L=1600 Zonzini's second shard holds none of the last
+    stage's 3 positions), GradPeak's evaluation by the metrics' gates.
+    Kuleshov's validation loss rel 1e-2: its up convs' biases feed a
+    BatchNorm, so their gradients are rounding noise, which AdamW's steps
+    turn into updates of up to lr either way (the sharded step holds its
+    gradients, ``tests/test_torch_parallel_zoo.py``)."""
+    root, base = chirp
+    over = dict(model=name, th=None)
+    if name == "gradpeak":
+        _metrics_match(pmain.run(_cfg(base, root, **over, **SP)),
+                       pmain.run(_cfg(base, root, **over)))
+        return
+    over["epochs"] = 1
+    cfg = _cfg(base, root, **over, **SP)
+    mesh = pmain.run(cfg)
+    one_cfg = _cfg(base, root, **over)
+    one = pmain.run(one_cfg)
+    np.testing.assert_allclose(_train_losses(cfg, mesh["run_name"])[0],
+                               _train_losses(one_cfg, one["run_name"])[0],
+                               rtol=1e-5)
+    assert mesh["val_loss"] == pytest.approx(
+        one["val_loss"], rel=1e-2 if name == "kuleshov" else 1e-3)
 
 
 # ---- the daemon ----------------------------------------------------------
@@ -196,18 +297,77 @@ def test_sp_daemon_rows_equal_the_direct_pipeline(served, dtype, length,
     (dict(mesh_sp=3), "sample length 800 not divisible by mesh_sp=3"),
     (dict(input_enc="s16"), "input_enc=s16.*A.6c"),
     (dict(int8_calib="calib.npy"), "int8 route.*A.6c"),
-    (dict(model="espcn"), "model=espcn.*A.6c"),
     (dict(artifact=True), "artifact=.*A.6c"),
-], ids=["length", "input_enc", "int8", "zoo", "artifact"])
+], ids=["length", "input_enc", "int8", "artifact"])
 def test_sp_daemon_refusals(served, over, match):
     """JAX's refusal of a length sp does not divide, and what sp does not
-    shard yet, each naming ROADMAP A.6c."""
+    shard yet, each naming the next slice of ROADMAP A.6c."""
     d, _, art, _ = served
     args = _args(d, **over)
     if over.get("artifact"):
         args = {"artifact": str(art), "port": 0, **SP}
     with pytest.raises(SystemExit, match=match):
         build(args)
+
+
+@pytest.fixture(scope="module")
+def zoo_served(tmp_path_factory):
+    """A checkpoint of a seeded draw of each zoo family at L=1024 (fs 1
+    MHz, Kuleshov's input the row: sample_num 256 at rf 4)."""
+    d = tmp_path_factory.mktemp("mesh_sp_zoo")
+    for name in ZOO[:-1]:
+        model, _ = build_model(name, generator=torch.Generator()
+                               .manual_seed(1), device="cpu", **ZOO_ARGS)
+        save_checkpoint(d / f"{name}-seed1.pt", model.state_dict())
+    return d
+
+
+ZOO_ARGS = dict(dataset_kind="chirp", upsample_factor=4, rf_scale_factor=4,
+                sample_num=256, fs=1e6)
+
+
+@pytest.mark.parametrize("name,dtype", [
+    *[(n, "float32") for n in ZOO], ("unet", "bfloat16"),
+    ("kuleshov", "bfloat16")])
+def test_sp_daemon_zoo_rows_equal_the_direct_pipeline(zoo_served, name,
+                                                       dtype):
+    """``model=<family> mesh_sp=2`` (and Zonzini and the unet at dp=2 x
+    sp=2): the replicas of a dp row run the family's forward on their
+    windows (Zonzini and Kuleshov their shard form, a thread each, every
+    dp row at once) and the first joins and decodes; every row of a batch
+    as ``make_pipeline``'s direct rows (equal; Zonzini's regression within
+    rtol 1e-5: at dp=2 its dense head runs on half the batch)."""
+    length = 1024
+    args = {"model": name, "ckpt_dir": str(zoo_served), "length": length,
+            "device": "cpu", "max_echoes": 8, "max_batch": 4, "port": 0,
+            "warmup": False, "dtype": dtype, "th": "Null", **ZOO_ARGS, **SP}
+    if name != "gradpeak":
+        args["model_file"] = f"{name}-seed1"
+    if name in ("zonzini", "unet") and dtype == "float32":
+        args["mesh_dp"] = 2
+    state = ({} if name == "gradpeak" else
+             torch.load(zoo_served / f"{name}-seed1.pt")["model"])
+    overrides = {k: v for k, v in ZOO_ARGS.items()
+                 if k != "sample_num" or name == "kuleshov"}
+    if name == "unet":
+        overrides["n_layers"] = 2
+    pipe = make_pipeline(state, overrides, model_name=name,
+                         dtype=getattr(torch, dtype), device="cpu",
+                         max_echoes=8)
+    rows = gate_batch(4, length, np.random.default_rng(3))
+    want = pipe(rows).numpy()
+    hostd, server, port = build(args)
+    try:
+        with ServingClient(("127.0.0.1", port)) as c:
+            got = np.asarray(c.infer(rows[:, 0]))
+    finally:
+        server.shutdown()
+        server.server_close()
+        hostd.close()
+    if name == "zonzini":
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 def test_mesh_serve_check_rows_agree_across_sp(capsys):
@@ -219,6 +379,36 @@ def test_mesh_serve_check_rows_agree_across_sp(capsys):
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [(x["dp"], x["sp"]) for x in lines] == [(1, 1), (1, 2)]
     assert all(x["rows_equal_first"] for x in lines)
+
+
+def test_mesh_serve_check_takes_the_zoo(capsys):
+    """``scripts/mesh_serve_check.py --model zonzini kuleshov --sp 1 2`` on
+    the CPU: each family's daemon at sp=1 and sp=2 answers a batch with
+    the same rows (Zonzini's ToA within ``ZONZINI_RTOL``)."""
+    assert mesh_serve_check.main([
+        "--device", "cpu", "--dp", "1", "--sp", "1", "2", "--length",
+        "1024", "--batch", "4", "--requests", "1", "--model", "zonzini",
+        "kuleshov"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(x["model"], x["sp"]) for x in lines] == [
+        ("zonzini", 1), ("zonzini", 2), ("kuleshov", 1), ("kuleshov", 2)]
+    assert all(x["agreement_first"] == 1.0 for x in lines)
+
+
+def test_dp_check_takes_the_zoo(capsys):
+    """``scripts/dp_check.py --model unet gradpeak --dp 1 --sp 2`` (two
+    gloo ranks): the unet's f32 step and GradPeak's rows at sp=2 against
+    the single process."""
+    from stofnet_tpu_torch.scripts import dp_check
+
+    dp_check.main(["--device", "cpu", "--dp", "1", "--sp", "2", "--length",
+                   "1024", "--batch", "4", "--model", "unet", "gradpeak"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["model"] for x in lines] == ["unet", "gradpeak"]
+    np.testing.assert_allclose(lines[0]["dp_loss"], lines[0]["loss"],
+                               rtol=1e-5)
+    assert lines[0]["ranks_equal"] and lines[0]["params_max_diff"] < 1e-3
+    assert lines[1]["rows_equal"]
 
 
 def test_array_keeps_refusing_sp(chirp):

@@ -43,6 +43,9 @@ from stofnet_tpu_torch.scripts import dp_check
 from stofnet_tpu_torch.train.steps import (
     LossConfig, make_optimizer, make_train_step,
 )
+from tests.test_torch_threads import share_cores
+
+share_cores()  # this xdist worker's share of the cores
 
 L, B, LR = 640, 8, 5e-4
 KULESHOV = dict(dataset_kind="chirp", upsample_factor=4, sample_num=200,

@@ -36,6 +36,9 @@ from stofnet_tpu_torch.parallel import mesh as pmesh
 from stofnet_tpu_torch.parallel import seq
 from stofnet_tpu_torch.scripts import dp_check
 from stofnet_tpu_torch.serve import make_pipeline
+from tests.test_torch_threads import share_cores
+
+share_cores()  # this xdist worker's share of the cores
 
 L, B, LR = 640, 8, 5e-4
 ARCH = dict(upsample_factor=4, num_blocks=13, semi_global_scale=80)
