@@ -124,7 +124,7 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    serving weights written by ``train/checkpoint.save_checkpoint``, at
    L=8000, max_batch 128, max_wait_ms 2, its dtype gate left at auto
    (the gate's agreement and verdict are printed) and every bucket warmed
-   before the server binds: 8 client threads send 32 single echo-bearing
+   before the server binds: 8 client threads send 16 single echo-bearing
    waveforms each and one more client a batch of 128 over the s8c wire.
    Every returned row must equal ``make_pipeline``'s direct coords for it
    bit for bit (the s8c rows: on the decoded wire rows). Prints
@@ -168,9 +168,9 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    module and the int8 route: no kernel of the port, as JAX's driver
    reaches no Pallas kernel). It writes a chirp stand-in with
    ``data/synthetic.generate_chirp_dataset`` under the gitignored
-   ``build/`` (2 classes, 16 positions, 40 train and 8 test measurements
+   ``build/`` (2 classes, 16 positions, 32 train and 8 test measurements
    a position, 800 IQ samples: L=8000 at the config's rf_scale_factor 10;
-   1,024 train, 256 val and 256 test items; the seconds it took), and
+   820 train, 204 val and 256 test items; the seconds it took), and
    requires the native text loader to be built. Then, at B=128 and the
    config's defaults otherwise (f32, crop 0.75, SNR 30, th 0.5, 64 echoes,
    4 loader threads), with ``profile_dir=``: 2 epochs in f32 with
@@ -206,7 +206,7 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    and its driver length (L=8000; the unet 32000 after its rf fold), in
    f32 and in bf16: a warm-up batch and 2 timed gate batches (ms a batch,
    waveforms/s, peak memory; the first again under the profiler, device
-   time by kernel), then 4 rows of the first batch against the
+   time by kernel), then 2 rows of the first batch against the
    same pipeline on the CPU: in f32 >= 0.99 of the coord slots within 1
    sample (gradpeak too; moved rows printed), zonzini's ToA within 1e-4
    relative; in bf16 the agreement and ``probe_dtype_agreement`` printed,
@@ -313,7 +313,9 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    step for the 2 ranks against the single step, and whether gloo itself
    takes CUDA tensors (``parallel/mesh.py`` stages gloo's collectives
    through the host by rule); the same ranks then run the sp phase's two
-   steps (item 18), one launch of ranks for both phases. Then the daemon with ``mesh=True
+   steps (item 18), the zoo-sp phase's steps (item 19) and the
+   sp-serving phase's int8 evaluation (item 20), one launch of ranks for
+   all. Then the daemon with ``mesh=True
    mesh_dp=1`` in bf16 at L=8000, from the data phase's checkpoint and
    from an artifact exported from it, under the daemon phase's traffic:
    every row ``make_pipeline``'s direct coords bit for bit (the rows the
@@ -365,9 +367,29 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    ``model=espcn`` and ``model=zonzini mesh_sp=2`` from the zoo phase's
    checkpoints (both replicas on the card), one B=128 request against
    ``make_pipeline``'s direct rows. Prints the phase's seconds.
-20. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+20. The sp-serving phase (artifacts, encoded inputs and the int8 route
+   under ``mesh_sp``, the daemon's replicas on the one card): the export
+   phase's bf16 batch-polymorphic artifact (its forward program on each
+   shard's window) at ``mesh_sp`` = 2 and 4, and one exported here at
+   L_LONG at sp=8, one request of B rows each: rows equal to the
+   artifact's at sp=1 and to the sp phase's direct sp route, both
+   serving kernels sp times a request through their custom ops, ms a
+   request beside sp=1's; the zoo export phase's bf16 artifacts of
+   ESPCN, the Wave-U-Net and GradPeak at ``mesh_sp=2``, rows equal to
+   sp=1's; ``input_enc`` = bf16, s16 and s8c16 from the data phase's
+   checkpoint and an s8c16 artifact exported here at ``mesh_sp=2``, rows
+   equal to sp=1's, the bytes copied to the replicas a request beside
+   sp=1's, and ``s8c6`` refused at sp=4; the int8 route from the
+   checkpoint (``int8_calib=`` the int8 phase's batch), default and with
+   every stack conv in s8, bf16 and f32, at sp = 2 and 4, rows equal to
+   the single int8 pipeline's, ms a batch; and ``cli/main.py
+   evaluate=True int8=True`` at dp=1, sp=2 on the mesh phase's two gloo
+   ranks (run by them) against one process, by
+   ``tests/test_cli_e2e.py:241``'s gates. Prints the phase's seconds.
+21. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
    launches of its paths: the serving, bench, training, probe, daemon,
-   export, PALA serving, mesh daemon and sp runs, each counted from 0,
+   export, PALA serving, mesh daemon, sp and sp-serving runs, each
+   counted from 0,
    summed over the paths that launch it; the serving instantiation's
    launches go to ``sgb_contract_pool`` at L_UNCHUNKED and L_PALA and to
    ``sgb_contract_pool_dma`` at L and L_LONG, on the fused path, through
@@ -495,16 +517,16 @@ DMA_SEEDS = 3  # seeds of the streamed SGB kernel's check at L=800
 HOST_CALLS = 1000  # back-to-back calls of the canary's host-time reading
 PROFILE_CALLS = 100  # calls of the canary's device-time reading
 DAEMON_CLIENTS = 8  # client threads of single-waveform requests
-DAEMON_REQUESTS = 32  # single-waveform requests per client
+DAEMON_REQUESTS = 16  # single-waveform requests per client
 DAEMON_ECHOES = 64  # cli/serve.py's default max_echoes
 GATE_ROWS, GATE_SEED = 16, 3008  # the daemon's dtype gate batch (L=8000)
 # the data phase's stand-in: 2 classes x 16 positions, 40 train and 8 test
 # measurements a position, 800 IQ samples -> L=8000 at rf_scale_factor 10:
-# 1,280 train-split items (1,024 train, 256 val), 256 test items
-DRIVER_DATA = dict(n_positions=16, n_train_per_pos=40, n_test_per_pos=8,
+# 1,024 train-split items (820 train, 204 val), 256 test items
+DRIVER_DATA = dict(n_positions=16, n_train_per_pos=32, n_test_per_pos=8,
                    sample_num=800)
 PROFILE_STEPS = 5  # the driver's profile_steps default
-LOADER_BATCHES = 2  # batches of the loader alone at each thread count
+LOADER_BATCHES = 1  # batches of the loader alone at each thread count
 # the zoo phase: the registry's families at the driver's chirp
 # configuration (the stand-in's 800 IQ samples at rf_scale_factor 10, fs of
 # data/synthetic's sensor specs); the unet serves at L * UP after its fold
@@ -513,7 +535,7 @@ ZOO = ("edsr", "espcn", "zonzini", "unet", "sincnet", "kuleshov",
 ZOO_OVERRIDES = dict(dataset_kind="chirp", upsample_factor=UP,
                      sample_num=DRIVER_DATA["sample_num"], rf_scale_factor=10,
                      fs=DEFAULT_SPECS["fhz_sample"])
-ZOO_ROWS = 4  # rows of a batch held against the CPU's pipeline
+ZOO_ROWS = 2  # rows of a batch held against the CPU's pipeline
 ZOO_LOSS_ROWS = 16  # rows of the first batch in the first-loss check
 ZOO_LOSS_RTOL = 1e-5  # TF32 moved StofNet's loss by 3.3e-5
 ZOO_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
@@ -560,6 +582,16 @@ SP_AMP_RTOL, SP_AMP_AGREE, SP_AMP_SHARE = 1e-2, 1e-4, 0.99
 # sp=2 (Kuleshov at ZOO_SP_STEP_L: at L its 1.2e9 gradients would cross
 # gloo's host copies twice a step); the daemon for two families
 ZOO_SP = (2, 4)
+# the sp-serving phase: the export phase's artifact over sp of the one
+# card, and one at L_LONG; three of the zoo export phase's artifacts;
+# encoded inputs from the checkpoint and from one encoded artifact; the
+# int8 route (every stack conv in s8 in its second form)
+SP_ARTIFACT = ((L, (2, 4)), (L_LONG, (8,)))
+SP_ARTIFACT_ZOO = ("espcn", "unet", "gradpeak")
+SP_ENCODINGS = ("bf16", "s16", "s8c16")
+SP_ENC_ARTIFACT = "s8c16"
+SP_INT8 = (2, 4)
+SP_INT8_STACK = tuple(range(2, 13))
 ZOO_SP_BATCHES = 1  # timed batches of each (family, dtype, sp), after one
 ZOO_SP_PALA = ("unet", "espcn")  # on PALA data at L_PALA
 ZOO_SP_STEP_L = {"kuleshov": 2000}
@@ -1816,7 +1848,7 @@ def int8_path(dev, state) -> None:
         raise AssertionError(f"int8 phase: a kernel launched: {launched}")
 
 
-def export_path(dev, state) -> dict:
+def export_path(dev, state, keep: Path) -> dict:
     """The artifacts of ``serve.export_pipeline`` at B, L, bf16 on the
     seeded weights, exported, saved, loaded and served on the card: a
     batch-polymorphic one (``batch="b"``), one at the fixed batch B and a
@@ -1830,7 +1862,8 @@ def export_path(dev, state) -> dict:
     weightless program runs on every call. Then the daemon from two
     artifacts (``artifact=``, L and L_UNCHUNKED) under
     :func:`daemon_traffic`, half its clients at each length. Returns the
-    phase's launches by kernels-line row."""
+    phase's launches by kernels-line row; the batch-polymorphic artifact
+    stays in ``keep`` (``keep / "b.pt2"``) for the sp-serving phase."""
     rng = np.random.default_rng(SEED + 5)
     ov = {"upsample_factor": UP}
     decode = dict(window_size=DECODE["window_size"],
@@ -1915,6 +1948,7 @@ def export_path(dev, state) -> dict:
                                    state, dev, rows,
                                    gate_batch(B, L, rng)[:, 0],
                                    dtype=torch.bfloat16)
+        shutil.copyfile(paths["b"], keep / "b.pt2")
     if not all(served.values()):
         raise AssertionError(f"daemon from artifacts: a kernel did not "
                              f"launch: {served}")
@@ -2469,7 +2503,8 @@ def equal_rows(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a == b).all(1).sum())
 
 
-def zoo_export_family(dev, name: str, work: Path, ckpts: dict, rng) -> None:
+def zoo_export_family(dev, name: str, work: Path, ckpts: dict,
+                      rng) -> Path:
     """One family through ``cli/export.py model=<name>`` in f32 and bf16
     (batch-polymorphic; Kuleshov weightless and in bf16 only: its f32
     artifact would repeat the route of its bf16 one over 5 GB of sidecar
@@ -2480,7 +2515,8 @@ def zoo_export_family(dev, name: str, work: Path, ckpts: dict, rng) -> None:
     daemon twice at bf16, from the checkpoint (``model=``) and from the
     bf16 artifact (``artifact=``), one request of B rows each, held to
     the bf16 direct pipeline. Every row must equal the direct pipeline's
-    bit for bit."""
+    bit for bit. The bf16 artifacts of SP_ARTIFACT_ZOO stay for the
+    sp-serving phase; returns the bf16 artifact's path."""
     t_family = time.perf_counter()
     length = zoo_length(name)
     base = zoo_export_argv(name, work, ckpts)
@@ -2574,25 +2610,33 @@ def zoo_export_family(dev, name: str, work: Path, ckpts: dict, rng) -> None:
             raise AssertionError(f"zoo export {name}: the daemon from its "
                                  f"{src} differs from make_pipeline: {res}")
     del direct
-    for path in paths.values():
+    for label, path in paths.items():
+        if label == "bf16" and name in SP_ARTIFACT_ZOO:
+            continue
         for f in (path, Path(str(path) + ".weights.npz")):
             f.unlink(missing_ok=True)
     res["s"] = time.perf_counter() - t_family
     log(f"zoo export phase, {name}: {json.dumps(res)}")
+    return paths["bf16"]
 
 
-def zoo_export_path(dev, work: Path, ckpts: dict, rng) -> None:
+def zoo_export_path(dev, work: Path, ckpts: dict, rng) -> dict:
     """The zoo export phase (item 13 of the module docstring), the launch
-    counts set to 0 before it and held at 0 after it."""
+    counts set to 0 before it and held at 0 after it. Returns the bf16
+    artifacts of SP_ARTIFACT_ZOO by family."""
     t_phase = time.perf_counter()
     reset_launch_counts()
+    kept = {}
     for name in ZOO:
-        zoo_export_family(dev, name, work, ckpts, rng)
+        path = zoo_export_family(dev, name, work, ckpts, rng)
+        if name in SP_ARTIFACT_ZOO:
+            kept[name] = path
     launched = {k: v for k, v in counts().items() if v}
     if launched:
         raise AssertionError(f"zoo export phase: a kernel launched: "
                              f"{launched}")
     log(f"zoo export phase: {time.perf_counter() - t_phase:.1f} s")
+    return kept
 
 
 def pala_train(name: str, work: Path, data: Path, argv) -> dict:
@@ -3229,25 +3273,29 @@ def sp_cases() -> list:
                                   **shape)]
 
 
-def mesh_two_ranks() -> list:
+def mesh_two_ranks(driver: dict):
     """2 ranks on cuda:0 (gloo) each take 64 rows of one B=128 batch at
     L=8000 through ``scripts/dp_check``, against the single process's
     step on the whole batch. The same ranks then run :func:`sp_cases`,
-    one launch for both phases; returns those cases' (case, rank 0's
-    result, the single process's result) for :func:`sp_two_ranks`."""
+    the zoo-sp phase's steps and the ``driver`` case (the sp-serving
+    phase's int8 evaluation), one launch for all; returns those cases'
+    (case, rank 0's result, the single process's result) for
+    :func:`sp_two_ranks`, :func:`zoo_sp_two_ranks` and
+    :func:`sp_int8_driver`."""
     zoo = zoo_sp_cases()
     cases = [dp_check.stofnet_case(L, B, timed=MESH_TIMED),
              dp_check.sincnet_case(L, B, timed=MESH_TIMED), *sp_cases(),
-             *zoo]
+             *zoo, driver]
     t0 = time.perf_counter()
     ranks = dp_mesh.launch(dp_check.run_cases, (cases, "cuda:0", True),
                            devices=["cuda:0", "cuda:0"], backend="gloo")
     launch_s = time.perf_counter() - t0
     alone = dp_check.run_cases(cases, "cuda:0")
     gloo = ranks.pop()["gloo_cuda"]
-    n = len(cases) - len(zoo)
+    n = len(cases) - len(zoo) - 1
     sp_runs = list(zip(cases[2:n], ranks[2:n], alone[2:n]))
-    zoo_runs = list(zip(cases[n:], ranks[n:], alone[n:]))
+    zoo_runs = list(zip(cases[n:-1], ranks[n:-1], alone[n:-1]))
+    int8_run = (cases[-1], ranks[-1], alone[-1])
     lr = OPT["lr"]
     out, bad = {"launch_s": launch_s, "gloo_takes_cuda": gloo,
                 "gloo_route": "host copies, by rule (parallel/mesh.py)"}, []
@@ -3278,7 +3326,7 @@ def mesh_two_ranks() -> list:
     if bad:
         raise AssertionError(f"mesh phase: the 2-rank step misses the "
                              f"single step: {bad}")
-    return sp_runs, zoo_runs
+    return sp_runs, zoo_runs, int8_run
 
 
 def mesh_daemon(dev, work: Path, stofnet_ckpt: str) -> dict:
@@ -3339,15 +3387,19 @@ def mesh_array(work: Path, data: str, array_first: torch.Tensor) -> None:
 def mesh_path(dev, work: Path, data: str, stofnet_ckpt: str,
               array_first: torch.Tensor):
     """The mesh phase (item 17 of the module docstring). Returns the mesh
-    daemon's launches by kernels-line row, and the sp and zoo-sp phases'
-    steps that its ranks ran (:func:`mesh_two_ranks`)."""
+    daemon's launches by kernels-line row, and the sp, zoo-sp and
+    sp-serving phases' runs that its ranks made (:func:`mesh_two_ranks`)."""
     t_phase = time.perf_counter()
     mesh_driver(work, data)
-    sp_runs, zoo_runs = mesh_two_ranks()
+    runs = mesh_two_ranks(dp_check.driver_case([
+        "model=stofnet", f"batch_size={B}", f"data_dir={data}",
+        f"run_dir={work / 'mesh_runs'}", f"ckpt_dir={work / 'ckpts'}",
+        f"model_file={stofnet_ckpt}", "evaluate=True", "int8=True",
+        "th=Null"], mesh=(1, 2), name="driver int8"))
     launches = mesh_daemon(dev, work, stofnet_ckpt)
     mesh_array(work, data, array_first)
     log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches, sp_runs, zoo_runs
+    return (launches, *runs)
 
 
 def sp_replica(state):
@@ -3484,17 +3536,10 @@ def sp_daemon(dev, work: Path, stofnet_ckpt: str) -> dict:
             "length": L, "dtype": "bfloat16", "mesh": True, "mesh_sp": 2,
             "max_batch": B, "max_wait_ms": 2, "port": 0}
 
-    def one_card(device, dp, sp):  # the mesh's devices: cuda:0, sp times
-        return [torch.device(dev)] * ((dp or 1) * sp)
-
-    orig = serve_cli.local_devices
-    serve_cli.local_devices = one_card
-    try:
+    with one_card(dev):
         _, launches = daemon_traffic("sp phase, daemon sp=2 from checkpoint",
                                      args, state, dev, rows, batch,
                                      dtype=torch.bfloat16, shards=2)
-    finally:
-        serve_cli.local_devices = orig
     if not all(launches.values()):
         raise AssertionError(f"sp phase, daemon: a kernel did not launch: "
                              f"{launches}")
@@ -3759,12 +3804,7 @@ def zoo_sp_daemon(dev, work: Path, ckpts: dict, rng) -> None:
     """``cli/serve.py model=<family> mesh=True mesh_sp=2`` in f32 from the
     zoo phase's checkpoints (both replicas on ``dev``), one batch of B
     rows as one request, against ``make_pipeline``'s direct rows."""
-    def one_card(device, dp, sp):  # the mesh's devices: dev, sp times
-        return [torch.device(dev)] * ((dp or 1) * sp)
-
-    orig = serve_cli.local_devices
-    serve_cli.local_devices = one_card
-    try:
+    with one_card(dev):
         for name in ZOO_SP_DAEMON:
             args = {"model": name, "model_file": ckpts[name],
                     "ckpt_dir": str(work / "ckpts"), "length": L,
@@ -3804,8 +3844,6 @@ def zoo_sp_daemon(dev, work: Path, ckpts: dict, rng) -> None:
             log(f"zoo-sp phase, daemon {name} sp=2: {json.dumps(res)}")
             if not res["ok"]:
                 raise AssertionError(f"zoo-sp phase, daemon {name}: {res}")
-    finally:
-        serve_cli.local_devices = orig
 
 
 def zoo_sp_path(dev, work: Path, ckpts: dict, zoo_runs: list) -> None:
@@ -3822,6 +3860,239 @@ def zoo_sp_path(dev, work: Path, ckpts: dict, zoo_runs: list) -> None:
     if launched:
         raise AssertionError(f"zoo-sp phase: a kernel launched: {launched}")
     log(f"zoo-sp phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+@contextlib.contextmanager
+def one_card(dev):
+    """``cli/serve.py``'s mesh devices, for its replicas of one card:
+    ``dev``, dp * sp times."""
+    def devices(device, dp, sp):
+        return [torch.device(dev)] * ((dp or 1) * sp)
+
+    orig = serve_cli.local_devices
+    serve_cli.local_devices = devices
+    try:
+        yield
+    finally:
+        serve_cli.local_devices = orig
+
+
+def sp_request(args: dict, rows: np.ndarray) -> dict:
+    """The daemon of ``args`` at ``max_batch=B`` (build it under
+    :func:`one_card`): a warm-up request of the (B, 1, L) ``rows``, then
+    one timed request, the launch counts set to 0 just before it. Returns
+    its coords, its ms (host clock, client to client), the launch
+    counters that moved and the bytes copied to the replicas."""
+    with contextlib.redirect_stderr(io.StringIO()):
+        hostd, server, port = serve_cli.build({
+            "max_batch": B, "max_wait_ms": 2, "port": 0, "warmup": False,
+            "mesh": True, **args})
+    try:
+        with ServingClient(("127.0.0.1", port)) as client:
+            client.infer(rows[:, 0])
+            before = hostd._pipeline.copied["bytes"]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = torch.from_numpy(np.asarray(client.infer(rows[:, 0])))
+            ms = (time.perf_counter() - t0) * 1e3
+            moved = {k: v for k, v in counts().items() if v}
+            copied = hostd._pipeline.copied["bytes"] - before
+    finally:
+        server.shutdown()
+        server.server_close()
+        hostd.close()
+    return dict(coords=got, ms=ms, launches=moved, bytes=copied)
+
+
+def sp_artifacts(dev, state, arts: dict, rng) -> dict:
+    """The export phase's bf16 batch-polymorphic artifact (and one at
+    L_LONG) at each (L, sp) of SP_ARTIFACT under ``artifact= mesh_sp=``:
+    rows equal to the artifact's at sp=1 and to the direct sp route's
+    (:func:`sp_pipeline`), both serving kernels sp times a batch through
+    their custom ops, ms a request beside sp=1's. Returns the launches by
+    kernels-line row."""
+    launches = {"conv_stack_fused": 0}
+    for length, sps in SP_ARTIFACT:
+        rows = gate_batch(B, length, rng)
+        one = sp_request({"artifact": str(arts[length])}, rows)
+        for sp in sps:
+            got = sp_request({"artifact": str(arts[length]), "mesh_sp": sp},
+                             rows)
+            direct = sp_pipeline(dev, state, sp)[0](rows)
+            want = {"sgb_dma.launches": sp, "conv_stack.launches": sp}
+            res = dict(equal_sp1=bool(torch.equal(got["coords"],
+                                                  one["coords"])),
+                       equal_direct=bool(torch.equal(got["coords"], direct)),
+                       launches=got["launches"], ms_per_request=got["ms"],
+                       sp1_ms_per_request=one["ms"])
+            log(f"sp-serving phase, artifact L={length} sp={sp}: "
+                f"{json.dumps(res)}")
+            if not (res["equal_sp1"] and res["equal_direct"]
+                    and got["launches"] == want):
+                raise AssertionError(f"sp-serving phase, artifact L={length}"
+                                     f" sp={sp}: {res}")
+            launches[SGB_ROW[length]] = (launches.get(SGB_ROW[length], 0)
+                                         + sp)
+            launches["conv_stack_fused"] += sp
+    return launches
+
+
+def sp_zoo_artifacts(zoo_arts: dict, rng) -> None:
+    """The zoo export phase's bf16 artifacts of SP_ARTIFACT_ZOO at
+    ``mesh_sp=2``: rows equal to the same artifact's at sp=1, no kernel
+    launched."""
+    for name, path in zoo_arts.items():
+        rows = gate_batch(B, zoo_length(name), rng)
+        one = sp_request({"artifact": str(path)}, rows)
+        got = sp_request({"artifact": str(path), "mesh_sp": 2}, rows)
+        res = dict(equal_sp1=bool(torch.equal(got["coords"], one["coords"])),
+                   launches=got["launches"], ms_per_request=got["ms"],
+                   sp1_ms_per_request=one["ms"])
+        log(f"sp-serving phase, {name} artifact sp=2: {json.dumps(res)}")
+        if not res["equal_sp1"] or got["launches"]:
+            raise AssertionError(f"sp-serving phase, {name} artifact: {res}")
+
+
+def sp_encoded(dev, state, work: Path, stofnet_ckpt: str, rng) -> dict:
+    """``input_enc=`` at ``mesh_sp=2`` from the data phase's checkpoint
+    (bf16, s16, s8c16) and from an s8c16 artifact exported here: rows
+    equal to the same daemon's at sp=1, the bytes copied to the replicas
+    a request beside sp=1's; ``s8c6`` refused at sp=4 (JAX's rule).
+    Returns the launches by kernels-line row."""
+    ckpt = {"model_file": stofnet_ckpt, "ckpt_dir": str(work / "ckpts"),
+            "length": L, "dtype": "bfloat16"}
+    rows = gate_batch(B, L, rng)
+    sources = [(enc, dict(ckpt, input_enc=enc)) for enc in SP_ENCODINGS]
+    art = save_pipeline(work / "sp_s8c16.pt2", export_pipeline(
+        state, {"upsample_factor": UP}, "b", L, device=dev,
+        input_enc=SP_ENC_ARTIFACT, **{k: DECODE[k] for k in (
+            "window_size", "threshold", "max_echoes")}))
+    sources.append((f"artifact {SP_ENC_ARTIFACT}", {"artifact": str(art)}))
+    launches = {"sgb_contract_pool_dma": 0, "conv_stack_fused": 0}
+    for name, args in sources:
+        one = sp_request(args, rows)
+        got = sp_request(dict(args, mesh_sp=2), rows)
+        res = dict(equal_sp1=bool(torch.equal(got["coords"], one["coords"])),
+                   bytes_per_request=got["bytes"],
+                   sp1_bytes_per_request=one["bytes"],
+                   ms_per_request=got["ms"], sp1_ms_per_request=one["ms"])
+        log(f"sp-serving phase, input_enc={name} sp=2: {json.dumps(res)}")
+        if not res["equal_sp1"]:
+            raise AssertionError(f"sp-serving phase, input_enc={name}: {res}")
+        for c in (one, got):
+            launches["sgb_contract_pool_dma"] += c["launches"].get(
+                "sgb_dma.launches", 0)
+            launches["conv_stack_fused"] += c["launches"].get(
+                "conv_stack.launches", 0)
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            serve_cli.build(dict(ckpt, input_enc="s8c6", mesh=True,
+                                 mesh_sp=4, port=0, warmup=False))
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    log(f"sp-serving phase, input_enc=s8c6 sp=4: refused: {refused}")
+    if not refused or "chunk count 6" not in refused:
+        raise AssertionError("sp-serving phase: s8c6 at sp=4 not refused")
+    return launches
+
+
+def sp_int8(dev, work: Path, stofnet_ckpt: str, rng) -> None:
+    """The int8 route from the data phase's checkpoint under ``mesh_sp``
+    = 2 and 4, calibrated on the int8 phase's batch (``int8_calib=``),
+    default and with every stack conv in s8 (``int8_stack=``), bf16 and
+    f32: rows equal to the single int8 pipeline's, ms a batch."""
+    calib = gate_batch(B, L, np.random.default_rng(SEED + 4))
+    np.save(work / "sp_int8_calib.npy", calib)
+    state = load_model_variables("stofnet", find_checkpoint(
+        work / "ckpts", stofnet_ckpt))
+    rows = gate_batch(B, L, rng)
+    for stack in (None, SP_INT8_STACK):
+        for label, dtype in (("bf16", torch.bfloat16),
+                             ("f32", torch.float32)):
+            single = make_pipeline(state, {}, device=dev, dtype=dtype,
+                                   int8_calib=calib,
+                                   int8_stack_layers=stack,
+                                   **{k: DECODE[k] for k in (
+                                       "window_size", "threshold",
+                                       "max_echoes")})
+            single(rows)  # cuDNN's algorithm choice, not timed
+            t0 = time.perf_counter()
+            want = single(rows).cpu()
+            single_ms = (time.perf_counter() - t0) * 1e3
+            args = {"model_file": stofnet_ckpt, "length": L,
+                    "ckpt_dir": str(work / "ckpts"), "dtype": label,
+                    "int8_calib": str(work / "sp_int8_calib.npy"),
+                    "max_echoes": DECODE["max_echoes"]}
+            if stack:
+                args["int8_stack"] = ",".join(map(str, stack))
+            name = f"int8 {label}{' stack' if stack else ''}"
+            for sp in SP_INT8:
+                got = sp_request(dict(args, mesh_sp=sp), rows)
+                res = dict(equal_single=bool(torch.equal(got["coords"],
+                                                         want)),
+                           ms_per_batch=got["ms"], single_ms=single_ms,
+                           launches=got["launches"])
+                log(f"sp-serving phase, {name} sp={sp}: {json.dumps(res)}")
+                if not res["equal_single"] or got["launches"]:
+                    raise AssertionError(f"sp-serving phase, {name} "
+                                         f"sp={sp}: {res}")
+
+
+def sp_int8_driver(run) -> None:
+    """``cli/main.py evaluate=True int8=True`` at dp=1, sp=2 on the mesh
+    phase's two gloo ranks (run by them) against one process, by
+    ``tests/test_cli_e2e.py:241``'s gates: the mean distance and the
+    Jaccard index rel 1e-4, the loss rel 1e-3."""
+    _, ranks, one = run
+    keys = ("total_distance_mean", "total_jaccard", "val_loss")
+    got, want = ranks["summary"], one["summary"]
+    res = {k: [got[k], want[k]] for k in keys}
+    res.update(s_2_ranks=ranks["s"], s_single=one["s"])
+    log(f"sp-serving phase, driver int8 sp=2: {json.dumps(res)}")
+    ok = all(np.isclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                        equal_nan=True) for k in keys[:2])
+    if not (ok and abs(got["val_loss"] - want["val_loss"])
+            <= 1e-3 * abs(want["val_loss"])):
+        raise AssertionError(f"sp-serving phase: the driver's int8 "
+                             f"evaluation at sp=2 misses one process's: "
+                             f"{res}")
+
+
+def sp_serving_path(dev, work: Path, stofnet_ckpt: str, arts: dict,
+                    zoo_arts: dict, int8_run) -> dict:
+    """The sp-serving phase (item 20 of the module docstring). Returns its
+    launches by kernels-line row."""
+    t_phase = time.perf_counter()
+    state = StofNet(generator=torch.Generator().manual_seed(SEED),
+                    device=dev).state_dict()
+    rng = np.random.default_rng(SEED + 11)
+    arts = dict(arts)
+    arts[L_LONG] = save_pipeline(work / "sp_long.pt2", export_pipeline(
+        state, {"upsample_factor": UP}, "b", L_LONG, device=dev,
+        **{k: DECODE[k] for k in ("window_size", "threshold",
+                                  "max_echoes")}))
+    seconds = {"export": time.perf_counter() - t_phase}
+    with one_card(dev):
+        t0 = time.perf_counter()
+        launches = sp_artifacts(dev, state, arts, rng)
+        seconds["artifacts"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sp_zoo_artifacts(zoo_arts, rng)
+        seconds["zoo_artifacts"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for k, v in sp_encoded(dev, state, work, stofnet_ckpt, rng).items():
+            launches[k] = launches.get(k, 0) + v
+        seconds["encoded"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        sp_int8(dev, work, stofnet_ckpt, rng)
+        seconds["int8"] = time.perf_counter() - t0
+    sp_int8_driver(int8_run)
+    log(f"sp-serving phase, seconds by part: {json.dumps(seconds)}")
+    log(f"sp-serving phase launches: {json.dumps(launches)}")
+    log(f"sp-serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def default_flags() -> None:
@@ -3879,19 +4150,22 @@ def main() -> int:
     tf32_rows(dev, state)
     paths.append(daemon_path(dev, state))
     int8_path(dev, state)
-    paths.append(export_path(dev, state))
-    with stand_in() as (work, data):
+    with tempfile.TemporaryDirectory() as keep, stand_in() as (work, data):
+        paths.append(export_path(dev, state, Path(keep)))
         stofnet_ckpt = data_path(dev, work, data)
         ckpts = zoo_path(dev, work, data, rng_new)
-        zoo_export_path(dev, work, ckpts, rng_new)
+        zoo_arts = zoo_export_path(dev, work, ckpts, rng_new)
         paths.append(pala_path(dev, work))
         array_first = array_path(dev, work, data)
         sweep_path(work, data, stofnet_ckpt, ckpts)
-        launches, sp_runs, zoo_runs = mesh_path(dev, work, data,
-                                                stofnet_ckpt, array_first)
+        launches, sp_runs, zoo_runs, int8_run = mesh_path(
+            dev, work, data, stofnet_ckpt, array_first)
         paths.append(launches)
         paths.append(sp_path(dev, work, stofnet_ckpt, sp_runs))
         zoo_sp_path(dev, work, ckpts, zoo_runs)
+        paths.append(sp_serving_path(dev, work, stofnet_ckpt,
+                                     {L: Path(keep) / "b.pt2"}, zoo_arts,
+                                     int8_run))
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

@@ -18,8 +18,13 @@ by sample_num * rf_scale_factor, which must equal ``length=``), ``fs=``
 (sincnet) and ``n_layers=`` (unet; 2 on chirp, 10 elsewhere); gradpeak
 takes no ``model_file=``. The int8 keys are StofNet's only.
 
-``batch=b`` (any name) exports one batch-polymorphic program, an int pins
-the batch; the length is static: one artifact per length. ``dtype=auto``
+``batch=b`` (any name) exports a batch-polymorphic artifact, an int pins
+the batch; the length is static: one artifact per length. The artifact
+holds two programs (``serve.PipelineExport``): the forward, which also
+takes the windows of every sp that divides the length (the daemon's
+``mesh_sp``; a windowed family's forward is polymorphic in the window's
+length, the Wave-U-Net's also takes the window's place, GradPeak's runs
+on the row), and the decode of whole rows. ``dtype=auto``
 (the default) probes bf16 against f32 on echo-bearing waveforms before
 the input encoding is applied, as in JAX, and exports f32 where bf16
 moves the decode. ``bake_weights=False`` takes the weights as the
@@ -28,8 +33,9 @@ with ``serve.load_pipeline(out)`` or ``cli/serve.py artifact=out``.
 
 Departures from the JAX exporter: ``device=`` (the card by default, as
 every entry point of the port) takes the place of ``platforms=``, which
-is refused: a program serves on the device it was exported for (the
-device chooses the route, ``serve.fused_takes``).
+is refused: an artifact serves on devices of the kind it was exported
+for, any card of a mesh (the device chooses the route,
+``serve.fused_takes``).
 
 Arguments are ``key=value`` pairs, each value parsed as the JAX package's
 ``yaml.safe_load`` parses it (``utils/config.parse_value``; no PyYAML).
@@ -225,9 +231,10 @@ def main(argv: Optional[List[str]] = None) -> str:
         raise SystemExit(f"unknown argument(s) {sorted(unknown)}; "
                          f"supported: {sorted(_KNOWN_KEYS)}")
     if args.get("platforms"):
-        raise SystemExit("platforms= is not taken: a program of the port "
-                         "serves on the device it was exported for; name "
-                         "it with device= (cuda, the default, or cpu)")
+        raise SystemExit("platforms= is not taken: an artifact of the "
+                         "port serves on devices of the kind it was "
+                         "exported for; name it with device= (cuda, the "
+                         "default, or cpu)")
     model = str(args.get("model") or "stofnet").lower()
     if not args.get("model_file") and model != "gradpeak":
         raise SystemExit("model_file=<ckpt prefix or path> is required")
@@ -260,14 +267,14 @@ def main(argv: Optional[List[str]] = None) -> str:
         # on the f32-input pipeline; the input encoding is another choice
         pipe_kwargs["input_enc"] = str(args["input_enc"])
     if args.get("bake_weights", True):
-        program = export_pipeline(state, overrides, batch, length,
-                                  device=device, **pipe_kwargs)
+        artifact = export_pipeline(state, overrides, batch, length,
+                                   device=device, **pipe_kwargs)
         weights, note = None, "weights baked in"
     else:
-        program, weights = export_pipeline_weightless(
+        artifact, weights = export_pipeline_weightless(
             state, overrides, batch, length, device=device, **pipe_kwargs)
         note = f"weights as inputs + {out}.weights.npz sidecar"
-    path = save_pipeline(out, program, weights=weights)
+    path = save_pipeline(out, artifact, weights=weights)
     enc = pipe_kwargs.get("input_enc", "f32")
     print(f"exported {path} ({path.stat().st_size / 1e6:.2f} MB, "
           f"model={model}, device={device}, "

@@ -41,8 +41,9 @@ Departures from the JAX driver:
   Kuleshov's layer-wise halos), train on the shard's own positions (or,
   for Zonzini, on the sp group's joined pool) and join an sp group's
   outputs before the decode. JAX's refusals stay (``batch_size % dp``,
-  ``L % sp``). Refused before any rank starts, with ``SystemExit``
-  naming ROADMAP A.6c: ``int8=True`` under ``mesh_sp > 1``.
+  ``L % sp``). ``int8=True`` under sp calibrates on the global batches'
+  whole rows, as at sp = 1, and runs the int8 forward on each rank's
+  window with the activation scales joined over the sp group.
 - ``accum=N`` on a mesh: each rank loads its slice of each of JAX's
   micro-batches (``utils/collectives.accum_rows``), so ``batch_size`` must
   divide by ``mesh_dp * accum``.
@@ -80,9 +81,10 @@ from stofnet_tpu_torch.models.registry import (
 from stofnet_tpu_torch.ops.conv import full_f32
 from stofnet_tpu_torch.ops.peaks import coords2mask
 from stofnet_tpu_torch.parallel.mesh import (
-    SP_LATER, Sharding, broadcast_object, config_mesh, gather_rows, live,
-    refuse_sp, replicate, run_ranks,
+    Sharding, broadcast_object, config_mesh, gather_rows, live, replicate,
+    run_ranks,
 )
+from stofnet_tpu_torch.parallel.seq import SeqPlan
 from stofnet_tpu_torch.train.checkpoint import (
     find_checkpoint, load_checkpoint, load_model_variables, save_checkpoint,
 )
@@ -97,11 +99,6 @@ from stofnet_tpu_torch.utils.logging import MetricsLogger, make_run_name
 from stofnet_tpu_torch.utils.profiling import StepTraceProfiler, count_params
 
 DEFAULT_CONFIG = Path(__file__).parent / "config.yaml"
-
-# what the port does not run yet, and the slice (ROADMAP queue A) that
-# brings it
-_LATER = {"mesh_sp": SP_LATER}
-
 
 def unet_layers(kind: str) -> int:
     """The unet's depth (JAX's n_layers): 2 on chirp data, 10 on PALA or
@@ -340,7 +337,12 @@ def _loader_workers(cfg: Config) -> int:
 
 def _int8_eval_step(ctx: Dict[str, Any], loader, finish):
     """The eval step with the int8-SGB forward (``models/int8.py``),
-    calibrated on up to 8 batches; decode, loss and metrics unchanged."""
+    calibrated on up to 8 batches; decode, loss and metrics unchanged.
+    On a mesh the calibration batches are the global ones: the ranks of
+    an sp group load the same whole rows, gathered over dp. Under sp the
+    forward runs on this rank's window (``parallel/seq.SeqPlan``), its
+    activation scales the row's, joined over the sp group, and the
+    heatmap's shards are gathered before the decode."""
     from stofnet_tpu_torch.models.int8 import (
         quantize_stofnet, stofnet_apply_int8,
     )
@@ -371,10 +373,21 @@ def _int8_eval_step(ctx: Dict[str, Any], loader, finish):
     dtype = (torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16"
              else None)
 
+    mesh = ctx["mesh"]
+    plan = (None if mesh is None or mesh.sp == 1
+            else SeqPlan(model, mesh, int8=True))
+
+    def int8(x, shard=None):
+        return stofnet_apply_int8(q, x, dtype=dtype, shard=shard, **ov)
+
     @torch.no_grad()
     def forward(frame):
         with full_f32():
-            pred = stofnet_apply_int8(q, frame, dtype=dtype, **ov)
+            if plan is None:
+                pred = int8(frame)
+            else:
+                x, shard = plan.shard(frame)
+                pred = plan.join(plan.forward(int8, x, shard))
         return pred, pred.float().sum()
 
     def step(frame, gt_sample, gt_true):
@@ -660,14 +673,6 @@ def train(ctx: Dict[str, Any], logger: MetricsLogger) -> Dict[str, float]:
     return summary
 
 
-def _sp_refusals(cfg: Config) -> None:
-    """What ``mesh_sp > 1`` does not shard yet, refused before any rank
-    starts (ROADMAP A.6c): ``int8=True``."""
-    if cfg.get("int8"):
-        refuse_sp(cfg, "int8=True (its per-waveform activation scale is a "
-                       "max over the whole row)")
-
-
 def _writer(mesh) -> bool:
     """Whether this process writes the run's files: rank 0 of a mesh."""
     return mesh is None or mesh.rank == 0
@@ -701,8 +706,6 @@ def run(cfg: Config) -> Dict[str, Any]:
         raise ValueError("int8=True is a SERVING path (evaluate=True only):"
                          " training runs full-precision — drop the flag or"
                          " add evaluate=True")
-    if cfg.get("mesh"):
-        _sp_refusals(cfg)
     if cfg.get("mesh") and not live():
         return run_ranks(run, cfg, _batch_check(cfg))
     if cfg.get("compile_cache"):

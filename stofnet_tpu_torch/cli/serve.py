@@ -30,36 +30,42 @@ the exporter's build arguments (its
 the daemon stays one process and holds one pipeline replica a mesh
 device (the first mesh_dp cards, all of them by default; on the CPU
 mesh_dp replicas, 1 by default), built from the checkpoint or loaded
-from the artifact, encoded inputs included (the encode stays on the
-host). Each batch goes to the replicas in dp equal slices, every slice
-launched before any result is copied back, and their coords come back
-concatenated in order: rows are independent, so no collective is needed,
-and this is the batch split that JAX's GSPMD makes (its rate over
-several cards is not measured yet). As JAX's ``_mesh_adjust``:
-``max_batch`` must divide by dp, and only dp-divisible buckets are
-served. Departures: a fixed-batch artifact runs its whole batch on each
-replica, so under dp > 1 it is refused (export it with ``batch=b``); and
-an artifact serves only on the device it was exported for, so a mesh
-over several cards is refused for ``artifact=`` (serve ``model_file=``,
-whose replicas are built a card each).
+from the artifact on its device (``serve.load_pipeline`` moves the
+programs to each card of the mesh), encoded inputs included (the encode
+stays on the host). Each batch goes to the replicas in dp equal slices,
+every slice launched before any result is copied back, and their coords
+come back concatenated in order: rows are independent, so no collective
+is needed, and this is the batch split that JAX's GSPMD makes. As JAX's
+``_mesh_adjust``: ``max_batch`` must divide by dp, and only
+dp-divisible buckets are served. Departure: a fixed-batch artifact runs
+its whole batch on each replica, so under dp > 1 it is refused (export
+it with ``batch=b``).
 
-``mesh=True mesh_sp=N`` (a checkpoint of any family) also splits each
-row of a slice along L over the sp replicas of the slice's dp row (dp *
-sp devices, JAX's ``reshape(dp, sp)``). Each replica runs its forward
-(``make_pipeline``'s ``heatmap``: for StofNet the fused kernels at L % 80
-== 0, the module elsewhere) on its shard's window, the row with the halo
-that the family's reach needs (``parallel/seq.py``; a slice of the
-request already on the host; GradPeak's is the row), and keeps its own
-positions; the shards' outputs are joined in order on the slice's first
-device and decoded there. Every shard is launched before any result is
-copied back. Zonzini and Kuleshov join inside their forward: their
-replicas run its shard form (``zoo_pipeline``'s ``shard``), one thread
-each, all dp rows together, joined in process
-(``parallel/seq.ThreadExchange``: Zonzini's pool and Kuleshov's halos
-and dense head summed). JAX's refusal stays: ``length`` must divide by
-sp. Refused with ``mesh_sp > 1``, naming ROADMAP A.6c: the int8 route
-(its activations take a per-waveform scale, a max over the whole row
-that a window does not see), ``artifact=`` and ``input_enc=``.
+``mesh=True mesh_sp=N`` also splits each row of a slice along L over
+the sp replicas of the slice's dp row (dp * sp devices, JAX's
+``reshape(dp, sp)``), from a checkpoint of any family or from an
+artifact. Each replica runs its forward (``make_pipeline``'s
+``heatmap``, or an artifact's forward program, which
+``cli/export.py`` writes apart from the decode and polymorphic in the
+window's length: for StofNet the fused kernels at L % 80 == 0, the
+module elsewhere) on its shard's window, the row with the halo that the
+family's reach needs (``parallel/seq.py``; GradPeak's is the row), and
+keeps its own positions; the shards' outputs are joined in order on the
+slice's first device and decoded there. Every shard is launched before
+any result is copied back. With ``input_enc=`` the host encodes each
+slice once and each replica copies only its window's codes and the
+scales they need, and dequantizes them on its device. The int8 route
+(``int8_calib=``, calibrated once at build on the whole batch),
+Zonzini and Kuleshov join inside their forward: their replicas run its
+shard form (``shard``), one thread each, all dp rows together, joined
+in process (``parallel/seq.ThreadExchange``: the int8 route's
+activation scales, row maxima; Zonzini's pool and Kuleshov's halos and
+dense head summed). JAX's refusals stay: ``length`` must divide by sp,
+and ``s8c<n>`` by n % sp != 0 (its chunk scales shard over sp). Refused
+with ``mesh_sp > 1``: an artifact of one program (written before the
+forward and the decode were exported apart: export it again), and,
+naming ROADMAP A.6d, an artifact whose forward joins inside (int8,
+Zonzini, Kuleshov).
 
 Tuning: ``max_batch=`` (largest coalesced batch, 128), ``max_wait_ms=``
 (how long the oldest request may wait for the batch to fill, 2),
@@ -74,11 +80,11 @@ Departures from the JAX daemon:
 - ``device=`` (new): the card (``cuda``) by default, as every entry point
   of the port; ``device=cpu`` runs the kernels' plain versions. Without a
   card and without ``device=cpu``, ``build`` raises. An artifact serves on
-  the device it was exported for (``serve.load_pipeline``).
+  devices of the kind it was exported for (``serve.load_pipeline``).
 - Refused, with ``SystemExit``: ``compile_cache=`` (it persists XLA's
   compiles; an artifact of the port compiles nothing when it loads, and
   the kernels' libraries in ``build/kernels`` already persist across
-  restarts), and under ``mesh_sp > 1`` what sp does not shard yet
+  restarts), and under ``mesh_sp > 1`` what sp does not serve yet
   (above). Only ``ckpt_dir=`` is searched for ``model_file=``.
 
 Speak to it with ``stofnet_tpu_torch.serving.ServingClient`` (or JAX's,
@@ -103,7 +109,8 @@ from stofnet_tpu_torch.cli.export import (
     resolve_zoo_variables_and_overrides,
 )
 from stofnet_tpu_torch.serve import (
-    load_pipeline, make_input_encoder, make_pipeline,
+    calibrate_int8, dequantize, encoded_window, load_pipeline,
+    make_input_encoder, make_pipeline, parse_input_enc,
 )
 from stofnet_tpu_torch.parallel.mesh import (
     Mesh, config_mesh, local_devices, mesh_dims, refuse_sp,
@@ -155,11 +162,7 @@ def build(args: Dict[str, Any]):
         raise SystemExit("length= is required with model_file= "
                          "(the serving contract's static length)")
     length = int(args["length"])
-    if any(args.get(k) for k in INT8_KEYS):
-        refuse_sp(args, "the int8 route (its activations take a "
-                        "per-waveform scale, a max over the whole row)")
-    if str(args.get("input_enc") or "f32") != "f32":
-        refuse_sp(args, f"input_enc={args['input_enc']}")
+    enc = str(args.get("input_enc") or "f32")
     device = resolve_device(args.get("device"))
     mesh = _serving_mesh(args, device)
     if mesh is not None and length % mesh.sp:
@@ -167,6 +170,7 @@ def build(args: Dict[str, Any]):
                          f"mesh_sp={mesh.sp}")
     if mesh is not None:
         device = mesh.devices[0]
+        _refuse_chunks(enc, mesh.sp)
     if model == "stofnet":
         state, overrides = resolve_variables_and_overrides(args)
     else:
@@ -183,26 +187,23 @@ def build(args: Dict[str, Any]):
     dtype = apply_dtype_gate(resolve_dtype(args), state, overrides,
                              length=length, model_name=model, device=device,
                              **pipe_kwargs)
-    enc = str(args.get("input_enc") or "f32")
-    encode = make_input_encoder(enc)
+    calib = pipe_kwargs.pop("int8_calib")
+    if calib is not None:  # calibrated once, on the whole batch
+        pipe_kwargs["int8_state"] = calibrate_int8(
+            {k: v.to(device) for k, v in state.items()}, overrides, calib,
+            **{k: v for k, v in pipe_kwargs.items() if k.startswith("int8")})
 
     def replica(where: torch.device):
         raw = make_pipeline(state, overrides, model_name=model, dtype=dtype,
                             device=where,
                             input_enc=None if enc == "f32" else enc,
                             **pipe_kwargs)
-
-        def run(xb):
-            return raw(*encode(xb))
-
-        run.route, run.calls = raw.route, raw.calls
-        for attr in ("heatmap", "decode", "arch", "shard"):
-            if hasattr(raw, attr):
-                setattr(run, attr, getattr(raw, attr))
-        return run
+        raw.device = where
+        return raw
 
     max_batch = int(args.get("max_batch", 128))
-    pipeline, buckets = _mesh_adjust(replica, device, mesh, None, max_batch)
+    pipeline, buckets = _mesh_adjust(replica, device, mesh, None, max_batch,
+                                     enc)
     hostd = ServingHost(pipeline, length, max_batch=max_batch,
                         max_wait_ms=float(args.get("max_wait_ms", 2.0)),
                         buckets=buckets, max_pending=_max_pending(args))
@@ -246,17 +247,25 @@ def _build_artifacts(args: Dict[str, Any]):
 def _artifact_host(path: str, args: Dict[str, Any]) -> ServingHost:
     """One ServingHost from one artifact: its static length is the routing
     key, and a fixed-batch artifact is its own single bucket. Under a mesh
-    every replica loads the artifact on its device, which must be the one
-    it was exported for."""
-    refuse_sp(args, "artifact= (an exported program decodes whole rows)")
+    every replica loads the artifact on its device (``load_pipeline``
+    moves it there); under sp each runs the forward program on its
+    windows (``serve.PipelineExport``)."""
     raw = load_pipeline(path)
     mesh = _serving_mesh(args, raw.device)
-    if mesh is not None and any(d != raw.device for d in mesh.devices):
-        raise SystemExit(
-            f"{path} serves only on {raw.device}, the device it was "
-            f"exported for, and the mesh spans {list(map(str, mesh.devices))}"
-            f": serve model_file= (a replica is built on each card) or "
-            f"export one artifact a card")
+    if mesh is not None and mesh.sp > 1:
+        if raw.sp is None:
+            raise SystemExit(
+                f"{path} holds one program of the whole pipeline (written "
+                f"before the forward and the decode were exported apart), "
+                f"which decodes whole rows: export it again to serve it "
+                f"under mesh_sp={mesh.sp}")
+        if raw.sp == "joins":
+            refuse_sp(args, f"{path}, whose forward joins inside (an int8, "
+                            f"Zonzini or Kuleshov artifact)")
+        if raw.length % mesh.sp:
+            raise SystemExit(f"sample length {raw.length} not divisible "
+                             f"by mesh_sp={mesh.sp}")
+        _refuse_chunks(raw.input_enc, mesh.sp)
     (spec,) = raw.in_specs
     length, batch = int(spec.shape[-1]), spec.shape[0]
     fixed = batch if isinstance(batch, int) else None
@@ -267,14 +276,16 @@ def _artifact_host(path: str, args: Dict[str, Any]) -> ServingHost:
             f"max_batch={fixed} (or export it again with batch=b for a "
             f"batch-polymorphic artifact)")
 
-    programs = [raw]  # the first replica's, loaded above
+    loaded = {raw.device: raw}  # a device's replicas share its programs
 
     def replica(where: torch.device):
-        return programs.pop() if programs else load_pipeline(path)
+        if where not in loaded:
+            loaded[where] = load_pipeline(path, device=where)
+        return loaded[where]
 
     pipeline, buckets = _mesh_adjust(
         replica, raw.device, mesh, (fixed,) if fixed is not None else None,
-        max_batch)
+        max_batch, raw.input_enc)
     return ServingHost(pipeline, length, max_batch=max_batch,
                        max_wait_ms=float(args.get("max_wait_ms", 2.0)),
                        buckets=buckets, max_pending=_max_pending(args))
@@ -291,25 +302,44 @@ def _serving_mesh(args: Dict[str, Any], device: torch.device
     return config_mesh(args, devices=local_devices(device, dp, sp))
 
 
+def _refuse_chunks(enc: Optional[str], sp: int) -> None:
+    """JAX's refusal of ``s8c<n>`` under sp where sp does not divide n:
+    its jit shards the chunk scales along their chunk axis over sp."""
+    kind, n = parse_input_enc(enc)
+    if kind == "s8c" and n % sp:
+        raise SystemExit(
+            f"input_enc={enc} under mesh_sp={sp} is refused: the s8c chunk "
+            f"scales shard along their chunk axis over sp, so sp must "
+            f"divide the chunk count {n} (JAX's jit refuses it too)")
+
+
 def _mesh_adjust(replica: Callable, device: torch.device,
                  mesh: Optional[Mesh],
-                 buckets: Optional[Sequence[int]], max_batch: int
+                 buckets: Optional[Sequence[int]], max_batch: int,
+                 enc: str = "f32"
                  ) -> Tuple[Callable, Optional[Tuple[int, ...]]]:
     """The host's pipeline and buckets from ``replica(device) -> run``
-    (``run(xb)`` returns the coords on ``device`` without waiting for
-    them): ``replica(device)`` alone without a mesh; under one, a replica
-    a mesh device, each batch split into dp equal slices, and only
-    dp-divisible buckets (JAX's ``_mesh_adjust``; ``buckets`` given is a
-    fixed artifact's one bucket, its ``max_batch``). Every slice is
-    launched before any result is copied back, so the replicas' cards
-    run together. Under sp > 1 the replicas of a dp row (devices ``d *
-    sp .. d * sp + sp - 1``) each run ``run.heatmap`` on one shard's
-    window of the slice's rows (``parallel/seq.shard_of``), and the row's
+    (``run.raw_call``, or ``run`` itself, takes the encoded inputs of
+    ``input_enc=enc`` and returns the coords on ``run.device`` without
+    waiting for them): ``replica(device)`` alone without a mesh; under
+    one, a replica a mesh device, each batch split into dp equal slices,
+    and only dp-divisible buckets (JAX's ``_mesh_adjust``; ``buckets``
+    given is a fixed artifact's one bucket, its ``max_batch``). The host
+    encodes each slice once; every slice is launched before any result is
+    copied back, so the replicas' cards run together. Under sp > 1 the
+    replicas of a dp row (devices ``d * sp .. d * sp + sp - 1``) each
+    copy their shard's window of the slice's codes (``serve.
+    encoded_window``: the codes of the window and the scales they need,
+    never the row's) and dequantize it on their device, run
+    ``run.heatmap`` on it (``parallel/seq.shard_of``), and the row's
     first replica joins the cropped heatmaps in order and decodes them
-    (``run.decode``); Zonzini's and Kuleshov's replicas (``run.shard``)
-    run their shards on a thread each, joined in process."""
+    (``run.decode``); the replicas that join inside their forward
+    (``run.shard``: the int8 route, Zonzini, Kuleshov) run their shards on
+    a thread each, joined in process. ``pipeline.copied`` counts the
+    bytes of the inputs copied to the replicas, and holds the shapes of
+    the last batch's copies."""
     if mesh is None:
-        replicas, dp, sp = [replica(device)], 1, 1
+        devices, dp, sp = [device], 1, 1
     else:
         dp, sp = mesh.dp, mesh.sp
         if max_batch % dp:
@@ -324,45 +354,61 @@ def _mesh_adjust(replica: Callable, device: torch.device,
         if buckets is None:
             buckets = tuple(b for b in batch_buckets(max_batch)
                             if b % dp == 0)
-        replicas = [replica(d) for d in mesh.devices]
+        devices = list(mesh.devices)
+    replicas = [replica(d) for d in devices]
+    encode = make_input_encoder(enc)
+    copied = {"bytes": 0, "shapes": []}
+    lock = threading.Lock()
 
-    def shards(i: int, part) -> List[torch.Tensor]:
+    def note(inputs) -> tuple:
+        with lock:
+            copied["bytes"] += sum(int(a.nbytes) for a in inputs)
+            copied["shapes"].append(tuple(tuple(a.shape) for a in inputs))
+        return inputs
+
+    def window(n: int, coded, shard) -> torch.Tensor:
+        """Replica n's window of a slice's codes, on its device."""
+        a, b = shard.window or shard.own
+        return dequantize(note(encoded_window(coded, enc, a, b)), enc, a,
+                          shard.length, devices[n])
+
+    def shards(i: int, coded) -> List[torch.Tensor]:
         """Slice i's shard outputs, launched, each on its own positions,
         in sp order: each replica's forward on its shard's window."""
-        row = replicas[i * sp:(i + 1) * sp]
-        arch, length = row[0].arch, part.shape[-1]
+        arch, length = replicas[i * sp].arch, coded[0].shape[-1]
         outs = []
-        for k, rep in enumerate(row):
+        for k in range(sp):
             shard = shard_of(arch, length, sp, k, None)
-            a, b = shard.window
-            outs.append(own_output(arch, rep.heatmap(
-                part[..., a:b], **forward_kwargs(arch, shard)), shard))
+            outs.append(own_output(arch, replicas[i * sp + k].heatmap(
+                window(i * sp + k, coded, shard),
+                **forward_kwargs(arch, shard)), shard))
         return outs
 
-    def joined(parts) -> List[List[torch.Tensor]]:
-        """Zonzini's and Kuleshov's shard outputs of every slice: every
-        replica runs ``run.shard`` on its shard (its window of its slice,
-        or Kuleshov's own samples) on a thread of its own, all submitted
-        together, each dp row joined through one
+    def joined(coded) -> List[List[torch.Tensor]]:
+        """The shard outputs of every slice of replicas that join inside
+        their forward: every replica runs ``run.shard`` on its shard (its
+        window of its slice, or Kuleshov's own samples) on a thread of its
+        own, all submitted together, each dp row joined through one
         ``parallel/seq.ThreadExchange``."""
         arch = replicas[0].arch
 
         def one(n: int, exchange) -> torch.Tensor:
-            part = parts[n // sp]
-            shard = shard_of(arch, part.shape[-1], sp, n % sp, exchange)
-            a, b = shard.window or shard.own
-            return replicas[n].shard(np.ascontiguousarray(part[..., a:b]),
-                                     shard)
+            c = coded[n // sp]
+            shard = shard_of(arch, c[0].shape[-1], sp, n % sp, exchange)
+            return replicas[n].shard(window(n, c, shard), shard)
         outs = run_shards(one, sp, rows=dp)
         return [outs[i * sp:(i + 1) * sp] for i in range(dp)]
 
     def pipeline(xb):
-        parts = np.split(xb, dp)
+        with lock:
+            copied["shapes"] = []
+        coded = [encode(part) for part in np.split(xb, dp)]
         if sp == 1:
-            outs = [rep(part) for rep, part in zip(replicas, parts)]
+            outs = [getattr(rep, "raw_call", rep)(*note(c))
+                    for rep, c in zip(replicas, coded)]
         else:  # every shard launched, then each slice joined and decoded
-            launched = (joined(parts) if hasattr(replicas[0], "shard") else
-                        [shards(i, part) for i, part in enumerate(parts)])
+            launched = (joined(coded) if hasattr(replicas[0], "shard") else
+                        [shards(i, c) for i, c in enumerate(coded)])
             outs = [_join(replicas[i * sp], row)
                     for i, row in enumerate(launched)]
         # the host takes numpy: the coords come back from the cards here
@@ -371,6 +417,7 @@ def _mesh_adjust(replica: Callable, device: torch.device,
     for attr in ("route", "calls"):  # the first replica's
         if hasattr(replicas[0], attr):
             setattr(pipeline, attr, getattr(replicas[0], attr))
+    pipeline.copied = copied
     return pipeline, None if buckets is None else tuple(buckets)
 
 

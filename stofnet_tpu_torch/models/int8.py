@@ -231,24 +231,40 @@ def quantize_stofnet(state: Mapping[str, torch.Tensor], calib_x,
     return q
 
 
-def _dyn_quant(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _row_scale(hf: torch.Tensor, shard=None) -> torch.Tensor:
+    """The per-waveform scale (B, 1, 1) of an f32 (B, L, C) activation,
+    the row's absmax / 127. Under ``shard`` (a ``parallel/seq.Shard``;
+    ``hf`` its window) the max is taken over the shard's own positions
+    and joined over its sp group (``shard.exchange.max``), which is the
+    row's max exactly: every shard's own positions hold the row's values,
+    and they partition the row."""
+    if shard is None:
+        return absmax_scale(hf, dim=(1, 2))
+    lo, hi = shard.own_slice(hf.shape[1])
+    own = hf[:, lo:hi].abs().amax(dim=(1, 2), keepdim=True)
+    return absmax_scale(shard.exchange.max(own), dim=(1, 2))
+
+
+def _dyn_quant(h: torch.Tensor, shard=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-waveform symmetric s8, scale (B, 1, 1) = row
-    absmax/127: per row, so each waveform's codes do not depend on what it
-    is batched with."""
+    absmax/127 (:func:`_row_scale`): per row, so each waveform's codes do
+    not depend on what it is batched with."""
     hf = h.to(torch.float32)
-    scale = absmax_scale(hf, dim=(1, 2))
+    scale = _row_scale(hf, shard)
     return quantize(hf, scale), scale
 
 
 def _qconv(h: torch.Tensor, layer: Mapping[str, torch.Tensor],
-           impl: str) -> torch.Tensor:
+           impl: str, shard=None) -> torch.Tensor:
     """Quantize the activation per waveform (after the equalization
     rescale, where the layer has one), run the s8 conv, dequantize with
-    the row scale times the per-channel weight scale, add the bias."""
+    the row scale (:func:`_row_scale`) times the per-channel weight
+    scale, add the bias."""
     hf = h.to(torch.float32)
     if "inv_eq" in layer:
         hf = hf * layer["inv_eq"]
-    scale = absmax_scale(hf, dim=(1, 2))
+    scale = _row_scale(hf, shard)
     acc = conv1d_same_int8(quantize(hf, scale), layer["wq"], impl=impl)
     return (acc.to(torch.float32) * (scale * layer["wscale"])
             + layer["bias"])
@@ -259,8 +275,8 @@ def stofnet_apply_int8(q: Mapping[str, Any], x: torch.Tensor,
                        semi_global_scale: int = 80,
                        dtype: Optional[torch.dtype] = torch.bfloat16,
                        impl: str = "conv", quant_stack: bool = False,
-                       stack_layers: Optional[Sequence[int]] = None
-                       ) -> torch.Tensor:
+                       stack_layers: Optional[Sequence[int]] = None,
+                       shard=None) -> torch.Tensor:
     """StofNet forward, (B, 1, L) -> (B, 1, L*r) f32, with the int8 SGB
     contract conv, at any L the module takes (``L // semi_global_scale``
     pooled rows, the pathway padded back by half the shortfall on each
@@ -268,6 +284,12 @@ def stofnet_apply_int8(q: Mapping[str, Any], x: torch.Tensor,
 
     ``impl`` picks the s8 conv's form (``ops/int8.py``). ``quant_stack`` /
     ``stack_layers`` must name the stack convs ``q`` was built with.
+
+    ``shard`` (a ``parallel/seq.Shard``): ``x`` is the shard's window of
+    the row (StofNet's windows, ``parallel/seq.windows``), and every
+    dynamic activation scale is the row's, joined over the sp group, so
+    the shard's own positions are the whole row's forward bit for bit;
+    the caller crops them (``parallel/seq.own_output``).
     """
     h = x.transpose(1, 2)
     if dtype is not None:
@@ -278,7 +300,7 @@ def stofnet_apply_int8(q: Mapping[str, Any], x: torch.Tensor,
 
     if semi_global_scale != 1:
         c = q["contract"]
-        xq, s_in = _dyn_quant(h)
+        xq, s_in = _dyn_quant(h, shard)
         acc = conv1d_same_int8(xq, c["wq"], impl=impl)
         # requantize the pre-pool tensor to s8 in the conv's epilogue;
         # JAX's order of operations, so ties round the same way
@@ -301,7 +323,7 @@ def stofnet_apply_int8(q: Mapping[str, Any], x: torch.Tensor,
 
     def stack_conv(h, i):
         if i in chosen:
-            y = _qconv(h, q["stack"][f"conv{i}"], impl)
+            y = _qconv(h, q["stack"][f"conv{i}"], impl, shard)
         else:
             y = conv1d_same(h, f32[f"conv{i}"]["kernel"],
                             f32[f"conv{i}"]["bias"], dtype)

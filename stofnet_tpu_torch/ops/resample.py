@@ -1,9 +1,9 @@
 """Linear resampling and IQ->RF conversion on tensors (replaces
 ``stofnet_tpu/ops/resample.py``).
 
-Target positions and carrier phases are computed on the host in numpy f64
-and the fractions cast to the data's real type, as the JAX package folds
-them into trace-time constants. The port's data loader keeps its own host
+Target positions (numpy ``linspace``'s f64 bits) and carrier phases are
+computed in f64 and the fractions cast to the data's real type, as the
+JAX package folds them into trace-time constants. The port's data loader keeps its own host
 copy (``data/chirp.iq2rf_host``); Wave-U-Net's x2 upsample
 (``align_corners=True``) uses :func:`linear_resample`.
 """
@@ -26,20 +26,30 @@ def linear_resample(data: torch.Tensor, num_out: int,
     whole row's positions and fractions, which are not shift-invariant
     (align-corners), so a length shard resamples on the global grid.
     A point whose neighbours lie outside ``data`` reads the nearest held
-    one (a window's edge, which its halo crops)."""
+    one (a window's edge, which its halo crops). The window's numbers are
+    ints or 0-d integer tensors (an exported program's inputs).
+
+    The positions are ``np.linspace(0, n - 1, m)``'s bits: ``i * ((n - 1)
+    / (m - 1))`` in f64, the last point ``n - 1`` exactly, and 0 at
+    ``m == 1``; on the host for ints, on the tensors' device for tensors."""
     axis = axis % data.ndim
-    n_here = data.shape[axis]
-    n, m, in_start, out_start = (
-        (n_here, num_out, 0, 0) if window is None
-        else (int(v) for v in window))
-    t = np.linspace(0.0, n - 1.0, m)[out_start:out_start + num_out]
-    i0 = np.clip(np.floor(t).astype(np.int64), 0, max(n - 2, 0))
+    f64 = torch.float64
+    given = (data.shape[axis], num_out, 0, 0) if window is None else window
+    where = next((v.device for v in given if torch.is_tensor(v)), "cpu")
+    n, m, in_start, out_start = (torch.as_tensor(v, device=where)
+                                 for v in given)
+    i = torch.arange(num_out, device=where, dtype=f64) + out_start
+    t = i * ((n - 1).to(f64) / (m - 1).clamp(min=1).to(f64))
+    t = torch.where((i == m - 1) & (m > 1), (n - 1).to(f64), t)
+    i0 = torch.minimum(torch.floor(t).to(torch.int64),
+                       torch.clamp(n - 2, min=0)).clamp(min=0)
     real = data.real.dtype if data.is_complex() else data.dtype
     shape = [num_out] + [1] * (data.ndim - axis - 1)
-    frac = torch.from_numpy((t - i0).astype(np.float32)).to(
+    frac = (t - i0.to(f64)).to(torch.float32).to(
         data.device, real).reshape(shape)
-    lo, hi = (data.index_select(axis, torch.from_numpy(np.clip(
-        i - in_start, 0, n_here - 1)).to(data.device)) for i in (i0, i0 + 1))
+    top = data.shape[axis] - 1
+    lo, hi = (data.index_select(axis, (k - in_start).clamp(0, top).to(
+        data.device)) for k in (i0, i0 + 1))
     return lo + (hi - lo) * frac
 
 

@@ -77,7 +77,7 @@ from stofnet_tpu_torch.models import (
 from stofnet_tpu_torch.models.stofnet import StofNet
 from stofnet_tpu_torch.ops.conv import same
 from stofnet_tpu_torch.utils.collectives import (
-    all_reduce_sum, block, gather_seq,
+    all_reduce, all_reduce_sum, block, gather_seq,
 )
 
 # conv1's and conv_last's paddings are hard-coded (4 and 1), so only these
@@ -143,7 +143,22 @@ def arch_reach(arch: Mapping[str, Any], length: int = 0) -> int:
                  tuple(arch.get("kernel_sizes", (9, 7, 3))))
 
 
-def model_arch(model: torch.nn.Module) -> dict:
+def stofnet_arch(overrides: Mapping[str, Any], int8: bool = False) -> dict:
+    """StofNet's rule from its architecture keys (``load_stofnet``'s
+    overrides; the defaults where one is absent). ``int8``: the rule of
+    the int8 forward (``models/int8.stofnet_apply_int8``), which runs on
+    StofNet's windows and takes the shard for its activation scales,
+    maxima over the row joined over the sp group (:func:`forward_kwargs`).
+    """
+    arch = {"upsample_factor": int(overrides.get("upsample_factor", 4)),
+            "semi_global_scale": int(overrides.get("semi_global_scale", 80)),
+            "num_blocks": int(overrides.get("num_blocks", 13))}
+    if int8:
+        arch["int8"] = True
+    return arch
+
+
+def model_arch(model: torch.nn.Module, int8: bool = False) -> dict:
     """The sharding rule of a registry module, for :class:`SeqPlan` and
     :func:`windows`: its ``family``, the ``upsample_factor`` of its
     output, and
@@ -152,15 +167,21 @@ def model_arch(model: torch.nn.Module) -> dict:
       GradPeak): its ``reach`` and the ``grid`` its windows start on
       (StofNet's from its architecture keys, :func:`arch_reach`);
     - Zonzini: its ``stages`` (windows on the last stage's positions);
-    - Kuleshov: its ``input_length`` (sharded layer by layer)."""
+    - Kuleshov: its ``input_length`` (sharded layer by layer).
+
+    ``int8``: StofNet's int8 forward's rule (:func:`stofnet_arch`)."""
+    if int8 and not isinstance(model, StofNet):
+        raise ValueError(f"no int8 forward for {type(model).__name__} "
+                         f"(the quantized path is StofNet's)")
     if isinstance(model, StofNet):
         return dict(family="stofnet",
-                    upsample_factor=int(model.upsample_factor),
-                    num_blocks=int(model.num_blocks),
-                    semi_global_scale=int(model.semi_global_scale),
                     kernel_sizes=(model.conv1.kernel_size[0],
                                   model.conv2.kernel_size[0],
-                                  model.conv_last.kernel_size[0]))
+                                  model.conv_last.kernel_size[0]),
+                    **stofnet_arch(
+                        {k: getattr(model, k) for k in (
+                            "upsample_factor", "num_blocks",
+                            "semi_global_scale")}, int8))
     if isinstance(model, espcn1d.ESPCN1D):
         return dict(family="espcn", grid=1, reach=espcn1d.reach(model),
                     upsample_factor=int(model.upscale_factor))
@@ -345,7 +366,8 @@ def _routes(sp: int, me: int, sources):
 class MeshExchange:
     """The joins of the shards of one dp row across ranks, over the sp
     group of a live mesh: ``sum`` (differentiable, ``AllReduceSum``),
-    ``gather`` (whole rows in sp order, without gradient) and ``fetch``
+    ``max`` and ``gather`` (whole rows in sp order; both without
+    gradient) and ``fetch``
     (point to point, differentiable: the backward sends each fetched
     piece's gradient back to its owner). Gloo exchanges host copies, by
     rule; NCCL copies on the rank's card."""
@@ -359,6 +381,11 @@ class MeshExchange:
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         return gather_seq(self.mesh, t)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the sp group: exact in any order."""
+        return all_reduce(self.row, t.detach().clone(
+            memory_format=torch.contiguous_format), "max")
 
     def fetch(self, sources, grad: bool = True) -> torch.Tensor:
         """Axis 1 of ``sources``' tensors, each ``(t, length, need)``:
@@ -484,6 +511,14 @@ class ThreadExchange:
         return self._meet(t, lambda board: torch.cat(
             [v.to(t.device) for v in board], dim=-1))
 
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        def read(board):
+            out = board[0].to(t.device)
+            for v in board[1:]:
+                out = torch.maximum(out, v.to(t.device))
+            return out
+        return self._meet(t, read)
+
     def fetch(self, sources, grad: bool = False) -> torch.Tensor:
         def read(board):
             parts = []
@@ -561,9 +596,12 @@ def shard_of(arch: Mapping[str, Any], length: int, sp: int, index: int,
 def forward_kwargs(arch: Mapping[str, Any], shard: Shard) -> dict:
     """The keywords that run a family's forward as ``shard``: none where
     the window alone makes it the row's (StofNet, ESPCN, EDSR, SincNet,
-    and GradPeak, whose window is the whole row)."""
+    and GradPeak, whose window is the whole row); StofNet's int8 forward
+    (:func:`stofnet_arch`) runs on StofNet's windows and takes the shard
+    for its activation scales, maxima over the row joined over the sp
+    group (``models/int8.stofnet_apply_int8``)."""
     if family_of(arch) in ("stofnet", "espcn", "edsr", "sincnet",
-                          "gradpeak"):
+                          "gradpeak") and not arch.get("int8"):
         return {}
     return {"shard": shard}
 
@@ -593,10 +631,10 @@ class SeqPlan:
       own positions, and returns :func:`own_output`;
     - :meth:`join` makes an output whole: a heatmap's shards gathered in
       sp order (the decode reads whole rows), Zonzini's and GradPeak's as
-      they are."""
+      they are. ``int8``: the rule of StofNet's int8 forward."""
 
-    def __init__(self, model: torch.nn.Module, mesh):
-        self.arch, self.mesh = model_arch(model), mesh
+    def __init__(self, model: torch.nn.Module, mesh, int8: bool = False):
+        self.arch, self.mesh = model_arch(model, int8), mesh
         self.exchange = MeshExchange(mesh)
 
     @property

@@ -5,7 +5,7 @@
 
 :func:`run_cases` runs a list of cases, each a model, its weights and one
 global batch: the train step (``train/steps.make_train_step``, f32 or
-amp, ``remat``, ``accum``), the eval step, or a job array's step. Under a
+amp, ``remat``, ``accum``), the eval step, a job array's step, or the driver. Under a
 live process group (a rank of ``parallel/mesh.launch``) each rank feeds
 its shard of the batch through the mesh of the case's ``mesh`` shape
 (dp, sp), by default every rank on dp: its rows, and at sp > 1 its
@@ -72,7 +72,10 @@ def run_case(case: Dict[str, Any], device, mesh=None) -> Dict[str, Any]:
     plain DDP), ``halo_stats`` (under sp, BatchNorm's statistics over the
     whole window, halo included) and ``contiguous_rows`` (under
     ``accum``, each rank its contiguous block of the batch, so its i-th
-    micro-batch is not JAX's)."""
+    micro-batch is not JAX's). A case with ``driver`` runs the driver
+    instead (:func:`driver_case`)."""
+    if case.get("driver") is not None:
+        return run_driver(case, mesh)
     device = torch.device(device)
     model, _ = build_model(case["model"], device=device,
                            generator=torch.Generator().manual_seed(
@@ -221,6 +224,28 @@ def gloo_takes_cuda() -> Dict[str, str]:
         except RuntimeError as e:  # gloo's refusal of the device
             out[name] = f"refused: {str(e).splitlines()[0][:160]}"
     return out
+
+
+def driver_case(argv: Sequence[str], **kw) -> Dict[str, Any]:
+    """A case of ``cli/main.run`` on ``argv`` (``key=value``): alone as it
+    is, under a live group with ``mesh=True`` and the case's ``mesh``
+    shape as ``mesh_dp`` and ``mesh_sp`` (this rank of the ranks' run)."""
+    return dict(driver=list(argv), model="driver", **kw)
+
+
+def run_driver(case: Dict[str, Any], mesh=None) -> Dict[str, Any]:
+    """:func:`driver_case`'s run: the driver's summary and its seconds."""
+    from stofnet_tpu_torch.cli import main as cli_main
+    from stofnet_tpu_torch.utils.config import load_config, merge_cli
+
+    argv = list(case["driver"])
+    if mesh is not None:
+        argv += ["mesh=True", f"mesh_dp={mesh.dp}", f"mesh_sp={mesh.sp}"]
+    t0 = time.perf_counter()
+    summary = cli_main.run(merge_cli(load_config(cli_main.DEFAULT_CONFIG),
+                                     argv))
+    return {"name": case.get("name", "driver"), "summary": summary,
+            "s": time.perf_counter() - t0}
 
 
 def stofnet_case(length: int, batch: int, seed: int = 0,

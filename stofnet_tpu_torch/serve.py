@@ -15,15 +15,19 @@ the zoo's module, then the same decode, or the regression families'
 predictions as they are.
 
 The exporter's half (replaces ``stofnet_tpu/serve.py:50-69,275-464``):
-``export_pipeline`` traces that callable with ``torch.export`` into one
-program per static length, the weights and the kernels' weight layouts
-baked in (the two kernels are custom ops, ``ops/kernels``);
-``export_pipeline_weightless`` takes the state dict as the program's
-inputs instead; ``save_pipeline`` / ``load_pipeline`` write and serve the
-file with no model code. Departure from JAX, whose artifacts are lowered
-for ``platforms=("cpu", "tpu")``: a program serves on the device it was
-exported for, because the device chooses the route (``fused_takes``: f32
-on the card takes the module route, on the CPU the fused forward).
+``export_pipeline`` traces that callable with ``torch.export`` into an
+artifact of two programs a static length (:class:`PipelineExport`): the
+forward, polymorphic in the length of a window on the family's grid so
+that it also serves each length shard's window, and the decode of whole
+rows; the weights and the kernels' weight layouts baked in (the two
+kernels are custom ops, ``ops/kernels``). ``export_pipeline_weightless``
+takes the state dict as the forward's inputs instead; ``save_pipeline`` /
+``load_pipeline`` write and serve the file with no model code, on any
+device of the kind it was exported for. Departure from JAX, whose
+artifacts are lowered for ``platforms=("cpu", "tpu")``: a program serves
+on the kind of device it was exported for, because the device chooses
+the route (``fused_takes``: f32 on the card takes the module route, on
+the CPU the fused forward).
 
 Every f32 route computes without TF32 (``ops/conv.full_f32``), as the JAX f32
 pipeline sums in full f32, whatever the caller's flags.
@@ -34,6 +38,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import io
+import json
+import zipfile
 from pathlib import Path
 from typing import (
     Any, Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple,
@@ -42,6 +49,7 @@ from typing import (
 
 import numpy as np
 import torch
+from torch.export.passes import move_to_device_pass
 
 from stofnet_tpu_torch import DeviceLike, resolve_device
 from stofnet_tpu_torch.data.synthetic import gate_batch
@@ -66,6 +74,10 @@ FUSED_OVERRIDES = ("upsample_factor", "num_blocks", "semi_global_scale")
 # the example batch a batch-polymorphic export traces with: at least 2, so
 # that the batch is not specialized to a constant
 EXAMPLE_BATCH = 2
+# the layout of an artifact (PipelineExport): a zip of the two programs and
+# the manifest; a file of one program is an artifact written before it
+ARTIFACT_FORMAT = 2
+MANIFEST = "stofnet_artifact.json"
 
 
 class TensorSpec(NamedTuple):
@@ -118,31 +130,60 @@ def make_input_encoder(enc: Optional[str]) -> Callable[[Any], tuple]:
     return enc_s8c
 
 
+def encoded_window(coded: Sequence[Any], enc: Optional[str], start: int,
+                   stop: int) -> tuple:
+    """The host's part of a length shard's encoded input: of a slice's
+    inputs ``coded`` (``make_input_encoder(enc)``'s, whole rows), the codes
+    of the window [start, stop) and the scales those codes need (s16: the
+    row's; s8c: the chunks the window touches); f32 and bf16 are their
+    own codes. No more than this is copied to the shard's device."""
+    kind, n = parse_input_enc(enc)
+    codes = coded[0][..., start:stop]
+    if kind in ("f32", "bf16"):
+        return (codes,)
+    if kind == "s16":
+        return codes, coded[1]
+    cl = chunk_len(coded[0].shape[-1], n)
+    return codes, coded[1][..., start // cl:-(-stop // cl)]
+
+
+def dequantize(inputs: Sequence[Any], enc: Optional[str], start: int,
+               length: int, device: torch.device) -> torch.Tensor:
+    """``inputs`` (:func:`encoded_window`'s, or a whole row's at ``start``
+    0) copied to ``device`` and dequantized there, as the f32 waveform
+    (B, 1, window) the forward takes: ``codes * scale`` in f32, the numpy
+    codecs' bits; each s8c position takes its chunk's scale, the chunks
+    ``length / n`` samples of the row of ``length``."""
+    kind, n = parse_input_enc(enc)
+    codes = torch.as_tensor(inputs[0]).to(device)
+    if kind in ("f32", "bf16"):
+        return codes.to(torch.float32)
+    scales = torch.as_tensor(inputs[1]).to(device)
+    if kind == "s8c":
+        cl = chunk_len(length, n)
+        pos = torch.arange(start, start + codes.shape[-1], device=device)
+        scales = scales[..., pos // cl - start // cl]
+    return codes.to(torch.float32) * scales
+
+
 def _wrap_input_enc(pipe: Callable, enc: Optional[str],
                     device: torch.device) -> Callable:
     """``pipe`` taking the encoded inputs of ``input_enc=enc``: the codes
-    are copied to ``device`` and dequantized there (``codes * scale`` in
-    f32, the numpy codecs' bits). f32 and bf16 inputs go to ``pipe`` as
-    they are: its input cast absorbs a bf16 input."""
-    kind, n = parse_input_enc(enc)
+    are copied to ``device`` and dequantized there (:func:`dequantize`).
+    f32 and bf16 inputs go to ``pipe`` as they are: its input cast
+    absorbs a bf16 input."""
+    kind, _ = parse_input_enc(enc)
     if kind in ("f32", "bf16"):
         return pipe
 
-    def dev(a) -> torch.Tensor:
-        return torch.as_tensor(a).to(device)
+    def pipe_enc(codes, scales):
+        length = codes.shape[-1]
+        return pipe(dequantize((codes, scales), enc, 0, length, device))
 
-    if kind == "s16":
-        def pipe_enc(codes, scales):
-            return pipe(dev(codes).to(torch.float32) * dev(scales))
-    else:
-        def pipe_enc(codes, scales):
-            codes = dev(codes)
-            b, _, length = codes.shape
-            chunk_len(length, n)
-            x = (codes.reshape(b, 1, n, length // n).to(torch.float32)
-                 * dev(scales)[..., None]).reshape(b, 1, length)
-            return pipe(x)
-    pipe_enc.route, pipe_enc.calls = pipe.route, pipe.calls
+    # the forward alone takes the dequantized window, as an artifact's
+    for attr in ("route", "calls", "heatmap", "decode", "arch", "shard"):
+        if hasattr(pipe, attr):
+            setattr(pipe_enc, attr, getattr(pipe, attr))
     return pipe_enc
 
 
@@ -154,7 +195,8 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
                   int8_stack_layers: Optional[Sequence[int]] = None,
                   int8_eq_alpha: Optional[float] = None,
                   int8_bias_correct: bool = False,
-                  input_enc: Optional[str] = None) -> Callable:
+                  input_enc: Optional[str] = None,
+                  int8_state: Optional[Mapping[str, Any]] = None) -> Callable:
     """The serving callable ``x (B, 1, L) f32 -> (B, max_echoes) coords``.
 
     Three routes, chosen when the pipeline is built and, between fused
@@ -167,7 +209,11 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
       overrides of ``models/int8.QCONFIG`` pass on; the rest of the
       forward follows the weights' shapes. ``int8_stack_layers`` /
       ``int8_eq_alpha`` / ``int8_bias_correct`` also run the chosen stack
-      convs in s8 (``quantize_stofnet``). Calibrate on echo-bearing data;
+      convs in s8 (``quantize_stofnet``). Calibrate on echo-bearing data.
+      ``int8_calib`` goes through :func:`calibrate_int8`, whose state
+      ``int8_state`` takes in its place (calibrated once for several
+      pipelines; the ``int8_stack_layers`` it was built with still
+      given);
     - **fused**: ``fused_forward`` (the SGB and conv-stack kernels on the
       card, their plain versions on the CPU), where it computes the
       module's function (:func:`fused_takes`: no overrides beyond
@@ -188,7 +234,12 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     on the route of x's length and counted as a call, ``pipe.decode(heat)``
     the decode alone, and ``pipe.arch`` the forward's architecture:
     a length-sharded daemon (``cli/serve.py`` under ``mesh_sp``) runs the
-    forward on each shard's window and decodes the joined rows.
+    forward on each shard's window and decodes the joined rows. The int8
+    route's activation scales are maxima over the row, so its shards
+    join inside the forward: ``pipe.shard(x, shard)`` runs it on a
+    ``parallel/seq.Shard``'s window (the row's scales joined through the
+    shard's exchange) and returns the shard's own positions, and its
+    ``arch`` says ``int8``.
 
     ``model_name`` other than ``stofnet`` serves that model of the
     registry through :func:`zoo_pipeline` (no int8, as in JAX).
@@ -210,7 +261,8 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     device = resolve_device(device)
     dtype = torch.bfloat16 if dtype is None else dtype
     if model_name.lower() != "stofnet":
-        if int8_calib is not None or int8_stack_layers:
+        if (int8_calib is not None or int8_stack_layers
+                or int8_state is not None):
             raise ValueError("int8 serving targets model=stofnet only (the "
                              "quantized path is the SemiGlobalBlock; other "
                              "models have none)")
@@ -222,17 +274,18 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     scale = int(overrides.get("semi_global_scale", POOL))
     params = {k: _tensor(v).to(device) for k, v in state.items()}
     forward = int8 = None
-    if int8_calib is not None:
-        qkw = {k: int(v) for k, v in overrides.items() if k in QCONFIG}
-        stack = (tuple(int(i) for i in int8_stack_layers)
-                 if int8_stack_layers else None)
-        q = quantize_stofnet(params, int8_calib, stack_layers=stack,
-                             eq_alpha=int8_eq_alpha,
-                             bias_correct=int8_bias_correct, **qkw)
+    if int8_state is None and int8_calib is not None:
+        int8_state = calibrate_int8(params, overrides, int8_calib,
+                                    int8_stack_layers=int8_stack_layers,
+                                    int8_eq_alpha=int8_eq_alpha,
+                                    int8_bias_correct=int8_bias_correct)
+    if int8_state is not None:
+        qkw, stack = _int8_config(overrides, int8_stack_layers)
+        q = _to_device(int8_state, device)
 
-        def int8(x):
+        def int8(x, shard=None):
             return stofnet_apply_int8(q, x, dtype=dtype, stack_layers=stack,
-                                      **qkw)
+                                      shard=shard, **qkw)
     elif fused_takes(overrides, dtype, device):
         forward = fused_forward(params, dtype=dtype,
                                 **{k: int(v) for k, v in overrides.items()})
@@ -283,9 +336,48 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     pipe.route, pipe.calls = route, calls
     pipe.heatmap = torch.inference_mode()(heatmap)
     pipe.decode = torch.inference_mode()(decode)
-    pipe.arch = {"upsample_factor": up, "semi_global_scale": scale,
-                 "num_blocks": int(overrides.get("num_blocks", 13))}
+    pipe.arch = seq.stofnet_arch(overrides, int8=int8 is not None)
+    if int8 is not None:
+        @torch.inference_mode()
+        def shard(x, where: seq.Shard) -> torch.Tensor:
+            x = torch.as_tensor(x).to(device).to(torch.float32)
+            calls["int8"] += 1
+            with precision():
+                return seq.own_output(pipe.arch, int8(x, where), where)
+
+        pipe.shard = shard
     return _wrap_input_enc(pipe, input_enc, device)
+
+
+def calibrate_int8(state: Mapping[str, Any], overrides: Dict[str, Any],
+                   calib: Any, *,
+                   int8_stack_layers: Optional[Sequence[int]] = None,
+                   int8_eq_alpha: Optional[float] = None,
+                   int8_bias_correct: bool = False) -> Dict[str, Any]:
+    """The int8 route's state: ``quantize_stofnet`` of ``state`` (on its
+    device) on the whole calibration batch ``calib``, with the overrides
+    of ``models/int8.QCONFIG``, as :func:`make_pipeline` takes it."""
+    qkw, stack = _int8_config(overrides, int8_stack_layers)
+    params = {k: _tensor(v) for k, v in state.items()}
+    return quantize_stofnet(params, calib, stack_layers=stack,
+                            eq_alpha=int8_eq_alpha,
+                            bias_correct=int8_bias_correct, **qkw)
+
+
+def _int8_config(overrides: Mapping[str, Any],
+                 stack_layers: Optional[Sequence[int]]
+                 ) -> Tuple[Dict[str, int], Optional[Tuple[int, ...]]]:
+    """The int8 forward's architecture keywords (the overrides of
+    ``models/int8.QCONFIG``) and its s8 stack convs, None for none."""
+    return ({k: int(v) for k, v in overrides.items() if k in QCONFIG},
+            tuple(int(i) for i in stack_layers) if stack_layers else None)
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+    """A nested dict of tensors copied to ``device``."""
+    if isinstance(tree, Mapping):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
@@ -311,9 +403,9 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
     A length-sharded daemon (``cli/serve.py`` under ``mesh_sp``) reads
     ``pipe.arch``, the family's rule (``parallel/seq.model_arch``), and
     ``pipe.decode(pred)``, the decode (or the regression's reshape) of
-    the joined rows. A windowed family's replicas run ``pipe.heatmap(x,
-    **kw)``, the forward alone on a shard's window (``kw``: the unet's
-    ``shard``), as StofNet's do. Zonzini and Kuleshov join inside their
+    the joined rows. ``pipe.heatmap(x, **kw)`` is the forward alone (the
+    exporter's forward program): a windowed family's replicas run it on a
+    shard's window (``kw``: the unet's ``shard``), as StofNet's do. Zonzini and Kuleshov join inside their
     forward (``parallel/seq.JOINED``): each replica of a dp row runs
     ``pipe.shard(x, shard)``, the forward as a ``parallel/seq.Shard``
     (its window, or Kuleshov's own samples; the joins through the shard's
@@ -356,8 +448,8 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
     pipe.route, pipe.calls = (lambda length: "module"), calls
     pipe.arch, pipe.decode = seq.model_arch(model), torch.inference_mode()(
         finish)
+    pipe.heatmap = torch.inference_mode()(forward)
     if pipe.arch["family"] not in seq.JOINED:
-        pipe.heatmap = torch.inference_mode()(forward)
         return pipe
     arch, own = pipe.arch, []  # own: the shard form's skeleton
 
@@ -552,55 +644,134 @@ def _trace(fn: Callable, inputs: tuple,
     return program
 
 
+class PipelineExport(NamedTuple):
+    """An artifact: the pipeline's forward and decode, two programs.
+
+    ``forward`` takes a (batch, 1, n) f32 window and gives its heatmap
+    (or a regression family's prediction); a windowed family's is
+    polymorphic in n on its grid, ``grid * k + length % grid`` (k >= 2),
+    so that one program serves every window ``parallel/seq.windows``
+    makes, at any sp that divides the length; the Wave-U-Net's also takes
+    the window's start and the row's length (0-d int64 tensors), which its
+    resample reads. ``decode`` takes the whole rows' (batch, ...) output
+    at the static length. ``meta`` is what :func:`load_pipeline` reads
+    (JSON): the length, the batch (an int, or a polymorphic batch's
+    name), ``input_enc``, the rule ``arch`` (``parallel/seq.model_arch``),
+    ``sp`` (``windows``; ``row``, GradPeak's whole-row window; ``joins``,
+    a forward that joins inside, which sp does not serve yet),
+    ``takes_where`` and ``device``, under ``format`` 2."""
+    forward: torch.export.ExportedProgram
+    decode: torch.export.ExportedProgram
+    meta: Dict[str, Any]
+
+
+class _Where(NamedTuple):
+    """A window's place, as an exported forward takes it: what the
+    Wave-U-Net's forward reads of a ``parallel/seq.Shard``."""
+    window: Tuple[torch.Tensor, None]
+    length: torch.Tensor
+
+
+def _sp_rule(arch: Mapping[str, Any]) -> str:
+    """How an artifact's forward serves under sp (``PipelineExport``)."""
+    family = seq.family_of(arch)
+    if arch.get("int8") or family in seq.JOINED:
+        return "joins"
+    return "row" if arch.get("reach") == seq.ROW else "windows"
+
+
+def _export(pipe: Callable, pipe_of: Callable, weights: Optional[dict],
+            batch: Union[int, str], length: int, enc: Optional[str],
+            device: torch.device) -> PipelineExport:
+    """The two programs of ``pipe`` (:class:`PipelineExport`): the forward
+    ``pipe_of(*weights).heatmap`` on ``(*weights, x, *where)``, traced on
+    an example of the whole row, then ``pipe.decode`` on the example's
+    output."""
+    kind, n = parse_input_enc(enc)
+    if kind == "s8c":
+        chunk_len(length, n)  # the chunk count divides the length
+    arch, rule = dict(pipe.arch), _sp_rule(pipe.arch)
+    grid = int(arch.get("grid", arch.get("semi_global_scale", 1)))
+    poly = isinstance(batch, str)
+    bdim = torch.export.Dim(batch, min=1) if poly else None
+    x = torch.zeros((EXAMPLE_BATCH if poly else int(batch), 1, length),
+                    device=device)
+    where = seq.family_of(arch) == "unet"
+    if rule == "windows":
+        k = torch.export.Dim("k", min=2, max=max(2, length // grid))
+        ldim = grid * k + length % grid if grid > 1 else k
+    else:
+        ldim = None
+    at = ((torch.tensor(0, device=device),
+           torch.tensor(length, device=device)) if where else ())
+    dims = {i: d for i, d in ((0, bdim), (2, ldim)) if d is not None} or None
+    first = 0 if weights is None else 1
+
+    def forward(*inputs):
+        x, place = inputs[first], inputs[first + 1:]
+        kw = {"shard": _Where((place[0], None), place[1])} if place else {}
+        return pipe_of(*inputs[:first]).heatmap(x, **kw)
+
+    given = () if weights is None else (weights,)
+    fwd = _trace(forward, (*given, x, *at),
+                 (*(dict.fromkeys(w) for w in given), dims,
+                  *[None] * len(at)))
+    dec = _trace(pipe.decode, (forward(*given, x, *at),),
+                 ({0: bdim} if poly else None,))
+    meta = dict(format=ARTIFACT_FORMAT, length=int(length), batch=batch,
+                input_enc=enc or "f32", arch=arch, sp=rule,
+                takes_where=where, device=str(device))
+    return PipelineExport(fwd, dec, meta)
+
+
 def export_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
                     batch: Union[int, str], length: int, *,
                     device: DeviceLike = None,
-                    **pipe_kwargs) -> torch.export.ExportedProgram:
+                    **pipe_kwargs) -> PipelineExport:
     """``make_pipeline(state, overrides, device=device, **pipe_kwargs)``
-    traced for a (batch, 1, length) input (the inputs of
-    :func:`encoded_input_specs` with ``input_enc=``) on ``device`` (the
-    card when None). The length is static; ``batch`` an int or a name
-    (one batch-polymorphic program). The weights, the int8 route's
-    calibrated state and the kernels' weight layouts are baked in as
-    constants; the kernels appear as their custom ops."""
+    exported as its forward and its decode (:class:`PipelineExport`) for
+    (batch, 1, length) rows on ``device`` (the card when None): the
+    length static (a windowed family's forward also takes its windows),
+    ``batch`` an int or a name (batch-polymorphic). The weights, the int8
+    route's calibrated state and the kernels' weight layouts are baked in
+    as constants; the kernels appear as their custom ops. With
+    ``input_enc=`` the artifact takes that encoding: the host encodes,
+    the serving device dequantizes (:func:`dequantize`), and the forward
+    takes the dequantized f32 window, so one program serves whole rows
+    and windows alike."""
     device = resolve_device(device)
-    examples, dynamic = encoded_input_specs(pipe_kwargs.get("input_enc"),
-                                            batch, length, device)
+    enc = pipe_kwargs.pop("input_enc", None)
     pipe = make_pipeline(state, overrides, device=device, **pipe_kwargs)
-    return _trace(pipe, examples, dynamic)
+    return _export(pipe, lambda: pipe, None, batch, length, enc, device)
 
 
 def export_pipeline_weightless(
         state: Mapping[str, Any], overrides: Dict[str, Any],
         batch: Union[int, str], length: int, *, device: DeviceLike = None,
-        **pipe_kwargs) -> Tuple[torch.export.ExportedProgram,
-                                Dict[str, np.ndarray]]:
+        **pipe_kwargs) -> Tuple[PipelineExport, Dict[str, np.ndarray]]:
     """:func:`export_pipeline` with the state dict (reference torch names)
-    as the program's first input instead of constants: returns the program
-    and the weights to save as its sidecar (``save_pipeline(path, program,
-    weights=...)``). The kernels' weight layouts are then traced into the
-    program and run on every call. int8 is refused, as in JAX: its
-    calibrated state is baked by design."""
+    as the forward's first input instead of constants: returns the
+    artifact and the weights to save as its sidecar (``save_pipeline(path,
+    artifact, weights=...)``). The kernels' weight layouts are then traced
+    into the forward and run on every call. int8 is refused, as in JAX:
+    its calibrated state is baked by design."""
     if (pipe_kwargs.get("int8_calib") is not None
             or pipe_kwargs.get("int8_stack_layers")):
         raise ValueError("bake_weights=False does not compose with int8 "
                          "exports (the quantized state is baked by "
                          "design); drop int8_calib or bake the weights")
     device = resolve_device(device)
+    enc = pipe_kwargs.pop("input_enc", None)
     weights = {k: _tensor(v).to(device) for k, v in state.items()}
     # checks the state and builds the module route's skeleton outside the
     # trace, where the pipeline traced below finds it
-    make_pipeline(weights, overrides, device=device, **pipe_kwargs)
-    examples, dynamic = encoded_input_specs(pipe_kwargs.get("input_enc"),
-                                            batch, length, device)
+    pipe = make_pipeline(weights, overrides, device=device, **pipe_kwargs)
 
-    def pipe_w(weights, *data):
-        return make_pipeline(weights, overrides, device=device,
-                             **pipe_kwargs)(*data)
+    def pipe_of(w):
+        return make_pipeline(w, overrides, device=device, **pipe_kwargs)
 
-    program = _trace(pipe_w, (weights, *examples),
-                     (dict.fromkeys(weights), *dynamic))
-    return program, {k: v.cpu().numpy() for k, v in weights.items()}
+    art = _export(pipe, pipe_of, weights, batch, length, enc, device)
+    return art, {k: v.cpu().numpy() for k, v in weights.items()}
 
 
 def _flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -627,15 +798,20 @@ def _unflatten_tree(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def save_pipeline(path: Union[str, Path],
-                  program: torch.export.ExportedProgram,
+def save_pipeline(path: Union[str, Path], artifact: PipelineExport,
                   weights: Optional[Mapping[str, Any]] = None) -> Path:
-    """Write the program (``torch.export.save``); with ``weights`` (a
-    weightless export's) also the ``<path>.weights.npz`` sidecar that
+    """Write the artifact: one zip of its manifest (``meta``) and its two
+    programs (``torch.export.save`` each); with ``weights`` (a weightless
+    export's) also the ``<path>.weights.npz`` sidecar that
     :func:`load_pipeline` finds."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.export.save(program, str(path))
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
+        z.writestr(MANIFEST, json.dumps(artifact.meta))
+        for name in ("forward", "decode"):
+            buf = io.BytesIO()
+            torch.export.save(getattr(artifact, name), buf)
+            z.writestr(f"{name}.pt2", buf.getvalue())
     if weights is not None:
         np.savez(str(path) + ".weights.npz", **_flatten_tree(weights))
     return path
@@ -667,25 +843,129 @@ def _spec(val: torch.Tensor) -> TensorSpec:
 
 def load_pipeline(path: Union[str, Path], device: DeviceLike = None
                   ) -> Callable:
-    """Load a program of :func:`save_pipeline`; returns ``f(x) -> coords``
-    on the program's device, with no model code or checkpoint. A
-    ``<path>.weights.npz`` sidecar (a weightless export's) is found and
+    """Load an artifact of :func:`save_pipeline`; returns ``f(x) ->
+    coords`` on ``device`` (the device it was exported for when None),
+    with no model code or checkpoint: ``decode(forward(x))``, the rows of
+    the one program of an artifact written before the forward and the
+    decode were exported apart. On another device of the same kind (a
+    card of a mesh) the programs are moved there
+    (``torch.export.passes.move_to_device_pass``: the baked weights and
+    the kernels' weight layouts copied, bit for bit); another kind of
+    device raises, because the device chooses the route (``fused_takes``).
+    A ``<path>.weights.npz`` sidecar (a weightless export's) is found and
     copied to the device once. Host arrays are copied onto the device
-    before each call (the program asserts its inputs' device and type),
-    and the call runs under ``full_f32`` (no TF32) and inference mode.
+    before each call, and the call runs under ``full_f32`` (no TF32) and
+    inference mode.
 
-    An encoded-input program (``input_enc=``) is recognized from its
-    inputs (:func:`_detect_input_enc`): ``f`` still takes f32 waveforms
+    An encoded-input artifact (``input_enc=``) still takes f32 waveforms
     and encodes them on the host. Attributes as JAX's, under torch names:
     ``in_specs`` (the waveform input; its batch an int or a symbol's
-    name), ``input_enc``, ``encode``, ``raw_call`` (the program on the
-    encoded inputs), ``raw_in_specs`` and ``device``.
-
-    A program serves on the device it was exported for: ``device=``
-    another one raises (a departure from JAX's artifacts, lowered for the
-    CPU and the TPU at once)."""
+    name), ``input_enc``, ``encode``, ``raw_call`` (the artifact on the
+    encoded inputs), ``raw_in_specs`` and ``device``; and, as
+    ``make_pipeline``'s, ``heatmap(x[, shard=])`` (the forward program on
+    a dequantized f32 window; the Wave-U-Net's reads the shard's place),
+    ``decode``, ``arch`` and ``length``, and ``sp``, how it serves under
+    sp (:class:`PipelineExport`; None for an artifact of one program,
+    which serves at sp = 1 only)."""
     # the custom ops a program names are registered on import
     import stofnet_tpu_torch.ops.kernels  # noqa: F401
+    with zipfile.ZipFile(path) as z:
+        if MANIFEST not in z.namelist():
+            return _load_one_program(path, device)
+        meta = json.loads(z.read(MANIFEST))
+        if meta.get("format") != ARTIFACT_FORMAT:
+            raise ValueError(f"load_pipeline: {path} has layout "
+                             f"{meta.get('format')}, not {ARTIFACT_FORMAT}")
+        programs = [torch.export.load(io.BytesIO(z.read(f"{n}.pt2")))
+                    for n in ("forward", "decode")]
+    where = _serving_device(path, torch.device(meta["device"]), device)
+    if where != torch.device(meta["device"]):
+        programs = [move_to_device_pass(p, where) for p in programs]
+    fwd, dec = (p.module() for p in programs)
+    weights = _sidecar(path, where)
+    enc, length = meta["input_enc"], int(meta["length"])
+    batch = meta["batch"]
+    kind, n = parse_input_enc(enc)
+    # the encoded inputs' specs, as the program of one artifact took them
+    examples, _ = encoded_input_specs(enc, 1, length, "meta")
+    specs = [TensorSpec((batch, *v.shape[1:]), v.dtype) for v in examples]
+
+    def heatmap(x, shard=None) -> torch.Tensor:
+        x = torch.as_tensor(x).to(device=where, dtype=torch.float32)
+        at = ()
+        if meta["takes_where"]:
+            start, rows = ((0, x.shape[-1]) if shard is None
+                           else (shard.window[0], shard.length))
+            at = (torch.tensor(start, device=where),
+                  torch.tensor(rows, device=where))
+        with torch.inference_mode(), full_f32():
+            return fwd(*weights, x, *at)
+
+    def decode(heat) -> torch.Tensor:
+        with torch.inference_mode(), full_f32():
+            return dec(heat)
+
+    def raw_call(*inputs) -> torch.Tensor:
+        inputs = [torch.as_tensor(a).to(s.dtype)
+                  for a, s in zip(inputs, specs)]
+        return decode(heatmap(dequantize(inputs, enc, 0, length, where)))
+
+    call = _serving_call(raw_call, enc, specs, where)
+    call.heatmap, call.decode, call.length = heatmap, decode, length
+    call.arch, call.sp = meta["arch"], meta["sp"]
+    return call
+
+
+def _serving_device(path, exported: torch.device,
+                    device: DeviceLike) -> torch.device:
+    """The device an artifact serves on: ``device``, or the one it was
+    exported for when None; another kind of device raises."""
+    where = exported if device is None else torch.device(device)
+    if where.type == "cuda" and where.index is None:
+        where = torch.device("cuda", 0)
+    if where.type != exported.type:
+        raise ValueError(f"load_pipeline: {path} was exported for "
+                         f"{exported} and serves on a device of that kind, "
+                         f"not on {where}; export it again with "
+                         f"device={where}")
+    return where
+
+
+def _sidecar(path, where: torch.device) -> tuple:
+    """A weightless artifact's ``<path>.weights.npz`` on ``where``, as the
+    program's first input; () without one."""
+    sidecar = Path(str(path) + ".weights.npz")
+    if not sidecar.exists():
+        return ()
+    with np.load(sidecar) as z:
+        return (_unflatten_tree({k: torch.from_numpy(z[k]).to(where)
+                                 for k in z.files}),)
+
+
+def _serving_call(raw_call: Callable, enc: str, specs: Sequence[TensorSpec],
+                  where: torch.device) -> Callable:
+    """``f(x)`` on f32 waveforms, encoding them on the host, with the
+    attributes :func:`load_pipeline` names."""
+    encode = make_input_encoder(enc)
+    if enc == "f32":
+        call = raw_call
+    else:
+        def call(x):
+            return raw_call(*encode(x))
+    call.in_specs = (TensorSpec(specs[0].shape, torch.float32),)
+    call.input_enc = enc
+    call.encode = encode
+    call.raw_call = raw_call
+    call.raw_in_specs = tuple(specs)
+    call.device = where
+    return call
+
+
+def _load_one_program(path, device: DeviceLike) -> Callable:
+    """An artifact written before the forward and the decode were
+    exported apart: one ``torch.export`` program of the whole pipeline,
+    on the device it was exported for (``device=`` another one raises). It
+    serves whole rows, so not under sp (``sp`` None)."""
     program = torch.export.load(str(path))
     user = set(program.graph_signature.user_inputs)
     vals = [n.meta["val"] for n in program.graph.nodes
@@ -697,12 +977,7 @@ def load_pipeline(path: Union[str, Path], device: DeviceLike = None
         raise ValueError(f"load_pipeline: {path} was exported for {where} "
                          f"and serves there, not on {torch.device(device)}; "
                          f"export it again with device={torch.device(device)}")
-    sidecar = Path(str(path) + ".weights.npz")
-    weights = ()
-    if sidecar.exists():
-        with np.load(sidecar) as z:
-            weights = (_unflatten_tree({k: torch.from_numpy(z[k]).to(where)
-                                        for k in z.files}),)
+    weights = _sidecar(path, where)
     module = program.module()
     specs = [_spec(v) for v in data]
 
@@ -712,16 +987,6 @@ def load_pipeline(path: Union[str, Path], device: DeviceLike = None
         with torch.inference_mode(), full_f32():
             return module(*weights, *inputs)
 
-    encode = make_input_encoder(enc)
-    if enc == "f32":
-        call = raw_call
-    else:
-        def call(x):
-            return raw_call(*encode(x))
-    call.in_specs = tuple(specs[:1])
-    call.input_enc = enc
-    call.encode = encode
-    call.raw_call = raw_call
-    call.raw_in_specs = tuple(specs)
-    call.device = where
+    call = _serving_call(raw_call, enc, specs, where)
+    call.sp = None
     return call

@@ -66,8 +66,10 @@ def poly(weights, tmp_path_factory):
     return program, load_pipeline(save_pipeline(path, program)), path
 
 
-def _ops(program):
-    return [str(n.target) for n in program.graph.nodes
+def _ops(artifact):
+    """The kernels' custom ops in an artifact's two programs."""
+    return [str(n.target) for p in (artifact.forward, artifact.decode)
+            for n in p.graph.nodes
             if n.op == "call_function" and "stofnet_torch" in str(n.target)]
 
 

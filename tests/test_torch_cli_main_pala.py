@@ -162,10 +162,13 @@ def test_dataset_and_batches_are_jax_bit_for_bit(kind, evaluate, roots,
 
 
 def test_driver_takes_pala_and_rat_paths(roots, tmp_path):
-    """The refusal of PALA and rat data is gone; mesh_sp > 1 is still
-    refused for them (ROADMAP A.6c, ``tests/test_torch_cli_mesh_sp.py``)."""
+    """The refusal of PALA and rat data is gone, and so is the driver's
+    table of what it refused: under mesh_sp > 1 they run too, int8 as
+    well (``tests/test_torch_cli_mesh_sp.py``,
+    ``tests/test_torch_sp_int8.py``)."""
     assert pmain.dataset_kind(str(roots["pala"])) == "pala"
     assert pmain.dataset_kind(str(roots["rat"])) == "rat"
-    assert "pala" not in pmain._LATER and "mesh_sp" in pmain._LATER
+    assert not hasattr(pmain, "_LATER") and not hasattr(pmain,
+                                                        "_sp_refusals")
     assert pmain.unet_layers("pala") == pmain.unet_layers("rat") == 10
     assert pmain.unet_layers("chirp") == 2

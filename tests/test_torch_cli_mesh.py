@@ -246,13 +246,14 @@ def test_mesh_daemon_rows_equal_the_daemons(served, source):
      "by the dp mesh size 2"),
     (dict(artifact=4, max_batch=4), "exported at batch=4 runs that whole "
      "batch on each of the dp=2 replicas"),
-    (dict(mesh_sp=2, input_enc="s16"), "A.6c"),
+    (dict(mesh_sp=2, input_enc="s8c3"), "chunk count 3"),
 ])
 def test_mesh_daemon_refusals(served, over, match):
     """tests/test_serving_codecs.py:254: JAX's refusals; a fixed
     artifact's batch is its max_batch. A fixed artifact whose batch dp
     divides is refused too: each replica runs the program's whole batch
-    (a departure; JAX's one program takes a slice a device)."""
+    (a departure; JAX's one program takes a slice a device). On a dp x sp
+    mesh, an s8c chunk count that sp does not divide, as JAX's jit."""
     d, _, fixed, _ = served
     args = {"model_file": "armadillo", "ckpt_dir": str(d), "length": LENGTH,
             "device": "cpu", "dtype": "float32", "port": 0, **MESH}

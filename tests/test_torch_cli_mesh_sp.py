@@ -1,8 +1,8 @@
 """``mesh=True mesh_sp=N`` in the port's entry points, on the CPU: the
 driver (``cli/main.py``, StofNet on chirp data, train and evaluate) and
 the daemon (``cli/serve.py``, replicas in one process), against their
-runs without a mesh, and every refusal of what sp does not shard yet
-(ROADMAP A.6c).
+runs without a mesh, and every refusal of what sp does not serve yet
+(ROADMAP A.6d).
 
 Each driver run on a mesh starts its own gloo ranks (this process rank
 0). Data: the chirp stand-in of ``tests/test_torch_cli_mesh.py`` (rf 4,
@@ -37,7 +37,8 @@ from stofnet_tpu_torch.models.torch_import import (
 from stofnet_tpu_torch.parallel.mesh import live
 from stofnet_tpu_torch.scripts import mesh_serve_check
 from stofnet_tpu_torch.serve import (
-    export_pipeline, make_pipeline, save_pipeline,
+    _trace, encoded_input_specs, export_pipeline, make_pipeline,
+    save_pipeline,
 )
 from stofnet_tpu_torch.serving import ServingClient
 from stofnet_tpu_torch.train.checkpoint import save_checkpoint
@@ -117,14 +118,16 @@ def test_evaluate_on_the_sp_mesh_matches_one_device(chirp, over):
 
 
 @pytest.mark.parametrize("over,error,match", [
-    (dict(evaluate=True, int8=True), SystemExit, "int8=True.*A.6c"),
+    (dict(evaluate=True, int8=True, mesh_sp=3), Exception,
+     "sample length 1600 not divisible by mesh_sp=3"),
     (dict(mesh_sp=3, epochs=1), Exception,
      "sample length 1600 not divisible by mesh_sp=3"),
 ], ids=["int8", "length"])
 def test_driver_sp_refusals(chirp, over, error, match):
-    """int8 refused before any rank starts, naming the next slice of
-    ROADMAP A.6c; a length that sp does not divide refused by the ranks as
-    JAX's ``_shard_inputs`` refuses it."""
+    """A length that sp does not divide refused by the ranks as JAX's
+    ``_shard_inputs`` refuses it, for the int8 evaluation too, which now
+    runs under sp as every route does
+    (``tests/test_torch_sp_int8.py``)."""
     root, base = chirp
     with pytest.raises(error, match=match):
         pmain.run(_cfg(base, root, **{**SP, **over}))
@@ -295,19 +298,42 @@ def test_sp_daemon_rows_equal_the_direct_pipeline(served, dtype, length,
 
 @pytest.mark.parametrize("over,match", [
     (dict(mesh_sp=3), "sample length 800 not divisible by mesh_sp=3"),
-    (dict(input_enc="s16"), "input_enc=s16.*A.6c"),
-    (dict(int8_calib="calib.npy"), "int8 route.*A.6c"),
-    (dict(artifact=True), "artifact=.*A.6c"),
+    (dict(mesh_sp=4, input_enc="s8c6"), "input_enc=s8c6 under mesh_sp=4.*"
+     "sp must divide the chunk count 6"),
+    (dict(artifact="int8"), "joins inside.*int8.*A.6d"),
+    (dict(artifact="one program"), "one program.*export it again"),
 ], ids=["length", "input_enc", "int8", "artifact"])
-def test_sp_daemon_refusals(served, over, match):
-    """JAX's refusal of a length sp does not divide, and what sp does not
-    shard yet, each naming the next slice of ROADMAP A.6c."""
-    d, _, art, _ = served
+def test_sp_daemon_refusals(served, over, match, tmp_path):
+    """JAX's refusals of a length sp does not divide and of s8c chunks sp
+    does not divide; an int8 artifact, whose forward joins inside,
+    naming ROADMAP A.6d; an artifact of one program (the layout before
+    the forward and the decode were exported apart), which decodes whole
+    rows and is exported again to serve under sp."""
+    d, state, _, _ = served
     args = _args(d, **over)
-    if over.get("artifact"):
+    if over.get("artifact") == "int8":
+        art = save_pipeline(tmp_path / "i8.pt2", export_pipeline(
+            state, {"upsample_factor": 4}, "b", LENGTH, device="cpu",
+            max_echoes=8, int8_calib=gate_batch(
+                4, LENGTH, np.random.default_rng(1))))
         args = {"artifact": str(art), "port": 0, **SP}
+    elif over.get("artifact"):
+        args = {"artifact": str(one_program_artifact(
+            tmp_path / "one.pt2", state, LENGTH)), "port": 0, **SP}
     with pytest.raises(SystemExit, match=match):
         build(args)
+
+
+def one_program_artifact(path, state, length, **kw):
+    """An artifact as the exporter wrote it before the forward and the
+    decode were exported apart: ``torch.export.save`` of one program of
+    the whole pipeline, batch-polymorphic, on the CPU."""
+    pipe = make_pipeline(state, {"upsample_factor": 4}, device="cpu",
+                         max_echoes=8, **kw)
+    examples, dynamic = encoded_input_specs(kw.get("input_enc"), "b",
+                                            length)
+    torch.export.save(_trace(pipe, examples, dynamic), str(path))
+    return path
 
 
 @pytest.fixture(scope="module")
