@@ -234,7 +234,8 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    (``artifact=``), one request of B rows each, every row the direct
    pipeline's. Prints per family export and load seconds, file and
    sidecar sizes, ms a batch beside the direct pipeline's, rows equal,
-   and the phase's seconds.
+   and the phase's seconds. The bf16 artifacts of ESPCN, the unet,
+   GradPeak, Zonzini and Kuleshov stay for the sp-serving phase.
 14. The PALA phase: ``data/pala.generate_pala_dataset`` at
    ``scripts/pala_bmode_figure.py``'s geometry (128 channels, 1024
    samples, 3 angles, 24 frames a sequence, 2 sequences, 3 targets) under
@@ -376,16 +377,31 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    serving kernels sp times a request through their custom ops, ms a
    request beside sp=1's; the zoo export phase's bf16 artifacts of
    ESPCN, the Wave-U-Net and GradPeak at ``mesh_sp=2``, rows equal to
-   sp=1's; ``input_enc`` = bf16, s16 and s8c16 from the data phase's
-   checkpoint and an s8c16 artifact exported here at ``mesh_sp=2``, rows
-   equal to sp=1's, the bytes copied to the replicas a request beside
-   sp=1's, and ``s8c6`` refused at sp=4; the int8 route from the
-   checkpoint (``int8_calib=`` the int8 phase's batch), default and with
-   every stack conv in s8, bf16 and f32, at sp = 2 and 4, rows equal to
-   the single int8 pipeline's, ms a batch; and ``cli/main.py
+   sp=1's; its bf16 artifacts of Zonzini (baked) and Kuleshov
+   (weightless), whose forward joins inside (the stage programs, each
+   replica's stages as its shard on a thread), at ``mesh_sp=2``, rows
+   equal to the daemon's from the zoo phase's checkpoint at
+   ``mesh_sp=2`` and to sp=1's as the zoo-sp phase holds a sharded
+   forward (bit for bit, or JAX's gate: Kuleshov's dense head sums its
+   partial products in another order), ms a request; ``input_enc`` =
+   bf16, s16 and s8c16 from the data phase's checkpoint and an s8c16
+   artifact exported here at ``mesh_sp=2``, rows equal to sp=1's, the
+   bytes copied to the replicas a request beside sp=1's, and ``s8c6``
+   refused at sp=4; the
+   int8 route from the checkpoint (``int8_calib=`` the int8 phase's
+   batch), default and with every stack conv in s8, bf16 and f32, at sp
+   = 2 and 4, rows equal to the single int8 pipeline's, ms a batch; the
+   bf16 int8 artifact of each stack, exported here through
+   ``cli/export.py`` with the same ``int8_calib=`` (its forward the
+   stages cut at each dynamic activation scale), at sp = 1, 2 and 4,
+   rows equal to the direct int8 route's at the same sp, ms a request
+   beside it, and at sp=1 ms a batch and the host's ms of its forward's
+   call beside the direct int8 pipeline's; and ``cli/main.py
    evaluate=True int8=True`` at dp=1, sp=2 on the mesh phase's two gloo
    ranks (run by them) against one process, by
-   ``tests/test_cli_e2e.py:241``'s gates. Prints the phase's seconds.
+   ``tests/test_cli_e2e.py:241``'s gates. The int8, Zonzini and Kuleshov
+   routes launch none of the seven kernels (JAX's counterparts reach no
+   ``pallas_call``): held at 0. Prints the phase's seconds.
 21. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
    launches of its paths: the serving, bench, training, probe, daemon,
    export, PALA serving, mesh daemon, sp and sp-serving runs, each
@@ -413,6 +429,7 @@ import sys
 import tempfile
 import threading
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -473,8 +490,8 @@ from stofnet_tpu_torch.scripts.mesh_serve_check import (
 )
 from stofnet_tpu_torch.scripts import pala_bmode_figure as figure
 from stofnet_tpu_torch.serve import (
-    export_pipeline, export_pipeline_weightless, load_pipeline, make_pipeline,
-    module_coords, probe_dtype_agreement, save_pipeline,
+    MANIFEST, export_pipeline, export_pipeline_weightless, load_pipeline,
+    make_pipeline, module_coords, probe_dtype_agreement, save_pipeline,
 )
 from stofnet_tpu_torch.serving import (
     ServingClient, decode_payload, encode_rows,
@@ -592,6 +609,9 @@ SP_ENCODINGS = ("bf16", "s16", "s8c16")
 SP_ENC_ARTIFACT = "s8c16"
 SP_INT8 = (2, 4)
 SP_INT8_STACK = tuple(range(2, 13))
+SP_INT8_CALLS = 5  # calls of the int8 artifact and pipeline at sp=1, timed
+# the zoo export phase's artifacts whose forward joins inside (its stages)
+SP_JOINED_ZOO = ("zonzini", "kuleshov")
 ZOO_SP_BATCHES = 1  # timed batches of each (family, dtype, sp), after one
 ZOO_SP_PALA = ("unet", "espcn")  # on PALA data at L_PALA
 ZOO_SP_STEP_L = {"kuleshov": 2000}
@@ -2515,8 +2535,10 @@ def zoo_export_family(dev, name: str, work: Path, ckpts: dict,
     daemon twice at bf16, from the checkpoint (``model=``) and from the
     bf16 artifact (``artifact=``), one request of B rows each, held to
     the bf16 direct pipeline. Every row must equal the direct pipeline's
-    bit for bit. The bf16 artifacts of SP_ARTIFACT_ZOO stay for the
-    sp-serving phase; returns the bf16 artifact's path."""
+    bit for bit. The bf16 artifacts of SP_ARTIFACT_ZOO and SP_JOINED_ZOO
+    stay for the sp-serving phase, with their daemon's rows (sp=1's) of
+    a second, warm request of the same B rows: returns its ``path``, the
+    ``rows``, their ``coords`` and ``ms`` (None for the other families)."""
     t_family = time.perf_counter()
     length = zoo_length(name)
     base = zoo_export_argv(name, work, ckpts)
@@ -2599,6 +2621,12 @@ def zoo_export_family(dev, name: str, work: Path, ckpts: dict,
                 t0 = time.perf_counter()
                 rows = np.asarray(cli.infer(x[:, 0]))
                 request_ms = (time.perf_counter() - t0) * 1e3
+                if src == "artifact" and name in SP_ARTIFACT_ZOO + \
+                        SP_JOINED_ZOO:  # a warm request, sp=1's for later
+                    t0 = time.perf_counter()
+                    again = torch.from_numpy(np.asarray(cli.infer(x[:, 0])))
+                    kept = dict(rows=x, coords=again,
+                                ms=(time.perf_counter() - t0) * 1e3)
         finally:
             server.shutdown()
             server.server_close()
@@ -2611,26 +2639,32 @@ def zoo_export_family(dev, name: str, work: Path, ckpts: dict,
                                  f"{src} differs from make_pipeline: {res}")
     del direct
     for label, path in paths.items():
-        if label == "bf16" and name in SP_ARTIFACT_ZOO:
+        if label == "bf16" and name in SP_ARTIFACT_ZOO + SP_JOINED_ZOO:
             continue
         for f in (path, Path(str(path) + ".weights.npz")):
             f.unlink(missing_ok=True)
     res["s"] = time.perf_counter() - t_family
     log(f"zoo export phase, {name}: {json.dumps(res)}")
-    return paths["bf16"]
+    if name in SP_ARTIFACT_ZOO + SP_JOINED_ZOO:
+        if not torch.equal(kept["coords"], torch.from_numpy(rows)):
+            raise AssertionError(f"zoo export {name}: the artifact's daemon "
+                                 f"answered one request twice differently")
+        return dict(kept, path=paths["bf16"])
+    return None
 
 
 def zoo_export_path(dev, work: Path, ckpts: dict, rng) -> dict:
     """The zoo export phase (item 13 of the module docstring), the launch
     counts set to 0 before it and held at 0 after it. Returns the bf16
-    artifacts of SP_ARTIFACT_ZOO by family."""
+    artifacts of SP_ARTIFACT_ZOO and SP_JOINED_ZOO by family, each with
+    its daemon's rows at sp=1 (:func:`zoo_export_family`)."""
     t_phase = time.perf_counter()
     reset_launch_counts()
     kept = {}
     for name in ZOO:
-        path = zoo_export_family(dev, name, work, ckpts, rng)
-        if name in SP_ARTIFACT_ZOO:
-            kept[name] = path
+        sp1 = zoo_export_family(dev, name, work, ckpts, rng)
+        if sp1 is not None:
+            kept[name] = sp1
     launched = {k: v for k, v in counts().items() if v}
     if launched:
         raise AssertionError(f"zoo export phase: a kernel launched: "
@@ -3937,14 +3971,14 @@ def sp_artifacts(dev, state, arts: dict, rng) -> dict:
     return launches
 
 
-def sp_zoo_artifacts(zoo_arts: dict, rng) -> None:
+def sp_zoo_artifacts(zoo_arts: dict) -> None:
     """The zoo export phase's bf16 artifacts of SP_ARTIFACT_ZOO at
-    ``mesh_sp=2``: rows equal to the same artifact's at sp=1, no kernel
+    ``mesh_sp=2``: rows equal to the same artifact's at sp=1 (its
+    daemon's in the zoo export phase, on the same rows), no kernel
     launched."""
-    for name, path in zoo_arts.items():
-        rows = gate_batch(B, zoo_length(name), rng)
-        one = sp_request({"artifact": str(path)}, rows)
-        got = sp_request({"artifact": str(path), "mesh_sp": 2}, rows)
+    for name, one in zoo_arts.items():
+        got = sp_request({"artifact": str(one["path"]), "mesh_sp": 2},
+                         one["rows"])
         res = dict(equal_sp1=bool(torch.equal(got["coords"], one["coords"])),
                    launches=got["launches"], ms_per_request=got["ms"],
                    sp1_ms_per_request=one["ms"])
@@ -3997,16 +4031,21 @@ def sp_encoded(dev, state, work: Path, stofnet_ckpt: str, rng) -> dict:
     return launches
 
 
-def sp_int8(dev, work: Path, stofnet_ckpt: str, rng) -> None:
+def sp_int8(dev, work: Path, stofnet_ckpt: str, rng) -> dict:
     """The int8 route from the data phase's checkpoint under ``mesh_sp``
     = 2 and 4, calibrated on the int8 phase's batch (``int8_calib=``),
     default and with every stack conv in s8 (``int8_stack=``), bf16 and
-    f32: rows equal to the single int8 pipeline's, ms a batch."""
+    f32: rows equal to the single int8 pipeline's, ms a batch. In bf16
+    also the int8 artifact of each (``cli/export.py`` with the same
+    ``int8_calib=``, its forward the stages, :func:`sp_int8_artifact`).
+    Returns the seconds of the artifacts' part."""
     calib = gate_batch(B, L, np.random.default_rng(SEED + 4))
-    np.save(work / "sp_int8_calib.npy", calib)
+    calib_path = work / "sp_int8_calib.npy"
+    np.save(calib_path, calib)
     state = load_model_variables("stofnet", find_checkpoint(
         work / "ckpts", stofnet_ckpt))
     rows = gate_batch(B, L, rng)
+    artifact_s = 0.0
     for stack in (None, SP_INT8_STACK):
         for label, dtype in (("bf16", torch.bfloat16),
                              ("f32", torch.float32)):
@@ -4022,11 +4061,12 @@ def sp_int8(dev, work: Path, stofnet_ckpt: str, rng) -> None:
             single_ms = (time.perf_counter() - t0) * 1e3
             args = {"model_file": stofnet_ckpt, "length": L,
                     "ckpt_dir": str(work / "ckpts"), "dtype": label,
-                    "int8_calib": str(work / "sp_int8_calib.npy"),
+                    "int8_calib": str(calib_path),
                     "max_echoes": DECODE["max_echoes"]}
             if stack:
                 args["int8_stack"] = ",".join(map(str, stack))
             name = f"int8 {label}{' stack' if stack else ''}"
+            direct = {}
             for sp in SP_INT8:
                 got = sp_request(dict(args, mesh_sp=sp), rows)
                 res = dict(equal_single=bool(torch.equal(got["coords"],
@@ -4037,6 +4077,122 @@ def sp_int8(dev, work: Path, stofnet_ckpt: str, rng) -> None:
                 if not res["equal_single"] or got["launches"]:
                     raise AssertionError(f"sp-serving phase, {name} "
                                          f"sp={sp}: {res}")
+                direct[sp] = got
+            if label == "bf16":
+                t0 = time.perf_counter()
+                direct[1] = dict(coords=want, ms=single_ms)
+                sp_int8_artifact(work, name, args, rows, single, direct)
+                artifact_s += time.perf_counter() - t0
+    return {"int8_artifacts": artifact_s}
+
+
+def sp_int8_artifact(work: Path, name: str, args: dict, rows: np.ndarray,
+                     single, direct: dict) -> None:
+    """The int8 artifact of the daemon's checkpoint arguments ``args``
+    through ``cli/export.py`` (batch-polymorphic, bf16, the same
+    ``int8_calib=``; its forward the stages cut at each dynamic scale,
+    their row maxima joined between them), served at ``mesh_sp`` = 1 and
+    SP_INT8: rows equal to the direct int8 route's at the same sp
+    (``direct``, :func:`sp_int8`'s daemon from the checkpoint; at sp=1
+    the single int8 pipeline, a batch's ms), ms a request beside it, no
+    kernel launched. At sp=1 also its
+    ``load_pipeline`` call against the direct pipeline ``single`` on the
+    card: ms a batch (a device sync after each) and the host's ms of the
+    forward's call alone (no sync: the stage programs' host work against
+    the eager forward's), medians of SP_INT8_CALLS after a warm-up."""
+    out = work / f"sp_{name.replace(' ', '_')}.pt2"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        path = cli_export.main([f"{k}={v}" for k, v in args.items()]
+                               + ["batch=b", f"out={out}"])
+    export_s = time.perf_counter() - t0
+    served = load_pipeline(path)
+    res = dict(export_s=export_s, stages=len(served_stages(path)))
+    x = torch.from_numpy(rows).to(served.device)
+    for label, run in (("artifact", served), ("direct", single)):
+        run(rows)
+        ms, host_ms = [], []
+        for _ in range(SP_INT8_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(rows).cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.heatmap(x)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        res[f"{label}_ms_per_batch"] = float(np.median(ms))
+        res[f"{label}_host_ms"] = float(np.median(host_ms))
+    res["host_ms_added"] = res["artifact_host_ms"] - res["direct_host_ms"]
+    if not torch.equal(served(rows).cpu(), single(rows).cpu()):
+        raise AssertionError(f"sp-serving phase, {name} artifact: its rows "
+                             f"differ from the direct pipeline's")
+    log(f"sp-serving phase, {name} artifact at sp=1: {json.dumps(res)}")
+    for sp in (1, *SP_INT8):
+        got = sp_request({"artifact": str(path), "mesh_sp": sp}, rows)
+        res = dict(equal_direct=bool(torch.equal(got["coords"],
+                                                 direct[sp]["coords"])),
+                   ms_per_request=got["ms"],
+                   direct_ms_per_request=direct[sp]["ms"],
+                   launches=got["launches"])
+        log(f"sp-serving phase, {name} artifact sp={sp}: {json.dumps(res)}")
+        if not res["equal_direct"] or got["launches"]:
+            raise AssertionError(f"sp-serving phase, {name} artifact "
+                                 f"sp={sp}: {res}")
+
+
+def served_stages(path: Path) -> list:
+    """The stage records of an artifact's manifest."""
+    with zipfile.ZipFile(path) as z:
+        return json.loads(z.read(MANIFEST))["stages"]
+
+
+def sp_joined_zoo(work: Path, ckpts: dict, zoo_arts: dict) -> None:
+    """The zoo export phase's bf16 artifacts of SP_JOINED_ZOO (Zonzini's
+    baked, Kuleshov's weightless; their forward the stages) at
+    ``mesh_sp=2``: rows equal to the daemon's from the zoo phase's
+    checkpoint at ``mesh_sp=2`` (the zoo-sp phase's direct sp route), bit
+    for bit, and to the same artifact's at sp=1 (its daemon's in the zoo
+    export phase, on the same rows) as the zoo-sp phase holds a sharded
+    forward to the single one (:func:`joined_gate`), ms a request beside
+    both, no kernel launched."""
+    for name in SP_JOINED_ZOO:
+        one = zoo_arts[name]
+        path, rows = one["path"], one["rows"]
+        ckpt = dict(cli_export.parse_args(zoo_export_argv(name, work, ckpts)),
+                    dtype="bfloat16", mesh_sp=2)
+        got = sp_request({"artifact": str(path), "mesh_sp": 2}, rows)
+        direct = sp_request(ckpt, rows)
+        res = dict(joined_gate(name, got["coords"], one["coords"]),
+                   equal_direct=bool(torch.equal(got["coords"],
+                                                 direct["coords"])),
+                   stages=len(served_stages(path)),
+                   launches=got["launches"], ms_per_request=got["ms"],
+                   sp1_ms_per_request=one["ms"],
+                   direct_ms_per_request=direct["ms"])
+        log(f"sp-serving phase, {name} artifact sp=2: {json.dumps(res)}")
+        if not (res["ok"] and res["equal_direct"]) or got["launches"]:
+            raise AssertionError(f"sp-serving phase, {name} artifact: {res}")
+
+
+def joined_gate(name: str, got: torch.Tensor, one: torch.Tensor) -> dict:
+    """A joining family's served rows under sp against its rows at sp=1:
+    bit for bit, or JAX's tolerances (coords within 1 sample on >=
+    AGREE_MIN of the slots; Zonzini's ToA within ZONZINI_RTOL), as
+    :func:`zoo_sp_gate`: Kuleshov's dense head sums its contraction in sp
+    partial products, which cuBLAS sums in another order than one."""
+    res = dict(equal_sp1=bool(torch.equal(got, one)),
+               rows_equal_sp1=f"{equal_rows(got, one)}/{len(got)}")
+    if name == "zonzini":
+        rel = float(((got - one).abs() / one.abs().clamp_min(1e-12)).max())
+        res.update(max_rel_diff=rel, ok=res["equal_sp1"] or
+                   rel <= ZONZINI_RTOL)
+    else:
+        share = float(((got - one).abs() <= 1.0).float().mean())
+        res.update(coord_agreement_sp1=share,
+                   ok=res["equal_sp1"] or share >= AGREE_MIN)
+    return res
 
 
 def sp_int8_driver(run) -> None:
@@ -4060,7 +4216,7 @@ def sp_int8_driver(run) -> None:
 
 
 def sp_serving_path(dev, work: Path, stofnet_ckpt: str, arts: dict,
-                    zoo_arts: dict, int8_run) -> dict:
+                    zoo_arts: dict, ckpts: dict, int8_run) -> dict:
     """The sp-serving phase (item 20 of the module docstring). Returns its
     launches by kernels-line row."""
     t_phase = time.perf_counter()
@@ -4078,15 +4234,20 @@ def sp_serving_path(dev, work: Path, stofnet_ckpt: str, arts: dict,
         launches = sp_artifacts(dev, state, arts, rng)
         seconds["artifacts"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        sp_zoo_artifacts(zoo_arts, rng)
+        sp_zoo_artifacts({k: v for k, v in zoo_arts.items()
+                          if k in SP_ARTIFACT_ZOO})
         seconds["zoo_artifacts"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        sp_joined_zoo(work, ckpts, zoo_arts)
+        seconds["joined_zoo_artifacts"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         for k, v in sp_encoded(dev, state, work, stofnet_ckpt, rng).items():
             launches[k] = launches.get(k, 0) + v
         seconds["encoded"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         reset_launch_counts()
-        sp_int8(dev, work, stofnet_ckpt, rng)
+        seconds.update(sp_int8(dev, work, stofnet_ckpt, rng))
         seconds["int8"] = time.perf_counter() - t0
     sp_int8_driver(int8_run)
     log(f"sp-serving phase, seconds by part: {json.dumps(seconds)}")
@@ -4165,7 +4326,7 @@ def main() -> int:
         zoo_sp_path(dev, work, ckpts, zoo_runs)
         paths.append(sp_serving_path(dev, work, stofnet_ckpt,
                                      {L: Path(keep) / "b.pt2"}, zoo_arts,
-                                     int8_run))
+                                     ckpts, int8_run))
     least = {"stream_probe": len(probe_script.POINTS), "canary": 1}
     for k in kernels:
         k["launches"] = sum(p.get(k["name"], 0) for p in paths)

@@ -20,11 +20,14 @@ takes no ``model_file=``. The int8 keys are StofNet's only.
 
 ``batch=b`` (any name) exports a batch-polymorphic artifact, an int pins
 the batch; the length is static: one artifact per length. The artifact
-holds two programs (``serve.PipelineExport``): the forward, which also
-takes the windows of every sp that divides the length (the daemon's
-``mesh_sp``; a windowed family's forward is polymorphic in the window's
-length, the Wave-U-Net's also takes the window's place, GradPeak's runs
-on the row), and the decode of whole rows. ``dtype=auto``
+holds the forward and the decode of whole rows (``serve.PipelineExport``):
+the forward also takes the windows of every sp that divides the length
+(the daemon's ``mesh_sp``; a windowed family's forward is one program
+polymorphic in the window's length, the Wave-U-Net's also takes the
+window's place, GradPeak's runs on the row); a forward that joins
+inside (``int8_calib=``, zonzini, kuleshov) is its stages, a program
+each, every shard's widths symbolic, the joins in the manifest.
+``dtype=auto``
 (the default) probes bf16 against f32 on echo-bearing waveforms before
 the input encoding is applied, as in JAX, and exports f32 where bf16
 moves the decode. ``bake_weights=False`` takes the weights as the

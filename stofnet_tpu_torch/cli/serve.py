@@ -56,16 +56,17 @@ any result is copied back. With ``input_enc=`` the host encodes each
 slice once and each replica copies only its window's codes and the
 scales they need, and dequantizes them on its device. The int8 route
 (``int8_calib=``, calibrated once at build on the whole batch),
-Zonzini and Kuleshov join inside their forward: their replicas run its
-shard form (``shard``), one thread each, all dp rows together, joined
-in process (``parallel/seq.ThreadExchange``: the int8 route's
-activation scales, row maxima; Zonzini's pool and Kuleshov's halos and
-dense head summed). JAX's refusals stay: ``length`` must divide by sp,
-and ``s8c<n>`` by n % sp != 0 (its chunk scales shard over sp). Refused
-with ``mesh_sp > 1``: an artifact of one program (written before the
-forward and the decode were exported apart: export it again), and,
-naming ROADMAP A.6d, an artifact whose forward joins inside (int8,
-Zonzini, Kuleshov).
+Zonzini and Kuleshov join inside their forward, from a checkpoint or an
+artifact (whose forward is their stages, ``serve.PipelineExport``):
+their replicas run its shard form (``shard``), one thread each, all dp
+rows together, joined in process (``parallel/seq.ThreadExchange``: the
+int8 route's activation scales, row maxima; Zonzini's pool and
+Kuleshov's halos and dense head summed). JAX's refusals stay:
+``length`` must divide by sp, and ``s8c<n>`` by n % sp != 0 (its chunk
+scales shard over sp). Refused with ``mesh_sp > 1``, to be exported
+again: an artifact of one program (written before the forward and the
+decode were exported apart), and an artifact of layout 2 whose forward
+joins inside (one program, not its stages).
 
 Tuning: ``max_batch=`` (largest coalesced batch, 128), ``max_wait_ms=``
 (how long the oldest request may wait for the batch to fill, 2),
@@ -84,7 +85,7 @@ Departures from the JAX daemon:
 - Refused, with ``SystemExit``: ``compile_cache=`` (it persists XLA's
   compiles; an artifact of the port compiles nothing when it loads, and
   the kernels' libraries in ``build/kernels`` already persist across
-  restarts), and under ``mesh_sp > 1`` what sp does not serve yet
+  restarts), and under ``mesh_sp > 1`` the artifacts of older layouts
   (above). Only ``ckpt_dir=`` is searched for ``model_file=``.
 
 Speak to it with ``stofnet_tpu_torch.serving.ServingClient`` (or JAX's,
@@ -113,7 +114,7 @@ from stofnet_tpu_torch.serve import (
     make_input_encoder, make_pipeline, parse_input_enc,
 )
 from stofnet_tpu_torch.parallel.mesh import (
-    Mesh, config_mesh, local_devices, mesh_dims, refuse_sp,
+    Mesh, config_mesh, local_devices, mesh_dims,
 )
 from stofnet_tpu_torch.parallel.seq import (
     HEATMAP, family_of, forward_kwargs, own_output, run_shards, shard_of,
@@ -249,7 +250,8 @@ def _artifact_host(path: str, args: Dict[str, Any]) -> ServingHost:
     key, and a fixed-batch artifact is its own single bucket. Under a mesh
     every replica loads the artifact on its device (``load_pipeline``
     moves it there); under sp each runs the forward program on its
-    windows (``serve.PipelineExport``)."""
+    window, or, where the forward joins inside, its stages as its shard
+    (``serve.PipelineExport``)."""
     raw = load_pipeline(path)
     mesh = _serving_mesh(args, raw.device)
     if mesh is not None and mesh.sp > 1:
@@ -259,9 +261,12 @@ def _artifact_host(path: str, args: Dict[str, Any]) -> ServingHost:
                 f"before the forward and the decode were exported apart), "
                 f"which decodes whole rows: export it again to serve it "
                 f"under mesh_sp={mesh.sp}")
-        if raw.sp == "joins":
-            refuse_sp(args, f"{path}, whose forward joins inside (an int8, "
-                            f"Zonzini or Kuleshov artifact)")
+        if raw.sp == "joins" and not hasattr(raw, "shard"):
+            raise SystemExit(
+                f"{path} holds a forward that joins inside as one program "
+                f"(layout {raw.format}, before such forwards were exported "
+                f"as their stages), which runs whole rows: export it again "
+                f"to serve it under mesh_sp={mesh.sp}")
         if raw.length % mesh.sp:
             raise SystemExit(f"sample length {raw.length} not divisible "
                              f"by mesh_sp={mesh.sp}")

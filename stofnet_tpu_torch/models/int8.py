@@ -28,7 +28,7 @@ package's quantized pytree, on the weights' device.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +38,7 @@ from stofnet_tpu_torch.ops.int8 import (
     INT8_MAX, absmax_scale, conv1d_same_int8, quantize, quantize_weight,
 )
 from stofnet_tpu_torch.ops.shuffle import sample_shuffle
+from stofnet_tpu_torch.utils.stages import Stage, run_stages
 
 # the architecture arguments the int8 forward takes; the rest of it
 # follows the weights' shapes
@@ -231,43 +232,41 @@ def quantize_stofnet(state: Mapping[str, torch.Tensor], calib_x,
     return q
 
 
-def _row_scale(hf: torch.Tensor, shard=None) -> torch.Tensor:
-    """The per-waveform scale (B, 1, 1) of an f32 (B, L, C) activation,
-    the row's absmax / 127. Under ``shard`` (a ``parallel/seq.Shard``;
-    ``hf`` its window) the max is taken over the shard's own positions
-    and joined over its sp group (``shard.exchange.max``), which is the
-    row's max exactly: every shard's own positions hold the row's values,
-    and they partition the row."""
-    if shard is None:
-        return absmax_scale(hf, dim=(1, 2))
-    lo, hi = shard.own_slice(hf.shape[1])
-    own = hf[:, lo:hi].abs().amax(dim=(1, 2), keepdim=True)
-    return absmax_scale(shard.exchange.max(own), dim=(1, 2))
-
-
-def _dyn_quant(h: torch.Tensor, shard=None
+def _dyn_quant(h: torch.Tensor, scale: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-waveform symmetric s8, scale (B, 1, 1) = row
-    absmax/127 (:func:`_row_scale`): per row, so each waveform's codes do
-    not depend on what it is batched with."""
+    absmax/127: per row, so each waveform's codes do not depend on what it
+    is batched with. ``scale``: the row's, joined already (a length
+    shard's, :func:`int8_stages`); ``h`` may be f32 already."""
     hf = h.to(torch.float32)
-    scale = _row_scale(hf, shard)
+    if scale is None:
+        scale = absmax_scale(hf, dim=(1, 2))
     return quantize(hf, scale), scale
 
 
 def _qconv(h: torch.Tensor, layer: Mapping[str, torch.Tensor],
-           impl: str, shard=None) -> torch.Tensor:
+           impl: str, scale: Optional[torch.Tensor] = None,
+           hf: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Quantize the activation per waveform (after the equalization
-    rescale, where the layer has one), run the s8 conv, dequantize with
-    the row scale (:func:`_row_scale`) times the per-channel weight
-    scale, add the bias."""
-    hf = h.to(torch.float32)
-    if "inv_eq" in layer:
-        hf = hf * layer["inv_eq"]
-    scale = _row_scale(hf, shard)
+    rescale, where the layer has one; ``hf``, that f32 tensor, where the
+    caller has it) with the row's scale (``scale``, or its absmax / 127),
+    run the s8 conv, dequantize with that scale times the per-channel
+    weight scale, add the bias."""
+    if hf is None:
+        hf = _quantized_input(h, layer)
+    if scale is None:
+        scale = absmax_scale(hf, dim=(1, 2))
     acc = conv1d_same_int8(quantize(hf, scale), layer["wq"], impl=impl)
     return (acc.to(torch.float32) * (scale * layer["wscale"])
             + layer["bias"])
+
+
+def _quantized_input(h: torch.Tensor, layer: Mapping[str, torch.Tensor]
+                     ) -> torch.Tensor:
+    """The f32 tensor a quantized stack conv quantizes: ``h``, rescaled
+    by the layer's equalization where it has one."""
+    hf = h.to(torch.float32)
+    return hf * layer["inv_eq"] if "inv_eq" in layer else hf
 
 
 def stofnet_apply_int8(q: Mapping[str, Any], x: torch.Tensor,
@@ -280,7 +279,7 @@ def stofnet_apply_int8(q: Mapping[str, Any], x: torch.Tensor,
     """StofNet forward, (B, 1, L) -> (B, 1, L*r) f32, with the int8 SGB
     contract conv, at any L the module takes (``L // semi_global_scale``
     pooled rows, the pathway padded back by half the shortfall on each
-    side).
+    side): :func:`int8_stages` run by ``utils/stages.run_stages``.
 
     ``impl`` picks the s8 conv's form (``ops/int8.py``). ``quant_stack`` /
     ``stack_layers`` must name the stack convs ``q`` was built with.
@@ -291,16 +290,48 @@ def stofnet_apply_int8(q: Mapping[str, Any], x: torch.Tensor,
     the shard's own positions are the whole row's forward bit for bit;
     the caller crops them (``parallel/seq.own_output``).
     """
-    h = x.transpose(1, 2)
-    if dtype is not None:
-        h = h.to(dtype)
-    f32 = q["f32"]
-    h = F.relu(conv1d_same(h, f32["conv1"]["kernel"], f32["conv1"]["bias"],
-                           dtype))
+    stages, joins = int8_stages(q, upsample_factor, num_blocks,
+                                semi_global_scale, dtype, impl, quant_stack,
+                                stack_layers)
+    return run_stages(stages, joins, {"x": x}, shard)
 
-    if semi_global_scale != 1:
-        c = q["contract"]
-        xq, s_in = _dyn_quant(h, shard)
+
+def int8_stages(q: Mapping[str, Any], upsample_factor: int = 4,
+                num_blocks: int = 13, semi_global_scale: int = 80,
+                dtype: Optional[torch.dtype] = torch.bfloat16,
+                impl: str = "conv", quant_stack: bool = False,
+                stack_layers: Optional[Sequence[int]] = None
+                ) -> Tuple[List[Stage], List[Dict[str, Any]]]:
+    """The int8 forward as stages (``utils/stages``), cut before each
+    dynamic activation scale: before the contract conv's quantization and
+    before each s8 stack conv's. A stage ends with ``a`` (B, n, 1), each
+    position's absmax over the channels of the f32 tensor that the next
+    stage quantizes (after ``inv_eq`` where the layer has one), and that
+    tensor ``q``; the ``max`` join makes ``a`` ``m`` (B, 1, 1), the row's
+    max (a max is exact in any order); the next stage quantizes ``q`` with
+    the scale ``m / 127`` (1 where the row is zero). ``h``, the residual
+    carry ``res`` and the stack's input ``res1`` cross each cut too. The
+    first stage reads ``x`` (B, 1, n); the last writes ``heat``. Every
+    read's time axis has the window's width, ``grid k + L mod grid``
+    (``parallel/seq.windows``)."""
+    chosen = _norm_stack_layers(quant_stack, stack_layers, num_blocks)
+    f32 = q["f32"]
+    residual = set(range(3, num_blocks - 1, 2))
+    carry = ("h", "res", "res1")
+    # StofNet's windows: on its pooling grid, their widths = L (mod grid)
+    window = (max(1, int(semi_global_scale)), None, 2)
+
+    def conv1(st, scale):
+        h = st["x"].transpose(1, 2)
+        if dtype is not None:
+            h = h.to(dtype)
+        h = F.relu(conv1d_same(h, f32["conv1"]["kernel"],
+                               f32["conv1"]["bias"], dtype))
+        return dict.fromkeys(("h",) if semi_global_scale != 1 else carry, h)
+
+    def contract(st, s_in):
+        h, c = st["h"], q["contract"]
+        xq, s_in = _dyn_quant(st.pop("q"), s_in)
         acc = conv1d_same_int8(xq, c["wq"], impl=impl)
         # requantize the pre-pool tensor to s8 in the conv's epilogue;
         # JAX's order of operations, so ties round the same way
@@ -317,28 +348,78 @@ def stofnet_apply_int8(q: Mapping[str, Any], x: torch.Tensor,
         s = conv1d_same(pooled, f32["expand"]["kernel"],
                         f32["expand"]["bias"], dtype)
         s = F.leaky_relu(s, 0.01)
-        h = h + _repeat_pad(s, semi_global_scale, h.shape[1])
+        return dict.fromkeys(carry, h + _repeat_pad(s, semi_global_scale,
+                                                    h.shape[1]))
 
-    chosen = _norm_stack_layers(quant_stack, stack_layers, num_blocks)
+    def stack(i):
+        def conv(st, scale):
+            h = st["h"]
+            if i in chosen:
+                y = _qconv(h, q["stack"][f"conv{i}"], impl, scale,
+                           st.pop("q"))
+            else:
+                y = conv1d_same(h, f32[f"conv{i}"]["kernel"],
+                                f32[f"conv{i}"]["bias"], dtype)
+            y = y.to(dtype) if dtype is not None else y
+            if i == num_blocks - 1:
+                return dict(st, h=st["res1"] + y)
+            if i in residual:
+                res = st["res"] + y
+                return dict(st, h=res, res=res)
+            return dict(st, h=F.leaky_relu(y, 0.01))
+        return conv
 
-    def stack_conv(h, i):
-        if i in chosen:
-            y = _qconv(h, q["stack"][f"conv{i}"], impl, shard)
+    def last(st, scale):
+        h = conv1d_same(st["h"], f32["conv_last"]["kernel"],
+                        f32["conv_last"]["bias"], dtype)
+        return {"heat": sample_shuffle(h.transpose(1, 2),
+                                       upsample_factor).to(torch.float32)}
+
+    def pre_stack(i):
+        return lambda st: _quantized_input(st["h"], q["stack"][f"conv{i}"])
+
+    # (layer, the f32 tensor its dynamic scale reads or None, its writes)
+    layers = [(conv1, None, ("h",) if semi_global_scale != 1 else carry)]
+    if semi_global_scale != 1:
+        layers.append((contract, lambda st: st["h"].to(torch.float32),
+                       carry))
+    layers += [(stack(i), pre_stack(i) if i in chosen else None, carry)
+               for i in range(2, num_blocks)]
+    layers.append((last, None, ("heat",)))
+    groups = [[layers[0]]]
+    for layer in layers[1:]:
+        if layer[1] is not None:
+            groups.append([layer])
         else:
-            y = conv1d_same(h, f32[f"conv{i}"]["kernel"],
-                            f32[f"conv{i}"]["bias"], dtype)
-        return y.to(dtype) if dtype is not None else y
+            groups[-1].append(layer)
+    stages = []
+    for k, group in enumerate(groups):
+        reads = ("x",) if k == 0 else (*groups[k - 1][-1][2], "q", "m")
+        ends = k == len(groups) - 1
+        writes = group[-1][2] + (() if ends else ("q", "a"))
+        following = None if ends else groups[k + 1][0][1]
+        stages.append(Stage(
+            f"int8_{k}", _int8_stage(group, reads, writes, following), reads,
+            writes, tuple("b1t" if n == "x" else "b11" if n == "m" else "btc"
+                          for n in reads),
+            widths=tuple(None if n == "m" else window for n in reads)))
+    return stages, [{"join": "max", "read": "a", "write": "m"}
+                    for _ in groups[1:]]
 
-    residual_layers = set(range(3, num_blocks - 1, 2))
-    res = res1 = h
-    for i in range(2, num_blocks - 1):
-        y = stack_conv(h, i)
-        if i in residual_layers:
-            h = res = res + y
-        else:
-            h = F.leaky_relu(y, 0.01)
-    h = res1 + stack_conv(h, num_blocks - 1)
-    h = conv1d_same(h, f32["conv_last"]["kernel"], f32["conv_last"]["bias"],
-                    dtype)
-    return sample_shuffle(h.transpose(1, 2), upsample_factor).to(
-        torch.float32)
+
+def _int8_stage(group, reads, writes, following):
+    """One stage of :func:`int8_stages`: its layers in turn, the first on
+    ``q`` and the scale of the joined ``m`` where it reads them, then the
+    next stage's ``q`` and its ``a``."""
+    def stage(*tensors):
+        st = dict(zip(reads, tensors))
+        m = st.pop("m", None)
+        scale = None if m is None else absmax_scale(m, dim=(1, 2))
+        for fn, _, _ in group:
+            st = fn(st, scale)
+            scale = None
+        if following is not None:
+            st["q"] = following(st)
+            st["a"] = st["q"].abs().amax(dim=2, keepdim=True)
+        return tuple(st[n] for n in writes)
+    return stage

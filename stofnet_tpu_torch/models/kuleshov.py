@@ -18,7 +18,8 @@ default generator. Parameter names are flax's, which are the reference's.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,7 +29,7 @@ from stofnet_tpu_torch import DeviceLike, resolve_device
 from stofnet_tpu_torch.models.batchnorm import BatchNorm
 from stofnet_tpu_torch.models.init import materialize
 from stofnet_tpu_torch.ops.conv import conv_layer, dense
-from stofnet_tpu_torch.utils.collectives import block
+from stofnet_tpu_torch.utils.stages import Stage, conv_width, run_stages
 
 N_FILTERS = (128, 256, 512, 512)
 N_FILTERSIZES = (65, 33, 17, 9)
@@ -129,129 +130,128 @@ class Kuleshov(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None,
                 shard=None) -> torch.Tensor:
-        """``generator``: the dropout masks' source in train mode (see
+        """:meth:`stages` run by ``utils/stages.run_stages``.
+        ``generator``: the dropout masks' source in train mode (see
         :func:`_dropout`). ``shard`` (``parallel/seq.Shard``): ``x`` is
-        this shard's samples of each row, and the forward runs sharded
-        layer by layer (:meth:`_sharded`)."""
-        if shard is not None:
-            return self._sharded(x, shard, generator)
-        dt = self.dtype
-        h = x[:, :, : self.input_length].transpose(1, 2)
-        if dt is not None:
-            h = h.to(dt)
-        skips = [h]
-        for i in range(self.num_layers):
-            h = conv_layer(getattr(self, f"down_conv{i}"), h, dtype=dt)
-            h = F.leaky_relu(h, 0.01)
-            h = F.leaky_relu(getattr(self, f"down_bn{i}")(h), 0.2)
-            skips.append(h)
-        h = conv_layer(self.bottleneck, h, dtype=dt)
-        if self.training:
-            h = _dropout(h, generator)
-        h = F.leaky_relu(h, 0.2)
-        for i in range(self.num_layers):
-            h = conv_layer(getattr(self, f"up_conv{i}"), h, dtype=dt)
-            h = getattr(self, f"up_bn{i}")(h)
-            if self.training:
-                h = _dropout(h, generator)
-            h = _pixel_shuffle_time(h)
-            h = torch.cat([h, skips[len(skips) - 1 - i]], dim=1)  # time
-        h = conv_layer(self.final_conv, h, dtype=dt)
-        h = h.reshape(h.shape[0], -1)  # SubPixel1D channel interleave
-        h = dense(self.output_fc, h, dt)
-        return h[:, None, :].to(torch.float32)
-
-
-    def _sharded(self, x: torch.Tensor, shard, generator) -> torch.Tensor:
-        """The forward with every tensor's time axis in sp contiguous
-        blocks (``utils/collectives.block``), as GSPMD shards it: each
-        layer computes this shard's block of its output and fetches the
-        inputs that block reads from the blocks that hold them
-        (``shard.exchange.fetch``: a VALID conv's taps past the block, the
-        shuffle's source positions, the time concat's two tensors).
-        BatchNorm's statistics are the sums over every block
-        (``models/batchnorm.py``); each dropout mask is the whole tensor's,
-        sliced. The dense head's contraction over the flattened axis is
-        sharded: this shard's features times its columns of the weight,
-        summed over the sp group, then the bias. The output is the whole
-        row's, on every shard."""
-        ex, sp, me = shard.exchange, shard.sp, shard.index
-        if shard.length != self.input_length:
+        this shard's samples of each row, and every layer computes the
+        shard's block of its output (:meth:`stages`)."""
+        if shard is None:
+            x = x[:, :, : self.input_length]
+        elif shard.length != self.input_length:
             raise ValueError(f"Kuleshov shards rows of input_length="
                              f"{self.input_length}, not {shard.length}")
-        dt = self.dtype
+        return run_stages(*self.stages(generator), {"x": x}, shard)
 
-        def conv(h, w, layer):
+    def stages(self, generator=None
+               ) -> Tuple[List[Stage], List[Dict[str, Any]]]:
+        """The forward as stages (``utils/stages``), one per layer's
+        compute between fetches, with every tensor's time axis in sp
+        contiguous blocks (``utils/collectives.block``), as GSPMD shards
+        it: each ``fetch`` join brings a conv the input block that its
+        output block reads (its taps past the block; the time concat of
+        the up path's output and a skip), each stage computes its block.
+        An up stage pixel-shuffles its own block, so its output is held
+        ``shuffled``. BatchNorm's statistics are the sums over every block
+        (``models/batchnorm.py``); each dropout mask is the whole tensor's,
+        sliced by the stage's place. The dense head's contraction over the
+        flattened axis is sharded: the last conv's stage multiplies its
+        block by the weight's columns of its place, the ``sum`` join adds
+        the partial products over the sp group, the last stage adds the
+        bias. Its output ``y`` is the whole row's, on every shard. Without
+        a shard the joins pass the row through: the single forward."""
+        def fetch(sources, layer):
+            return {"join": "fetch", "kernel": layer.kernel_size[0],
+                    "stride": layer.stride[0], "write": "f", "place": "p",
+                    "sources": [{"read": n, "width": w, "held": held}
+                                for n, w, held in sources]}
+
+        def block_of(layer):
+            # a fetched block of n output positions: s (n - 1) + k samples
             k, s = layer.kernel_size[0], layer.stride[0]
-            w2 = (w - k) // s + 1
-            if w2 < sp:
-                raise ValueError(f"Kuleshov at L={self.input_length}: a "
-                                 f"layer of {w2} positions leaves a shard "
-                                 f"of mesh_sp={sp} none")
+            return (s, k - s, 1)
 
-            def need(j):
-                p0, p1 = block(w2, sp, j)
-                return s * p0, s * (p1 - 1) + k
-            return conv_layer(layer, ex.fetch([(h, w, need)]), dtype=dt), w2
+        def out_width(sources, layer):
+            return conv_width(sum(w for _, w, _ in sources),
+                              layer.kernel_size[0], layer.stride[0])
 
-        def shuffle(h, w):
-            def need(j):
-                p0, p1 = block(2 * w, sp, j)
-                return p0 // 2, (p1 - 1) // 2 + 1
-            p0, p1 = block(2 * w, sp, me)
-            off = p0 - 2 * (p0 // 2)
-            y = _pixel_shuffle_time(ex.fetch([(h, w, need)]))
-            return y[:, off:off + p1 - p0], 2 * w
+        stages = [Stage("prep", self._prep, ("x",), ("h0",), ("b1t",),
+                        widths=((1, 0, 1),))]
+        joins = []
+        widths = [self.input_length]
+        for i in range(self.num_layers):
+            layer = getattr(self, f"down_conv{i}")
+            src = [(f"h{i}", widths[-1], "blocks")]
+            joins.append(fetch(src, layer))
+            widths.append(out_width(src, layer))
+            stages.append(Stage(
+                f"down{i}", functools.partial(self._down, i), ("f",),
+                (f"h{i + 1}",), ("btc",), (block_of(layer),),
+                (f"down_conv{i}", f"down_bn{i}")))
+        src = [(f"h{self.num_layers}", widths[-1], "blocks")]
+        joins.append(fetch(src, self.bottleneck))
+        w = out_width(src, self.bottleneck)
+        stages.append(Stage(
+            "bottleneck", functools.partial(self._bottleneck, generator, w),
+            ("f", "p"), ("u",), ("btc", ""), (block_of(self.bottleneck), None),
+            ("bottleneck",)))
+        src = [("u", w, "blocks")]
+        for i in range(self.num_layers):
+            layer = getattr(self, f"up_conv{i}")
+            joins.append(fetch(src, layer))
+            w = out_width(src, layer)
+            stages.append(Stage(
+                f"up{i}", functools.partial(self._up, i, generator, w),
+                ("f", "p"), ("u",), ("btc", ""), (block_of(layer), None),
+                (f"up_conv{i}", f"up_bn{i}")))
+            d = self.num_layers - i  # the skip of the concat along time
+            src = [("u", 2 * w, "shuffled"), (f"h{d}", widths[d], "blocks")]
+        joins.append(fetch(src, self.final_conv))
+        stages.append(Stage("final", self._final, ("f", "p"), ("part",),
+                            ("btc", ""), (block_of(self.final_conv), None),
+                            ("final_conv", "output_fc.weight")))
+        joins.append({"join": "sum", "read": "part", "write": "out"})
+        stages.append(Stage("head", self._head, ("out",), ("y",), ("bc",),
+                            (None,), ("output_fc.bias",)))
+        return stages, joins
 
-        def concat(u, d):
-            (hu, nu), (hd, nd) = u, d
-            total = nu + nd
-
-            def in_u(j):
-                c0, c1 = block(total, sp, j)
-                return min(c0, nu), min(c1, nu)
-
-            def in_d(j):
-                c0, c1 = block(total, sp, j)
-                return max(c0, nu) - nu, max(c1, nu) - nu
-            return ex.fetch([(hu, nu, in_u), (hd, nd, in_d)]), total
-
-        def drop(h, w):
-            return _dropout(h, generator, (*block(w, sp, me), w))
-
+    def _prep(self, x):
         h = x.transpose(1, 2)
-        if dt is not None:
-            h = h.to(dt)
-        w = self.input_length
-        skips = [(h, w)]
-        for i in range(self.num_layers):
-            h, w = conv(h, w, getattr(self, f"down_conv{i}"))
-            h = F.leaky_relu(h, 0.01)
-            h = F.leaky_relu(getattr(self, f"down_bn{i}")(h), 0.2)
-            skips.append((h, w))
-        h, w = conv(h, w, self.bottleneck)
+        return (h if self.dtype is None else h.to(self.dtype),)
+
+    def _down(self, i, f):
+        h = conv_layer(getattr(self, f"down_conv{i}"), f, dtype=self.dtype)
+        h = F.leaky_relu(h, 0.01)
+        return (F.leaky_relu(getattr(self, f"down_bn{i}")(h), 0.2),)
+
+    def _bottleneck(self, generator, w, f, p):
+        h = conv_layer(self.bottleneck, f, dtype=self.dtype)
         if self.training:
-            h = drop(h, w)
-        h = F.leaky_relu(h, 0.2)
-        for i in range(self.num_layers):
-            h, w = conv(h, w, getattr(self, f"up_conv{i}"))
-            h = getattr(self, f"up_bn{i}")(h)
-            if self.training:
-                h = drop(h, w)
-            h, w = shuffle(h, w)
-            h, w = concat((h, w), skips[len(skips) - 1 - i])
-        h, w = conv(h, w, self.final_conv)
-        lo, hi = block(w, sp, me)
+            h = _dropout(h, generator, (*p.tolist(), w))
+        return (F.leaky_relu(h, 0.2),)
+
+    def _up(self, i, generator, w, f, p):
+        h = conv_layer(getattr(self, f"up_conv{i}"), f, dtype=self.dtype)
+        h = getattr(self, f"up_bn{i}")(h)
+        if self.training:
+            h = _dropout(h, generator, (*p.tolist(), w))
+        return (_pixel_shuffle_time(h),)
+
+    def _final(self, f, p):
+        dt = self.dtype
+        h = conv_layer(self.final_conv, f, dtype=dt)
+        lo, hi = p.tolist()
+        torch._check(hi - lo == h.shape[1])
         flat = h.reshape(h.shape[0], -1)  # SubPixel1D: columns 2 lo..2 hi
         weight = self.output_fc.weight[:, 2 * lo:2 * hi]
-        bias = self.output_fc.bias
         if dt is not None:  # the products of dt's values, summed in f32
-            flat, weight, bias = (flat.to(dt).float(), weight.to(dt).float(),
-                                  bias.to(dt))
+            flat, weight = flat.to(dt).float(), weight.to(dt).float()
+        return (torch.matmul(flat, weight.t()),)
+
+    def _head(self, out):
         # dense's one rounding to dt, of the partial products' f32 sum
-        out = ex.sum(torch.matmul(flat, weight.t()))
-        h = (out if dt is None else out.to(dt)) + bias
-        return h[:, None, :].to(torch.float32)
+        bias, dt = self.output_fc.bias, self.dtype
+        h = out + bias if dt is None else out.to(dt) + bias.to(dt)
+        return (h[:, None, :].to(torch.float32),)
 
 
 BATCHNORM_MODULES = tuple([f"down_bn{i}" for i in range(4)]

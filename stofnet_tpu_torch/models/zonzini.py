@@ -10,7 +10,7 @@ Parameter names are the reference's (``conv_layers.{i}``, ``fc1``,
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from stofnet_tpu_torch import DeviceLike, resolve_device
 from stofnet_tpu_torch.models.init import materialize
 from stofnet_tpu_torch.ops.conv import conv_layer, dense
+from stofnet_tpu_torch.utils.stages import Stage, run_stages
 
 
 class _ZonziniNet(nn.Module):
@@ -40,25 +41,39 @@ class _ZonziniNet(nn.Module):
         materialize(self, device, generator)
 
     def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
-        """(B, 1, L) -> (B, 1). ``shard`` (``parallel/seq.Shard``): ``x``
-        is the shard's window (:func:`shard_windows`), whose last stage
-        holds the shard's own positions ``shard.within``; their sum over
-        the sp group (``shard.exchange.sum``), divided by the row's count
-        of positions, is the global mean, and the head runs on it.
+        """(B, 1, L) -> (B, 1): :meth:`stages` run by
+        ``utils/stages.run_stages`` on the samples its last stage's
+        positions read (the form of :func:`shard_windows`' windows).
+        ``shard`` (``parallel/seq.Shard``): ``x`` is the shard's window,
+        whose last stage holds the shard's own positions ``shard.within``;
+        their sum over the sp group, divided by the row's count of
+        positions, is the global mean, and the head runs on it."""
+        stages = len(self.conv_layers)
+        # the row's refusal of a length too short for the stages
+        w = final_length(x.shape[-1] if shard is None else shard.length,
+                         stages)
+        if shard is None:  # the row but the tail no last-stage position reads
+            x = x[..., :(STRIDE * POOL) ** stages * (w - 1) + span(stages)]
+        return run_stages(*self.stages(), {"x": x}, shard)
 
-        The global average pool sums in f64, which holds a sum of bf16
-        (or, but for the last bits, f32) values exactly in any order, and
-        rounds once to the features' dtype, as JAX's mean does from its
-        f32 sum: the sharded pool then has the single forward's bits."""
-        feats = self.features(x)
-        if shard is None:
-            total, count = feats.double().sum(dim=1), feats.shape[1]
-        else:
-            # the row's refusal of a length too short for the stages
-            final_length(shard.length, len(self.conv_layers))
-            lo, hi, count = shard.within
-            total = shard.exchange.sum(feats[:, lo:hi].double().sum(dim=1))
-        return self.head((total / count).to(feats.dtype))
+    def stages(self) -> Tuple[List[Stage], List[Dict[str, Any]]]:
+        """The forward as two stages, :meth:`features` and :meth:`head`,
+        joined by the global average pool (``utils/stages``' ``mean``).
+
+        The pool sums in f64, which holds a sum of bf16 (or, but for the
+        last bits, f32) values exactly in any order, and rounds once to the
+        features' dtype, as JAX's mean does from its f32 sum: the sharded
+        pool then has the single forward's bits."""
+        stages = len(self.conv_layers)
+        # a window of n last-stage positions: (STRIDE POOL)^stages (n - 1)
+        # + span samples, on which every stage's floor division is exact
+        grid = (STRIDE * POOL) ** stages
+        return ([Stage("features", lambda x: (self.features(x),), ("x",),
+                       ("feats",), ("b1t",), ((grid, span(stages) - grid, 1),),
+                       ("conv_layers",)),
+                 Stage("head", lambda p: (self.head(p),), ("pooled",),
+                       ("pred",), ("bc",), (None,), ("fc1", "fc2"))],
+                [{"join": "mean", "read": "feats", "write": "pooled"}])
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """The conv stages: (B, 1, L) -> (B, W, C)."""

@@ -19,9 +19,7 @@ batch order).
   forward on it and the shard's own positions kept (BatchNorm's
   statistics over own positions), or a join over the sp group (Zonzini's
   pool, Kuleshov's layer halos and dense head, the int8 route's
-  activation scales). Refused under sp > 1, naming ROADMAP A.6d
-  (:data:`SP_LATER`): the artifacts whose forward joins inside (int8,
-  Zonzini, Kuleshov).
+  activation scales), in a forward of stages (``utils/stages``).
 
 Ranks are laid out as JAX lays devices out, ``reshape(dp, sp)``: rank r
 has dp coordinate ``r // sp`` and sp coordinate ``r % sp``. Under a live
@@ -72,11 +70,6 @@ from stofnet_tpu_torch.utils.collectives import (  # noqa: F401 (re-exported)
 )
 from stofnet_tpu_torch.utils.config import Config
 
-SP_LATER = ("mesh_sp > 1 shards the sample axis of every registry model, "
-            "the int8 route, encoded inputs and every artifact whose "
-            "forward runs on windows; an exported forward that joins "
-            "inside (int8, Zonzini, Kuleshov) comes with ROADMAP A.6d (a "
-            "staged export between joins, or the join as a custom op)")
 TIMEOUT = timedelta(seconds=300)
 
 # the device this process joined its group with (init_distributed,
@@ -373,14 +366,6 @@ def mesh_dims(cfg: Mapping[str, Any]) -> Tuple[Optional[int], int]:
     """(``mesh_dp`` or None, ``mesh_sp``) of an entry point's config."""
     return (int(cfg.get("mesh_dp") or 0) or None,
             int(cfg.get("mesh_sp", 1) or 1))
-
-
-def refuse_sp(cfg: Mapping[str, Any], what: str) -> None:
-    """``SystemExit`` naming ROADMAP A.6d (:data:`SP_LATER`) where a
-    config asks ``mesh_sp > 1`` of ``what``, a path sp does not shard."""
-    sp = mesh_dims(cfg)[1]
-    if cfg.get("mesh") and sp > 1:
-        raise SystemExit(f"mesh_sp={sp} with {what} is refused: {SP_LATER}")
 
 
 def config_mesh(cfg: Mapping[str, Any],

@@ -54,6 +54,14 @@ Zonzini and Kuleshov).
 :class:`SeqPlan` runs a module's forward as this rank's shard for the
 train and eval steps.
 
+A forward that joins inside (the int8 route, Zonzini, Kuleshov) is
+written as stages with a join between each pair (``utils/stages``, re-
+exported here: :class:`Stage`, :func:`run_stages`, :func:`join`), so that
+one runner serves the row, a shard through its exchange and an exported
+artifact's stage programs; each family writes its stages in its model
+module (``models/int8.int8_stages``, ``Zonzini.stages``,
+``Kuleshov.stages``).
+
 At L % 80 == 0 every StofNet window keeps L % 80 == 0, so the fused route
 and its two kernels serve every shard unchanged.
 """
@@ -78,6 +86,9 @@ from stofnet_tpu_torch.models.stofnet import StofNet
 from stofnet_tpu_torch.ops.conv import same
 from stofnet_tpu_torch.utils.collectives import (
     all_reduce, all_reduce_sum, block, gather_seq,
+)
+from stofnet_tpu_torch.utils.stages import (  # noqa: F401 (re-exported)
+    Stage, join, run_stages,
 )
 
 # conv1's and conv_last's paddings are hard-coded (4 and 1), so only these
@@ -337,6 +348,14 @@ class Shard:
         return (-(-self.own[0] // f) - a // f, -(-self.own[1] // f) - a // f)
 
 
+def _helds(sources, sp: int) -> List[Callable[[int], Tuple[int, int]]]:
+    """For each source of a fetch, ``(t, length, need[, held])``, the
+    global positions [lo, hi) shard j holds of it: ``held(j)``, or its
+    ``utils/collectives.block`` without one."""
+    return [src[3] if len(src) > 3 else
+            (lambda j, n=src[1]: block(n, sp, j)) for src in sources]
+
+
 def _routes(sp: int, me: int, sources):
     """For :meth:`MeshExchange.fetch`: per peer, the (source, lo, hi) this
     shard sends it and the (source, lo, hi) it receives from it, in
@@ -345,11 +364,12 @@ def _routes(sp: int, me: int, sources):
     sends: Dict[int, list] = {}
     recvs: Dict[int, list] = {}
     pieces = []
-    for m, (_, length, need) in enumerate(sources):
-        lo_me, hi_me = block(length, sp, me)
+    for m, (src, held) in enumerate(zip(sources, _helds(sources, sp))):
+        need = src[2]
+        lo_me, hi_me = held(me)
         a, b = need(me)
         for j in range(sp):
-            lo_j, hi_j = block(length, sp, j)
+            lo_j, hi_j = held(j)
             if j != me:
                 ja, jb = need(j)
                 lo, hi = max(ja, lo_me), min(jb, hi_me)
@@ -388,17 +408,19 @@ class MeshExchange:
             memory_format=torch.contiguous_format), "max")
 
     def fetch(self, sources, grad: bool = True) -> torch.Tensor:
-        """Axis 1 of ``sources``' tensors, each ``(t, length, need)``:
-        ``t`` this shard's block (``utils/collectives.block``) of a
-        tensor of ``length`` positions on axis 1, ``need(j)`` the global
+        """Axis 1 of ``sources``' tensors, each ``(t, length, need[,
+        held])``: ``t`` this shard's part of a tensor of ``length``
+        positions on axis 1, the global positions ``held(j)`` (by default
+        its block, ``utils/collectives.block``), ``need(j)`` the global
         range [a, b) shard j reads of it (every shard computes every
         shard's). Returns this shard's ranges, concatenated in source
-        order, each from the blocks that hold it."""
-        ts = [t for t, _, _ in sources]
+        order, each from the shards that hold it."""
+        ts = [src[0] for src in sources]
         routes = _routes(self.sp, self.index, sources)
+        helds = _helds(sources, self.sp)
         if not grad:
-            return _fetch(self, routes, ts, [s[1] for s in sources])
-        return _Fetch.apply(self, routes, [s[1] for s in sources], *ts)
+            return _fetch(self, routes, ts, helds)
+        return _Fetch.apply(self, routes, helds, *ts)
 
     def swap(self, out: Dict[int, torch.Tensor],
              sizes: Dict[int, Tuple[int, ...]], like: torch.Tensor
@@ -423,23 +445,23 @@ class MeshExchange:
         return {j: v.to(like.device) for j, v in got.items()}
 
 
-def _take(t: torch.Tensor, length: int, sp: int, me: int, lo: int,
+def _take(t: torch.Tensor, held: Callable, me: int, lo: int,
           hi: int) -> torch.Tensor:
-    base = block(length, sp, me)[0]
+    base = held(me)[0]
     return t[:, lo - base:hi - base]
 
 
-def _fetch(ex, routes, ts, lengths) -> torch.Tensor:
+def _fetch(ex, routes, ts, helds) -> torch.Tensor:
     sends, recvs, pieces = routes
-    sp, me = ex.sp, ex.index
-    out = {j: torch.cat([_take(ts[m], lengths[m], sp, me, lo, hi)
+    me = ex.index
+    out = {j: torch.cat([_take(ts[m], helds[m], me, lo, hi)
                          for m, lo, hi in r], 1) for j, r in sends.items()}
     like = ts[0]
     sizes = {j: (like.shape[0], sum(hi - lo for _, lo, hi in r),
                  *like.shape[2:]) for j, r in recvs.items()}
     got = {j: list(v.split([hi - lo for _, lo, hi in recvs[j]], 1))
            for j, v in ex.swap(out, sizes, like).items()}
-    parts = [_take(ts[m], lengths[m], sp, me, lo, hi) if j == me
+    parts = [_take(ts[m], helds[m], me, lo, hi) if j == me
              else got[j].pop(0) for m, j, lo, hi in pieces]
     return torch.cat(parts, 1) if parts else like[:, :0]
 
@@ -450,15 +472,15 @@ class _Fetch(torch.autograd.Function):
     this shard sent come back and add into its blocks."""
 
     @staticmethod
-    def forward(ctx, ex, routes, lengths, *ts):
-        ctx.ex, ctx.routes, ctx.lengths = ex, routes, lengths
+    def forward(ctx, ex, routes, helds, *ts):
+        ctx.ex, ctx.routes, ctx.helds = ex, routes, helds
         ctx.shapes = [t.shape for t in ts]
-        return _fetch(ex, routes, [t.detach() for t in ts], lengths)
+        return _fetch(ex, routes, [t.detach() for t in ts], helds)
 
     @staticmethod
     def backward(ctx, g):
-        ex, (sends, recvs, pieces), lengths = ctx.ex, ctx.routes, ctx.lengths
-        sp, me = ex.sp, ex.index
+        ex, (sends, recvs, pieces), helds = ctx.ex, ctx.routes, ctx.helds
+        me = ex.index
         grads = [g.new_zeros(s) for s in ctx.shapes]
         back: Dict[int, list] = {}
         at = 0
@@ -466,7 +488,7 @@ class _Fetch(torch.autograd.Function):
             piece = g[:, at:at + hi - lo]
             at += hi - lo
             if j == me:
-                _take(grads[m], lengths[m], sp, me, lo, hi).add_(piece)
+                _take(grads[m], helds[m], me, lo, hi).add_(piece)
             else:
                 back.setdefault(j, []).append(piece)
         out = {j: torch.cat(v, 1) for j, v in back.items()}
@@ -475,7 +497,7 @@ class _Fetch(torch.autograd.Function):
         for j, v in ex.swap(out, sizes, g).items():
             for (m, lo, hi), piece in zip(sends[j], v.split(
                     [hi - lo for _, lo, hi in sends[j]], 1)):
-                _take(grads[m], lengths[m], sp, me, lo, hi).add_(piece)
+                _take(grads[m], helds[m], me, lo, hi).add_(piece)
         return (None, None, None, *grads)
 
 
@@ -520,18 +542,21 @@ class ThreadExchange:
         return self._meet(t, read)
 
     def fetch(self, sources, grad: bool = False) -> torch.Tensor:
+        """:meth:`MeshExchange.fetch` between the threads' shards."""
+        helds = _helds(sources, self.sp)
+
         def read(board):
             parts = []
-            for m, (t, length, need) in enumerate(sources):
-                a, b = need(self.index)
+            for m, (src, held) in enumerate(zip(sources, helds)):
+                a, b = src[2](self.index)
                 for j in range(self.sp):
-                    lo_j, hi_j = block(length, self.sp, j)
+                    lo_j, hi_j = held(j)
                     lo, hi = max(a, lo_j), min(b, hi_j)
                     if lo < hi:
                         parts.append(board[j][m][:, lo - lo_j:hi - lo_j]
-                                     .to(t.device))
+                                     .to(src[0].device))
             return torch.cat(parts, 1)
-        return self._meet([t for t, _, _ in sources], read)
+        return self._meet([src[0] for src in sources], read)
 
 
 _pools: Dict[int, Tuple[ThreadPoolExecutor, threading.Lock]] = {}
@@ -591,6 +616,14 @@ def shard_of(arch: Mapping[str, Any], length: int, sp: int, index: int,
         return Shard(sp, index, length, own, None, None, exchange)
     (a, b), within = windows(length, sp, arch)[index]
     return Shard(sp, index, length, own, (a, b), within, exchange)
+
+
+def row_span(arch: Mapping[str, Any], length: int) -> Tuple[int, int]:
+    """The samples [start, stop) that a forward of ``arch``'s rule reads
+    of a row of ``length``: its one shard's window at sp = 1 (Zonzini's
+    drops the tail that no last-stage position reads)."""
+    shard = shard_of(arch, length, 1, 0, None)
+    return shard.window or shard.own
 
 
 def forward_kwargs(arch: Mapping[str, Any], shard: Shard) -> dict:

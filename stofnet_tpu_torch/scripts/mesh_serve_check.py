@@ -14,9 +14,11 @@ cards, or N * M replicas on the CPU), one request of the batch's rows at
 a time, so that every request is one batch split into N slices, each row
 of a slice into M shards. ``--artifact`` serves, in place of the
 checkpoint, its batch-polymorphic artifact of ``cli/export.py`` (written
-on the first device, loaded on each); ``--int8`` the int8 route,
-calibrated on a seeded echo-bearing batch of 128 rows
-(``int8_calib=``; ``--int8-stack`` its s8 stack convs). Prints a JSON
+on the first device, loaded on each; a forward that joins inside, the
+int8 route's, Zonzini's and Kuleshov's, as its stages); ``--int8`` the
+int8 route, calibrated on a seeded echo-bearing batch of 128 rows
+(``int8_calib=``; ``--int8-stack`` its s8 stack convs), from the
+checkpoint or, with ``--artifact``, baked into its artifact. Prints a JSON
 line for each: ms a request and rows a second over ``--requests``
 requests after a warm-up request (host clock, client to client), the
 kernel launches and the bytes copied to the replicas a request, whether
@@ -94,9 +96,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--int8-stack", type=int, nargs="+", default=None)
     a = ap.parse_args(argv)
-    if a.int8 and (a.artifact or a.model != ["stofnet"]):
-        ap.error("--int8 serves a StofNet checkpoint: an int8 artifact's "
-                 "forward joins inside, which sp does not serve yet")
+    if a.int8 and a.model != ["stofnet"]:
+        ap.error("--int8 serves StofNet: the int8 route is its only")
     device = resolve_device(a.device)
     dps = a.dp or ([1, torch.cuda.device_count()] if device.type == "cuda"
                    else [1, 2])
@@ -165,13 +166,13 @@ def int8_args(length: int, seed: int, stack: Optional[Sequence[int]],
 
 
 def artifact_args(args: dict, tmp: str) -> dict:
-    """The daemon's ``artifact=`` of the checkpoint of ``args``: its
-    batch-polymorphic artifact, written by ``cli/export.py``."""
+    """The daemon's ``artifact=`` of the checkpoint of ``args`` (its int8
+    calibration too): its batch-polymorphic artifact, written by
+    ``cli/export.py``."""
     out = Path(tmp) / "artifacts" / (
         f"{args.get('model_file') or args['model']}-{args['input_enc']}.pt2")
-    keys = {k: v for k, v in args.items() if k not in ("int8_calib",)}
     cli_export.main([f"{k}={'Null' if v is None else v}"
-                     for k, v in keys.items()]
+                     for k, v in args.items()]
                     + ["batch=b", f"out={out}"])
     return {"artifact": str(out)}
 

@@ -16,12 +16,15 @@ predictions as they are.
 
 The exporter's half (replaces ``stofnet_tpu/serve.py:50-69,275-464``):
 ``export_pipeline`` traces that callable with ``torch.export`` into an
-artifact of two programs a static length (:class:`PipelineExport`): the
-forward, polymorphic in the length of a window on the family's grid so
-that it also serves each length shard's window, and the decode of whole
-rows; the weights and the kernels' weight layouts baked in (the two
-kernels are custom ops, ``ops/kernels``). ``export_pipeline_weightless``
-takes the state dict as the forward's inputs instead; ``save_pipeline`` /
+artifact of a static length (:class:`PipelineExport`): the forward,
+polymorphic in the length of a window on the family's grid so that it
+also serves each length shard's window (a forward that joins inside, the
+int8 route's, Zonzini's and Kuleshov's: its stages, each a program
+polymorphic in its inputs' widths, the joins between them in the
+manifest, ``utils/stages``), and the decode of whole rows; the weights
+and the kernels' weight layouts baked in (the two kernels are custom
+ops, ``ops/kernels``). ``export_pipeline_weightless`` takes the state
+dict as the forward's inputs instead; ``save_pipeline`` /
 ``load_pipeline`` write and serve the file with no model code, on any
 device of the kind it was exported for. Departure from JAX, whose
 artifacts are lowered for ``platforms=("cpu", "tpu")``: a program serves
@@ -43,8 +46,8 @@ import json
 import zipfile
 from pathlib import Path
 from typing import (
-    Any, Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple,
-    Union,
+    Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence,
+    Tuple, Union,
 )
 
 import numpy as np
@@ -56,7 +59,7 @@ from stofnet_tpu_torch.data.synthetic import gate_batch
 from stofnet_tpu_torch.models.fused import FUSED_SCALES, fused_forward
 from stofnet_tpu_torch.models import batchnorm
 from stofnet_tpu_torch.models.int8 import (
-    QCONFIG, quantize_stofnet, stofnet_apply_int8,
+    QCONFIG, int8_stages, quantize_stofnet, stofnet_apply_int8,
 )
 from stofnet_tpu_torch.models.registry import REGRESSION, build_model
 from stofnet_tpu_torch.models.stofnet import StofNet
@@ -67,6 +70,9 @@ from stofnet_tpu_torch.parallel import seq
 from stofnet_tpu_torch.serving.codecs import (
     chunk_len, encode_s8c, encode_s16, parse_s8c,
 )
+from stofnet_tpu_torch.utils.stages import (
+    Stage, run_stages, stage_record, takes,
+)
 
 # the architecture arguments stofnet_apply_fused takes; the fused path has
 # the default widths and kernel sizes
@@ -74,9 +80,13 @@ FUSED_OVERRIDES = ("upsample_factor", "num_blocks", "semi_global_scale")
 # the example batch a batch-polymorphic export traces with: at least 2, so
 # that the batch is not specialized to a constant
 EXAMPLE_BATCH = 2
-# the layout of an artifact (PipelineExport): a zip of the two programs and
-# the manifest; a file of one program is an artifact written before it
-ARTIFACT_FORMAT = 2
+# the layout of an artifact (PipelineExport): a zip of the manifest, the
+# forward's programs (a joining forward's stages) and the decode; a file of
+# one program is an artifact written before layouts. Layout 2 wrote every
+# forward as one program: it still loads, and a joining forward of it
+# serves the row only
+ARTIFACT_FORMAT = 3
+LAYOUTS = (2, ARTIFACT_FORMAT)
 MANIFEST = "stofnet_artifact.json"
 
 
@@ -181,7 +191,8 @@ def _wrap_input_enc(pipe: Callable, enc: Optional[str],
         return pipe(dequantize((codes, scales), enc, 0, length, device))
 
     # the forward alone takes the dequantized window, as an artifact's
-    for attr in ("route", "calls", "heatmap", "decode", "arch", "shard"):
+    for attr in ("route", "calls", "heatmap", "decode", "arch", "shard",
+                 "stages_on"):
         if hasattr(pipe, attr):
             setattr(pipe_enc, attr, getattr(pipe, attr))
     return pipe_enc
@@ -238,8 +249,9 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     route's activation scales are maxima over the row, so its shards
     join inside the forward: ``pipe.shard(x, shard)`` runs it on a
     ``parallel/seq.Shard``'s window (the row's scales joined through the
-    shard's exchange) and returns the shard's own positions, and its
-    ``arch`` says ``int8``.
+    shard's exchange) and returns the shard's own positions, its
+    ``arch`` says ``int8``, and ``pipe.stages_on()`` gives its stages and
+    joins (``models/int8.int8_stages``), which the exporter traces.
 
     ``model_name`` other than ``stofnet`` serves that model of the
     registry through :func:`zoo_pipeline` (no int8, as in JAX).
@@ -286,6 +298,9 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
         def int8(x, shard=None):
             return stofnet_apply_int8(q, x, dtype=dtype, stack_layers=stack,
                                       shard=shard, **qkw)
+
+        def stages_on(weights=None):
+            return int8_stages(q, dtype=dtype, stack_layers=stack, **qkw)
     elif fused_takes(overrides, dtype, device):
         forward = fused_forward(params, dtype=dtype,
                                 **{k: int(v) for k, v in overrides.items()})
@@ -345,7 +360,7 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
             with precision():
                 return seq.own_output(pipe.arch, int8(x, where), where)
 
-        pipe.shard = shard
+        pipe.shard, pipe.stages_on = shard, stages_on
     return _wrap_input_enc(pipe, input_enc, device)
 
 
@@ -412,7 +427,10 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
     exchange), one thread each. ``functional_call`` swaps a module's
     tensors, so that form runs on a copy of the skeleton of its own,
     made at its first call (not inside a trace), and replicas run it on
-    threads of their own."""
+    threads of their own. ``pipe.stages_on(weights=None)`` gives the
+    family's stages and joins (``model.stages()``) run on ``weights``
+    (state keys, a stage's own suffice; the pipeline's state when None),
+    which the exporter traces."""
     device = resolve_device(device)
     name = model_name.lower()
     model, up, want = _zoo_skeleton(name, dtype, threshold, max_echoes,
@@ -465,7 +483,34 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
         return seq.own_output(arch, pred, where)
 
     pipe.shard = shard
+    pipe.stages_on = lambda weights=None: _bound_stages(
+        model, params if weights is None else weights)
     return pipe
+
+
+class _StageCall(torch.nn.Module):
+    """Stage ``k`` of ``model.stages()`` as a module's forward, so that
+    ``functional_call`` runs it on tensors of the caller's."""
+
+    def __init__(self, model: torch.nn.Module, k: int):
+        super().__init__()
+        self.model, self.k = model, k
+
+    def forward(self, *reads):
+        return self.model.stages()[0][self.k].fn(*reads)
+
+
+def _bound_stages(model: torch.nn.Module, params: Mapping[str, Any]):
+    """A joining family's ``model.stages()`` (``utils/stages``) run on
+    ``params`` (state keys; a stage's own suffice) through
+    ``functional_call`` of the module, whose own tensors it leaves alone."""
+    stages, joins = model.stages()
+    prefixed = {f"model.{k}": v for k, v in params.items()}
+
+    def bound(k):
+        return lambda *reads: torch.func.functional_call(
+            _StageCall(model, k), prefixed, reads)
+    return [st._replace(fn=bound(k)) for k, st in enumerate(stages)], joins
 
 
 @functools.lru_cache(maxsize=None)
@@ -645,24 +690,39 @@ def _trace(fn: Callable, inputs: tuple,
 
 
 class PipelineExport(NamedTuple):
-    """An artifact: the pipeline's forward and decode, two programs.
+    """An artifact: the pipeline's forward, as one program or a list of
+    stage programs, and its decode.
 
-    ``forward`` takes a (batch, 1, n) f32 window and gives its heatmap
-    (or a regression family's prediction); a windowed family's is
-    polymorphic in n on its grid, ``grid * k + length % grid`` (k >= 2),
-    so that one program serves every window ``parallel/seq.windows``
-    makes, at any sp that divides the length; the Wave-U-Net's also takes
-    the window's start and the row's length (0-d int64 tensors), which its
-    resample reads. ``decode`` takes the whole rows' (batch, ...) output
-    at the static length. ``meta`` is what :func:`load_pipeline` reads
-    (JSON): the length, the batch (an int, or a polymorphic batch's
-    name), ``input_enc``, the rule ``arch`` (``parallel/seq.model_arch``),
-    ``sp`` (``windows``; ``row``, GradPeak's whole-row window; ``joins``,
-    a forward that joins inside, which sp does not serve yet),
-    ``takes_where`` and ``device``, under ``format`` 2."""
-    forward: torch.export.ExportedProgram
+    A windowed family's forward is one program (``stages[0]``, also
+    ``forward``): it takes a (batch, 1, n) f32 window and gives its
+    heatmap (or a regression family's prediction), polymorphic in n on its
+    grid, ``grid * k + length % grid`` (k >= 2), so that one program
+    serves every window ``parallel/seq.windows`` makes, at any sp that
+    divides the length; the Wave-U-Net's also takes the window's start and
+    the row's length (0-d int64 tensors), which its resample reads. A
+    forward that joins inside (the int8 route, Zonzini, Kuleshov) is its
+    stages (``utils/stages``), one program each, every read's width
+    symbolic, with the joins between them in the manifest: the loader runs
+    them with ``utils/stages.run_stages``, on the row or as a length
+    shard. ``decode`` takes the whole rows' (batch, ...) output at the
+    static length. ``meta`` is what :func:`load_pipeline` reads (JSON):
+    the length, the batch (an int, or a polymorphic batch's name),
+    ``input_enc``, the rule ``arch`` (``parallel/seq.model_arch``), ``sp``
+    (``windows``; ``row``, GradPeak's whole-row window; ``joins``),
+    ``takes_where``, ``device``, ``stages`` (each stage's name, reads,
+    writes, layout and the state keys it takes as inputs, none where the
+    weights are baked) and ``joins``, under ``format`` 3."""
+    stages: List[torch.export.ExportedProgram]
     decode: torch.export.ExportedProgram
     meta: Dict[str, Any]
+
+    @property
+    def forward(self) -> torch.export.ExportedProgram:
+        """A forward of one program (a windowed family's)."""
+        if len(self.stages) != 1:
+            raise AttributeError(f"this forward is {len(self.stages)} "
+                                 f"stage programs, not one")
+        return self.stages[0]
 
 
 class _Where(NamedTuple):
@@ -680,48 +740,149 @@ def _sp_rule(arch: Mapping[str, Any]) -> str:
     return "row" if arch.get("reach") == seq.ROW else "windows"
 
 
+def _window_dim(arch: Mapping[str, Any], length: int):
+    """A window's width on the family's grid, ``grid * k + length % grid``
+    (k >= 2), as a ``torch.export`` dimension."""
+    grid = int(arch.get("grid", arch.get("semi_global_scale", 1)))
+    k = torch.export.Dim("k", min=2, max=max(2, length // grid))
+    return grid * k + length % grid if grid > 1 else k
+
+
 def _export(pipe: Callable, pipe_of: Callable, weights: Optional[dict],
             batch: Union[int, str], length: int, enc: Optional[str],
             device: torch.device) -> PipelineExport:
-    """The two programs of ``pipe`` (:class:`PipelineExport`): the forward
-    ``pipe_of(*weights).heatmap`` on ``(*weights, x, *where)``, traced on
-    an example of the whole row, then ``pipe.decode`` on the example's
+    """The programs of ``pipe`` (:class:`PipelineExport`): a windowed
+    forward, ``pipe_of(*weights).heatmap`` on ``(*weights, x, *where)``,
+    traced on an example of the whole row, or a joining forward's stages
+    (:func:`_export_stages`); then ``pipe.decode`` on the example's
     output."""
     kind, n = parse_input_enc(enc)
     if kind == "s8c":
         chunk_len(length, n)  # the chunk count divides the length
     arch, rule = dict(pipe.arch), _sp_rule(pipe.arch)
-    grid = int(arch.get("grid", arch.get("semi_global_scale", 1)))
     poly = isinstance(batch, str)
     bdim = torch.export.Dim(batch, min=1) if poly else None
     x = torch.zeros((EXAMPLE_BATCH if poly else int(batch), 1, length),
                     device=device)
     where = seq.family_of(arch) == "unet"
-    if rule == "windows":
-        k = torch.export.Dim("k", min=2, max=max(2, length // grid))
-        ldim = grid * k + length % grid if grid > 1 else k
+    if rule == "joins":
+        stages, records, joins, heat = _export_stages(pipe, weights, bdim,
+                                                      x)
     else:
-        ldim = None
-    at = ((torch.tensor(0, device=device),
-           torch.tensor(length, device=device)) if where else ())
-    dims = {i: d for i, d in ((0, bdim), (2, ldim)) if d is not None} or None
-    first = 0 if weights is None else 1
+        ldim = _window_dim(arch, length) if rule == "windows" else None
+        at = ((torch.tensor(0, device=device),
+               torch.tensor(length, device=device)) if where else ())
+        dims = {i: d for i, d in ((0, bdim), (2, ldim))
+                if d is not None} or None
+        first = 0 if weights is None else 1
 
-    def forward(*inputs):
-        x, place = inputs[first], inputs[first + 1:]
-        kw = {"shard": _Where((place[0], None), place[1])} if place else {}
-        return pipe_of(*inputs[:first]).heatmap(x, **kw)
+        def forward(*inputs):
+            x, place = inputs[first], inputs[first + 1:]
+            kw = {"shard": _Where((place[0], None), place[1])} if place else {}
+            return pipe_of(*inputs[:first]).heatmap(x, **kw)
 
-    given = () if weights is None else (weights,)
-    fwd = _trace(forward, (*given, x, *at),
-                 (*(dict.fromkeys(w) for w in given), dims,
-                  *[None] * len(at)))
-    dec = _trace(pipe.decode, (forward(*given, x, *at),),
-                 ({0: bdim} if poly else None,))
+        given = () if weights is None else (weights,)
+        stages = [_trace(forward, (*given, x, *at),
+                         (*(dict.fromkeys(w) for w in given), dims,
+                          *[None] * len(at)))]
+        records = [{"name": "forward",
+                    "reads": ["x", *(["start", "rows"] if where else [])],
+                    "writes": ["heat"],
+                    "layout": ["b1t", *([""] * len(at))],
+                    "weights": None if weights is None else list(weights)}]
+        joins, heat = [], forward(*given, x, *at)
+    dec = _trace(pipe.decode, (heat,), ({0: bdim} if poly else None,))
     meta = dict(format=ARTIFACT_FORMAT, length=int(length), batch=batch,
                 input_enc=enc or "f32", arch=arch, sp=rule,
-                takes_where=where, device=str(device))
-    return PipelineExport(fwd, dec, meta)
+                takes_where=where, device=str(device), stages=records,
+                joins=joins)
+    return PipelineExport(stages, dec, meta)
+
+
+def _export_stages(pipe: Callable, weights: Optional[dict], bdim,
+                   x: torch.Tensor):
+    """A joining forward's stage programs (``pipe.stages_on``), each traced
+    on the reads it takes in a whole-row run of the example ``x``, with
+    the batch ``bdim`` and every read's time axis symbolic in the form its
+    stage gives (``utils/stages.Stage.widths``; one dimension for the reads
+    of one form). A trace that pins a width raises: no stage falls back
+    to the row's program. Returns (programs, their manifest records, the
+    joins, the example's output)."""
+    stages, joins = pipe.stages_on()
+    seen: List[tuple] = []
+    a, b = seq.row_span(pipe.arch, x.shape[-1])
+    with torch.inference_mode():
+        heat = run_stages(stages, joins, {"x": x[..., a:b]}, None, seen)
+    programs, records = [], []
+    for k, (st, reads) in enumerate(zip(stages, seen)):
+        own = {} if weights is None else {n: v for n, v in weights.items()
+                                          if takes(st, n)}
+        forms: Dict[tuple, Any] = {}
+        dims, symbolic = [], []
+        for name, spec, form, t in zip(st.reads, st.layout, st.widths,
+                                       reads):
+            d = {a: bdim for a, c in enumerate(spec) if c == "b" and bdim}
+            if "t" in spec:
+                axis = spec.index("t")
+                width = _width_dim(form, x.shape[-1], t.shape[axis], forms)
+                if width is not None:
+                    d[axis] = width
+                    symbolic.append((name, axis))
+            dims.append(d or None)
+        if weights is None:
+            program = _trace(st.fn, reads, tuple(dims))
+        elif not own:  # a stage that reads no weights takes none
+            program = _trace(functools.partial(_on(pipe, k), {}), reads,
+                             tuple(dims))
+        else:
+            program = _trace(_on(pipe, k), (own, *reads),
+                             (dict.fromkeys(own), *dims))
+        _check_symbolic(program, st, symbolic)
+        programs.append(program)
+        records.append(dict(stage_record(st), weights=list(own) or None))
+    return programs, records, joins, heat
+
+
+def _width_dim(form: Tuple[int, Optional[int], int], length: int,
+               width: int, forms: Dict[tuple, Any]):
+    """The ``torch.export`` dimension of a read's width ``grid * n +
+    offset`` (n >= least; offset None: ``length`` modulo the grid), from
+    its whole-row width, the largest: ``grid * k + offset - grid * (2 -
+    least)`` with k >= 2 (a size the trace takes as 0 or 1 it would pin).
+    One per form, kept in ``forms``; None where only one width exists."""
+    grid, offset, least = form
+    offset = length % grid if offset is None else offset
+    most = (width - offset) // grid
+    key = (grid, offset, least)
+    if key not in forms:
+        forms[key] = None if most <= least else (
+            grid * torch.export.Dim(f"n{len(forms)}", min=2,
+                                    max=most - least + 2)
+            + offset - grid * (2 - least))
+    return forms[key]
+
+
+def _on(pipe: Callable, k: int) -> Callable:
+    """Stage ``k`` of ``pipe``'s joining forward on weights it is given."""
+    return lambda own, *reads: pipe.stages_on(own)[0][k].fn(*reads)
+
+
+def _check_symbolic(program: torch.export.ExportedProgram, stage: Stage,
+                    symbolic: Sequence[Tuple[str, int]]) -> None:
+    """Raise where a stage's trace pinned the width of a read's time axis
+    that takes more than one width (``symbolic``: the reads and axes): a
+    guard the trace could not keep symbolic."""
+    user = set(program.graph_signature.user_inputs)
+    vals = [n.meta["val"] for n in program.graph.nodes
+            if n.op == "placeholder" and n.name in user]
+    by_name = dict(zip(stage.reads, vals[len(vals) - len(stage.reads):]))
+    for name, axis in symbolic:
+        width = by_name[name].shape[axis]
+        if isinstance(width, int):
+            raise ValueError(
+                f"stage {stage.name}: the trace pinned the width of {name} "
+                f"(axis {axis}) to {width}; a stage program must take "
+                f"every shard's width")
 
 
 def export_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
@@ -731,14 +892,14 @@ def export_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
     """``make_pipeline(state, overrides, device=device, **pipe_kwargs)``
     exported as its forward and its decode (:class:`PipelineExport`) for
     (batch, 1, length) rows on ``device`` (the card when None): the
-    length static (a windowed family's forward also takes its windows),
-    ``batch`` an int or a name (batch-polymorphic). The weights, the int8
-    route's calibrated state and the kernels' weight layouts are baked in
-    as constants; the kernels appear as their custom ops. With
-    ``input_enc=`` the artifact takes that encoding: the host encodes,
-    the serving device dequantizes (:func:`dequantize`), and the forward
-    takes the dequantized f32 window, so one program serves whole rows
-    and windows alike."""
+    length static (a windowed family's forward also takes its windows, a
+    joining forward's stages every shard's widths), ``batch`` an int or a
+    name (batch-polymorphic). The weights, the int8 route's calibrated
+    state and the kernels' weight layouts are baked in as constants; the
+    kernels appear as their custom ops. With ``input_enc=`` the artifact
+    takes that encoding: the host encodes, the serving device dequantizes
+    (:func:`dequantize`), and the forward takes the dequantized f32
+    window, so one program serves whole rows and windows alike."""
     device = resolve_device(device)
     enc = pipe_kwargs.pop("input_enc", None)
     pipe = make_pipeline(state, overrides, device=device, **pipe_kwargs)
@@ -750,7 +911,8 @@ def export_pipeline_weightless(
         batch: Union[int, str], length: int, *, device: DeviceLike = None,
         **pipe_kwargs) -> Tuple[PipelineExport, Dict[str, np.ndarray]]:
     """:func:`export_pipeline` with the state dict (reference torch names)
-    as the forward's first input instead of constants: returns the
+    as the forward's first input instead of constants (a joining
+    forward's stages each take only the state keys it reads): returns the
     artifact and the weights to save as its sidecar (``save_pipeline(path,
     artifact, weights=...)``). The kernels' weight layouts are then traced
     into the forward and run on every call. int8 is refused, as in JAX:
@@ -800,17 +962,19 @@ def _unflatten_tree(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 def save_pipeline(path: Union[str, Path], artifact: PipelineExport,
                   weights: Optional[Mapping[str, Any]] = None) -> Path:
-    """Write the artifact: one zip of its manifest (``meta``) and its two
-    programs (``torch.export.save`` each); with ``weights`` (a weightless
-    export's) also the ``<path>.weights.npz`` sidecar that
+    """Write the artifact: one zip of its manifest (``meta``), its stage
+    programs and its decode (``torch.export.save`` each); with ``weights``
+    (a weightless export's) also the ``<path>.weights.npz`` sidecar that
     :func:`load_pipeline` finds."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
+    programs = {f"stage{k}": p for k, p in enumerate(artifact.stages)}
+    programs["decode"] = artifact.decode
     with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
         z.writestr(MANIFEST, json.dumps(artifact.meta))
-        for name in ("forward", "decode"):
+        for name, program in programs.items():
             buf = io.BytesIO()
-            torch.export.save(getattr(artifact, name), buf)
+            torch.export.save(program, buf)
             z.writestr(f"{name}.pt2", buf.getvalue())
     if weights is not None:
         np.savez(str(path) + ".weights.npz", **_flatten_tree(weights))
@@ -853,53 +1017,78 @@ def load_pipeline(path: Union[str, Path], device: DeviceLike = None
     the kernels' weight layouts copied, bit for bit); another kind of
     device raises, because the device chooses the route (``fused_takes``).
     A ``<path>.weights.npz`` sidecar (a weightless export's) is found and
-    copied to the device once. Host arrays are copied onto the device
-    before each call, and the call runs under ``full_f32`` (no TF32) and
-    inference mode.
+    copied to the device once; each program is given the state keys its
+    manifest names. Host arrays are copied onto the device before each
+    call, and the call runs under ``full_f32`` (no TF32) and inference
+    mode.
 
     An encoded-input artifact (``input_enc=``) still takes f32 waveforms
     and encodes them on the host. Attributes as JAX's, under torch names:
     ``in_specs`` (the waveform input; its batch an int or a symbol's
     name), ``input_enc``, ``encode``, ``raw_call`` (the artifact on the
     encoded inputs), ``raw_in_specs`` and ``device``; and, as
-    ``make_pipeline``'s, ``heatmap(x[, shard=])`` (the forward program on
-    a dequantized f32 window; the Wave-U-Net's reads the shard's place),
-    ``decode``, ``arch`` and ``length``, and ``sp``, how it serves under
+    ``make_pipeline``'s, ``heatmap(x[, shard=])`` (the forward on a
+    dequantized f32 window of the whole row; the Wave-U-Net's reads the
+    shard's place), ``decode``, ``arch`` and ``length``, ``format`` (the
+    artifact's layout, :data:`LAYOUTS`), and ``sp``, how it serves under
     sp (:class:`PipelineExport`; None for an artifact of one program,
-    which serves at sp = 1 only)."""
+    which serves at sp = 1 only). A forward that joins inside, exported as
+    its stages, also has ``shard(x, shard)``: the stages run as a
+    ``parallel/seq.Shard`` (``utils/stages.run_stages``, each join through
+    the shard's exchange), the shard's own output returned
+    (``parallel/seq.own_output``); layout 2 wrote such a forward as one
+    program, which serves the row only."""
     # the custom ops a program names are registered on import
     import stofnet_tpu_torch.ops.kernels  # noqa: F401
     with zipfile.ZipFile(path) as z:
         if MANIFEST not in z.namelist():
             return _load_one_program(path, device)
         meta = json.loads(z.read(MANIFEST))
-        if meta.get("format") != ARTIFACT_FORMAT:
+        if meta.get("format") not in LAYOUTS:
             raise ValueError(f"load_pipeline: {path} has layout "
-                             f"{meta.get('format')}, not {ARTIFACT_FORMAT}")
+                             f"{meta.get('format')}, not one of {LAYOUTS}")
+        names = (["forward"] if meta["format"] == 2 else
+                 [f"stage{k}" for k in range(len(meta["stages"]))])
         programs = [torch.export.load(io.BytesIO(z.read(f"{n}.pt2")))
-                    for n in ("forward", "decode")]
+                    for n in [*names, "decode"]]
     where = _serving_device(path, torch.device(meta["device"]), device)
     if where != torch.device(meta["device"]):
         programs = [move_to_device_pass(p, where) for p in programs]
-    fwd, dec = (p.module() for p in programs)
-    weights = _sidecar(path, where)
+    *mods, dec = (_program_module(p) for p in programs)
+    side = _sidecar(path, where)
+    records = meta.get("stages") or [
+        {"weights": None if side is None else list(side)}]
+    fns = [_given(m, None if r["weights"] is None else
+                  {k: side[k] for k in r["weights"]})
+           for m, r in zip(mods, records)]
     enc, length = meta["input_enc"], int(meta["length"])
     batch = meta["batch"]
-    kind, n = parse_input_enc(enc)
     # the encoded inputs' specs, as the program of one artifact took them
     examples, _ = encoded_input_specs(enc, 1, length, "meta")
     specs = [TensorSpec((batch, *v.shape[1:]), v.dtype) for v in examples]
+    staged = meta["sp"] == "joins" and meta["format"] >= 3
+    if staged:
+        stages = [Stage(r["name"], fn, tuple(r["reads"]), tuple(r["writes"]),
+                        tuple(r["layout"])) for r, fn in zip(records, fns)]
 
-    def heatmap(x, shard=None) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device=where, dtype=torch.float32)
+    def forward(x: torch.Tensor, shard=None) -> torch.Tensor:
+        if staged:
+            if shard is None:
+                a, b = seq.row_span(meta["arch"], x.shape[-1])
+                x = x[..., a:b]
+            return run_stages(stages, meta["joins"], {"x": x}, shard)
         at = ()
         if meta["takes_where"]:
             start, rows = ((0, x.shape[-1]) if shard is None
                            else (shard.window[0], shard.length))
             at = (torch.tensor(start, device=where),
                   torch.tensor(rows, device=where))
+        return fns[0](x, *at)
+
+    def heatmap(x, shard=None) -> torch.Tensor:
+        x = torch.as_tensor(x).to(device=where, dtype=torch.float32)
         with torch.inference_mode(), full_f32():
-            return fwd(*weights, x, *at)
+            return forward(x, None if staged else shard)
 
     def decode(heat) -> torch.Tensor:
         with torch.inference_mode(), full_f32():
@@ -912,8 +1101,53 @@ def load_pipeline(path: Union[str, Path], device: DeviceLike = None
 
     call = _serving_call(raw_call, enc, specs, where)
     call.heatmap, call.decode, call.length = heatmap, decode, length
-    call.arch, call.sp = meta["arch"], meta["sp"]
+    call.arch, call.sp, call.format = meta["arch"], meta["sp"], meta["format"]
+    if staged:
+        def shard_of_row(x, shard) -> torch.Tensor:
+            x = torch.as_tensor(x).to(device=where, dtype=torch.float32)
+            with torch.inference_mode(), full_f32():
+                return seq.own_output(call.arch, forward(x, shard), shard)
+
+        call.shard = shard_of_row
     return call
+
+
+def _program_module(program: torch.export.ExportedProgram
+                    ) -> torch.nn.Module:
+    """``program.module()``, whose input checks (``torch.export``'s pre-hook
+    ``_check_input_constraints_pre_hook``: ranks, static sizes, and each
+    symbolic width's form solved with sympy, about 2 ms a call on the
+    card's host) run once for each signature of its inputs' shapes and
+    dtypes: a signature checked once holds for every later call with it.
+    Without that hook (another PyTorch) the module is as it is."""
+    module = program.module()
+    for key, hook in list(module._forward_pre_hooks.items()):
+        name = getattr(hook, "__name__", "")
+        if name == "_check_input_constraints_pre_hook":
+            module._forward_pre_hooks[key] = _once_a_signature(hook)
+    return module
+
+
+def _once_a_signature(hook: Callable) -> Callable:
+    checked: set = set()
+
+    def check(module, args, kwargs):
+        leaves = torch.utils._pytree.tree_leaves((args, kwargs))
+        sig = tuple((tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor)
+                    else (type(v), v) for v in leaves)
+        if sig not in checked:
+            hook(module, args, kwargs)
+            checked.add(sig)
+    return check
+
+
+def _given(program: Callable, weights: Optional[Dict[str, torch.Tensor]]
+           ) -> Callable:
+    """A loaded program with its weights (the state keys its manifest
+    names; None where it takes none) given ahead of its other inputs."""
+    if weights is None:
+        return program
+    return lambda *inputs: program(weights, *inputs)
 
 
 def _serving_device(path, exported: torch.device,
@@ -931,15 +1165,16 @@ def _serving_device(path, exported: torch.device,
     return where
 
 
-def _sidecar(path, where: torch.device) -> tuple:
-    """A weightless artifact's ``<path>.weights.npz`` on ``where``, as the
-    program's first input; () without one."""
+def _sidecar(path, where: torch.device
+             ) -> Optional[Dict[str, torch.Tensor]]:
+    """A weightless artifact's ``<path>.weights.npz`` on ``where`` (by
+    state key); None without one."""
     sidecar = Path(str(path) + ".weights.npz")
     if not sidecar.exists():
-        return ()
+        return None
     with np.load(sidecar) as z:
-        return (_unflatten_tree({k: torch.from_numpy(z[k]).to(where)
-                                 for k in z.files}),)
+        return _unflatten_tree({k: torch.from_numpy(z[k]).to(where)
+                                for k in z.files})
 
 
 def _serving_call(raw_call: Callable, enc: str, specs: Sequence[TensorSpec],
@@ -977,15 +1212,14 @@ def _load_one_program(path, device: DeviceLike) -> Callable:
         raise ValueError(f"load_pipeline: {path} was exported for {where} "
                          f"and serves there, not on {torch.device(device)}; "
                          f"export it again with device={torch.device(device)}")
-    weights = _sidecar(path, where)
-    module = program.module()
+    module = _given(_program_module(program), _sidecar(path, where))
     specs = [_spec(v) for v in data]
 
     def raw_call(*inputs) -> torch.Tensor:
         inputs = [torch.as_tensor(a).to(device=where, dtype=s.dtype)
                   for a, s in zip(inputs, specs)]
         with torch.inference_mode(), full_f32():
-            return module(*weights, *inputs)
+            return module(*inputs)
 
     call = _serving_call(raw_call, enc, specs, where)
     call.sp = None

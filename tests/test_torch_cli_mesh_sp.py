@@ -1,8 +1,8 @@
 """``mesh=True mesh_sp=N`` in the port's entry points, on the CPU: the
 driver (``cli/main.py``, StofNet on chirp data, train and evaluate) and
 the daemon (``cli/serve.py``, replicas in one process), against their
-runs without a mesh, and every refusal of what sp does not serve yet
-(ROADMAP A.6d).
+runs without a mesh, and every refusal that stays under sp (JAX's, and
+the artifacts of older layouts: export them again).
 
 Each driver run on a mesh starts its own gloo ranks (this process rank
 0). Data: the chirp stand-in of ``tests/test_torch_cli_mesh.py`` (rf 4,
@@ -43,6 +43,7 @@ from stofnet_tpu_torch.serve import (
 from stofnet_tpu_torch.serving import ServingClient
 from stofnet_tpu_torch.train.checkpoint import save_checkpoint
 from stofnet_tpu_torch.utils.config import load_config
+from tests.test_torch_sp_joined_artifact import layout2_artifact
 from tests.test_torch_threads import share_cores
 
 share_cores()  # this xdist worker's share of the cores
@@ -300,22 +301,24 @@ def test_sp_daemon_rows_equal_the_direct_pipeline(served, dtype, length,
     (dict(mesh_sp=3), "sample length 800 not divisible by mesh_sp=3"),
     (dict(mesh_sp=4, input_enc="s8c6"), "input_enc=s8c6 under mesh_sp=4.*"
      "sp must divide the chunk count 6"),
-    (dict(artifact="int8"), "joins inside.*int8.*A.6d"),
+    (dict(artifact="int8"), "joins inside as one program.*export it again"),
     (dict(artifact="one program"), "one program.*export it again"),
 ], ids=["length", "input_enc", "int8", "artifact"])
 def test_sp_daemon_refusals(served, over, match, tmp_path):
     """JAX's refusals of a length sp does not divide and of s8c chunks sp
-    does not divide; an int8 artifact, whose forward joins inside,
-    naming ROADMAP A.6d; an artifact of one program (the layout before
-    the forward and the decode were exported apart), which decodes whole
-    rows and is exported again to serve under sp."""
+    does not divide; an int8 artifact of layout 2, whose forward, which
+    joins inside, is one program (the int8 artifacts of this layout, its
+    stages, serve under sp: ``tests/test_torch_sp_joined_artifact.py``);
+    an artifact of one program (the layout before the forward and the
+    decode were exported apart), which decodes whole rows; both are
+    exported again to serve under sp."""
     d, state, _, _ = served
     args = _args(d, **over)
     if over.get("artifact") == "int8":
-        art = save_pipeline(tmp_path / "i8.pt2", export_pipeline(
-            state, {"upsample_factor": 4}, "b", LENGTH, device="cpu",
-            max_echoes=8, int8_calib=gate_batch(
-                4, LENGTH, np.random.default_rng(1))))
+        art = layout2_artifact(tmp_path / "i8.pt2", make_pipeline(
+            state, {"upsample_factor": 4}, device="cpu", max_echoes=8,
+            int8_calib=gate_batch(4, LENGTH, np.random.default_rng(1))),
+            LENGTH)
         args = {"artifact": str(art), "port": 0, **SP}
     elif over.get("artifact"):
         args = {"artifact": str(one_program_artifact(

@@ -4,7 +4,9 @@ PipelineExport``), served by ``cli/serve.py`` under ``mesh=True
 mesh_sp=N`` (replicas in one process, each running the forward program
 on its window), the zoo's artifacts, ``input_enc=`` with ``model_file=``
 and with ``artifact=`` (each replica copies only its window's codes),
-the refusals that stay (ROADMAP A.6d; JAX's s8c rule) and
+Zonzini's and Kuleshov's artifacts, whose forward joins inside (their
+stages, each replica's shard on a thread), the refusals that stay (an
+older layout of such an artifact: export it again; JAX's s8c rule) and
 ``scripts/mesh_serve_check.py``'s new routes.
 
 Weights: a JAX ``StofNet().init`` through ``params_to_state_dict``; the
@@ -39,6 +41,7 @@ from stofnet_tpu_torch.serve import (
 from stofnet_tpu_torch.serving import ServingClient
 from stofnet_tpu_torch.train.checkpoint import save_checkpoint
 from tests.test_torch_cli_mesh_sp import one_program_artifact
+from tests.test_torch_sp_joined_artifact import layout2_artifact
 
 L, L_MODULE = 800, 1000  # the fused route, and L % 80 != 0: the module's
 OV = {"upsample_factor": 4}
@@ -199,17 +202,29 @@ def test_zoo_artifact_rows_under_sp_equal_sp1(zoo, tmp_path, name, sp,
 @pytest.mark.parametrize("name", ["zonzini", "kuleshov"])
 def test_joined_zoo_artifacts_refuse_sp(zoo, tmp_path, name):
     """Zonzini's and Kuleshov's forwards join inside: their artifacts
-    serve at sp = 1 and are refused under sp, naming ROADMAP A.6d."""
+    (the forward's stages) serve at sp = 1 and under ``mesh_sp=2`` with
+    the rows of the direct pipeline (each replica's stages as its shard,
+    a thread each, each Kuleshov replica copied only its own samples);
+    only the layout-2 artifact of such a forward, one program, is
+    refused under sp, to be exported again."""
     state, ov = zoo[name]
+    kw = dict(model_name=name, dtype=torch.float32, **KW)
     path = save_pipeline(tmp_path / f"{name}.pt2", export_pipeline(
-        state, ov, "b", ZOO_L, model_name=name, dtype=torch.float32, **KW))
+        state, ov, "b", ZOO_L, **kw))
     rows = _rows(ZOO_L, seed=5, batch=2)
     assert load_pipeline(path).sp == "joins"
+    want = make_pipeline(state, ov, **kw)(rows).numpy()
     got, _ = _serve({"artifact": str(path)}, rows)
-    np.testing.assert_array_equal(got, make_pipeline(
-        state, ov, model_name=name, dtype=torch.float32, **KW)(rows))
-    with pytest.raises(SystemExit, match="joins inside.*A.6d"):
-        build({"artifact": str(path), "port": 0, "warmup": False,
+    np.testing.assert_array_equal(got, want)
+    got, copied = _serve({"artifact": str(path), **_sp(2)}, rows)
+    np.testing.assert_array_equal(got, want)
+    if name == "kuleshov":
+        assert [s[0][-1] for s in copied["shapes"]] == [ZOO_L // 2] * 2
+    old = layout2_artifact(tmp_path / f"{name}-2.pt2",
+                           make_pipeline(state, ov, **kw), ZOO_L)
+    with pytest.raises(SystemExit, match="joins inside as one program.*"
+                                         "export it again"):
+        build({"artifact": str(old), "port": 0, "warmup": False,
                **_sp(2)})
 
 
@@ -269,10 +284,14 @@ def test_s8c_chunks_that_sp_does_not_divide_are_refused(weights, tmp_path,
     ["--artifact"], ["--input-enc", "s16", "s8c16"],
     ["--artifact", "--input-enc", "s8c16"],
     ["--int8", "--int8-stack", "4", "8"],
-], ids=["artifact", "input_enc", "encoded_artifact", "int8"])
+    ["--artifact", "--int8"],
+    ["--artifact", "--model", "zonzini", "kuleshov", "--length", "1024"],
+], ids=["artifact", "input_enc", "encoded_artifact", "int8", "int8_artifact",
+        "joined_zoo_artifacts"])
 def test_mesh_serve_check_new_routes(capsys, flags):
     """``scripts/mesh_serve_check.py`` with its new flags on the CPU:
-    each route's rows at sp = 2 equal its rows at sp = 1."""
+    each route's rows at sp = 2 equal its rows at sp = 1 (the int8,
+    Zonzini and Kuleshov artifacts too, whose forward joins inside)."""
     assert mesh_serve_check.main(
         ["--device", "cpu", "--dp", "1", "--sp", "1", "2", "--length",
          str(L), "--batch", "4", "--requests", "1", *flags]) == 0

@@ -143,9 +143,10 @@ def test_cli_export_serves_every_family(name, bake, ckpt_dir, tmp_path):
 
 
 def test_baked_export_keeps_one_copy_of_the_weights():
-    """A baked forward's constants are the state's own tensors (no second
-    copy on the device), and the module's skeleton holds no data: the
-    weights are drawn once, by the caller; the decode holds none."""
+    """A baked forward's constants (over Kuleshov's stage programs) are
+    the state's own tensors (no second copy on the device), and the
+    module's skeleton holds no data: the weights are drawn once, by the
+    caller; the decode holds none."""
     _, state = jax_state("kuleshov")
     ptrs = {v.untyped_storage().data_ptr() for v in state.values()}
     artifact = export_pipeline(state, overrides_of("kuleshov"), "b",
@@ -154,7 +155,7 @@ def test_baked_export_keeps_one_copy_of_the_weights():
                                max_echoes=ECHOES)
     assert not [v for v in artifact.decode.constants.values()
                 if isinstance(v, torch.Tensor) and v.numel() > 1000]
-    consts = [v for v in artifact.forward.constants.values()
+    consts = [v for p in artifact.stages for v in p.constants.values()
               if isinstance(v, torch.Tensor)]
     big = [v for v in consts if v.numel() > 1000]
     assert big and all(v.untyped_storage().data_ptr() in ptrs for v in big)
