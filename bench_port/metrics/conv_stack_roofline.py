@@ -1,0 +1,20 @@
+"""conv_stack_roofline: the conv-stack kernel's share of its roofline, %:
+the least time of its calls at the card's peaks (``counts.
+conv_stack_call``, bound by operations at B=128, L=8000) over their
+device time in the trace."""
+
+from bench_port import counts
+
+KERNEL = "conv_stack_kernel"
+
+
+def read(rec):
+    if rec.trace is None:
+        return None
+    ops = rec.trace.ops_named(KERNEL)
+    if not ops:
+        return None
+    least, _ = counts.least_s(*counts.conv_stack_call(
+        rec.params["batch"], rec.config["length"],
+        r=rec.config["architecture"]["upsample_factor"]))
+    return 100.0 * least * len(ops) / sum(o.end - o.start for o in ops)
