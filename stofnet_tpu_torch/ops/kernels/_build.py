@@ -12,6 +12,10 @@ refused launch is reported to the caller.
 A library is rebuilt when its source or a shared ``csrc/*.cuh`` header is
 newer than it. ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them.
+
+The builds and the loads are set-up stages of the program's spans
+(``utils/profiling.once``): ``kernels.build`` around the compilers,
+``kernels.load`` around a library's first load (its build included).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+
+from stofnet_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -73,20 +79,23 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         procs = []
-        for n in todo:
-            src, lib = _paths(n)
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            procs.append((n, tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        logs, failed = {}, []
-        for n, tmp, proc in procs:  # wait for every compiler before raising
-            logs[n], _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed on {n}.cu (rc={proc.returncode}):"
-                              f"\n{logs[n]}")
-                continue
-            os.replace(tmp, _paths(n)[1])
+        with profiling.once("kernels.build"):
+            for n in todo:
+                src, lib = _paths(n)
+                tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+                procs.append((n, tmp, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            logs, failed = {}, []
+            # wait for every compiler before raising
+            for n, tmp, proc in procs:
+                logs[n], _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed on {n}.cu "
+                                  f"(rc={proc.returncode}):\n{logs[n]}")
+                    continue
+                os.replace(tmp, _paths(n)[1])
         if failed:
             raise RuntimeError("\n".join(failed))
         return logs
@@ -99,13 +108,14 @@ def load(name: str, functions: Dict[str, List]) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    build_all([name])
-    lib = ctypes.CDLL(str(_paths(name)[1]))
-    for fn, argtypes in functions.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
+    with profiling.once("kernels.load"):
+        build_all([name])
+        lib = ctypes.CDLL(str(_paths(name)[1]))
+        for fn, argtypes in functions.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
     _libs[name] = lib
     return lib
 

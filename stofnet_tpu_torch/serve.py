@@ -70,6 +70,7 @@ from stofnet_tpu_torch.parallel import seq
 from stofnet_tpu_torch.serving.codecs import (
     chunk_len, encode_s8c, encode_s16, parse_s8c,
 )
+from stofnet_tpu_torch.utils import profiling
 from stofnet_tpu_torch.utils.stages import (
     Stage, run_stages, stage_record, takes,
 )
@@ -179,23 +180,102 @@ def dequantize(inputs: Sequence[Any], enc: Optional[str], start: int,
 def _wrap_input_enc(pipe: Callable, enc: Optional[str],
                     device: torch.device) -> Callable:
     """``pipe`` taking the encoded inputs of ``input_enc=enc``: the codes
-    are copied to ``device`` and dequantized there (:func:`dequantize`).
-    f32 and bf16 inputs go to ``pipe`` as they are: its input cast
-    absorbs a bf16 input."""
+    are copied to ``device`` and dequantized there (:func:`dequantize`),
+    in the span ``h2d``. f32 and bf16 inputs go to ``pipe`` as they are:
+    its input cast absorbs a bf16 input. The forward alone
+    (``heatmap``, ``shard``) takes the dequantized window, as an
+    artifact's."""
     kind, _ = parse_input_enc(enc)
     if kind in ("f32", "bf16"):
         return pipe
 
-    def pipe_enc(codes, scales):
-        length = codes.shape[-1]
-        return pipe(dequantize((codes, scales), enc, 0, length, device))
+    def load(codes, scales):
+        return dequantize((codes, scales), enc, 0, codes.shape[-1], device)
+    return pipe.taking(load)
 
-    # the forward alone takes the dequantized window, as an artifact's
-    for attr in ("route", "calls", "heatmap", "decode", "arch", "shard",
-                 "stages_on"):
-        if hasattr(pipe, attr):
-            setattr(pipe_enc, attr, getattr(pipe, attr))
-    return pipe_enc
+
+def _to_card(x, device: torch.device) -> torch.Tensor:
+    """Frames (B, 1, L) copied to ``device`` as f32: the pipelines'
+    copy-in, in the span ``h2d`` (:func:`_pipeline`)."""
+    return torch.as_tensor(x).to(device).to(torch.float32)
+
+
+def _pipeline(forward: Callable, decode: Callable, device: torch.device, *,
+              shard: Optional[Callable] = None,
+              load: Optional[Callable] = None, first: Optional[list] = None,
+              **attrs) -> Callable:
+    """The serving callable of a forward ``forward(x, **kw)`` on f32
+    frames on ``device`` and its ``decode``, and its entries, each in
+    inference mode and under the program's spans
+    (``utils/profiling.span``):
+
+    - ``pipe(*inputs)``: the root span ``call`` holding ``h2d`` (``load``
+      of the inputs, by default :func:`_to_card` of the frames),
+      ``forward`` and ``decode``; with no profiler running, one check;
+    - ``pipe.heatmap(x, **kw)``, the forward alone: ``heatmap`` holding
+      ``h2d`` (:func:`_to_card`) and ``forward``;
+    - ``pipe.decode(heat)``: ``decode``;
+    - given ``shard``, ``pipe.shard(x, where)``, ``shard(x, where)`` on
+      the frames: ``call`` holding ``h2d`` and ``forward``;
+    - ``pipe.taking(load)``: the pipeline on other inputs, ``load``
+      copying them in.
+
+    The first call of any entry (``first``, shared with ``taking``'s)
+    lies in the set-up stage ``first_call`` (``utils/profiling.once``).
+    ``attrs`` are set on the callable (``route``, ``calls``, ...)."""
+    first = [True] if first is None else first
+    to_card = functools.partial(_to_card, device=device)
+    load = to_card if load is None else load
+    span = profiling.span
+
+    def first_call(entry: Callable, *args, **kw):
+        first.clear()
+        with profiling.once("first_call"):
+            return entry(*args, **kw)
+
+    @torch.inference_mode()
+    def pipe(*inputs) -> torch.Tensor:
+        if first:
+            return first_call(pipe, *inputs)
+        if not profiling.enabled():
+            return decode(forward(load(*inputs)))
+        with span("call"):
+            with span("h2d"):
+                x = load(*inputs)
+            with span("forward"):
+                heat = forward(x)
+            with span("decode"):
+                return decode(heat)
+
+    def forward_alone(root: str, fn: Callable) -> Callable:
+        @torch.inference_mode()
+        def entry(x, *args, **kw) -> torch.Tensor:
+            if first:
+                return first_call(entry, x, *args, **kw)
+            with span(root):
+                with span("h2d"):
+                    x = to_card(x)
+                with span("forward"):
+                    return fn(x, *args, **kw)
+        return entry
+
+    @torch.inference_mode()
+    def decode_alone(heat) -> torch.Tensor:
+        if first:
+            return first_call(decode_alone, heat)
+        with span("decode"):
+            return decode(heat)
+
+    pipe.heatmap = forward_alone("heatmap", forward)
+    pipe.decode = decode_alone
+    if shard is not None:
+        pipe.shard = forward_alone("call", shard)
+    pipe.taking = lambda load: _pipeline(
+        forward, decode, device, shard=shard, load=load, first=first,
+        **attrs)
+    for k, v in attrs.items():
+        setattr(pipe, k, v)
+    return pipe
 
 
 def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
@@ -255,6 +335,15 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
 
     ``model_name`` other than ``stofnet`` serves that model of the
     registry through :func:`zoo_pipeline` (no int8, as in JAX).
+
+    Every call of the callable and of its entries is marked by the
+    program's spans (:func:`_pipeline`, ``utils/profiling``): ``call``
+    holding ``h2d`` (the copy of the inputs to the card and their cast,
+    an encoded input's dequantization included), ``forward`` and
+    ``decode``. They appear as ``stofnet.*`` events in any
+    ``torch.profiler`` trace of the process, and cost one check a call
+    with no profiler running; the pipeline's first call is the set-up
+    stage ``first_call``.
 
     Args:
         state: the model's state dict (reference torch names; tensors or
@@ -326,8 +415,7 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
     calls = dict.fromkeys(("int8",) if int8 is not None
                           else ("fused", "module"), 0)
 
-    def heatmap(x) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device).to(torch.float32)
+    def heatmap(x: torch.Tensor) -> torch.Tensor:
         r = route(x.shape[-1])
         calls[r] += 1
         # TF32's flags are process-wide: full_f32 holds them off while any
@@ -344,23 +432,18 @@ def make_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any], *,
                            threshold=threshold, upsample_factor=up,
                            max_echoes=max_echoes)
 
-    @torch.inference_mode()
-    def pipe(x) -> torch.Tensor:
-        return decode(heatmap(x))
-
-    pipe.route, pipe.calls = route, calls
-    pipe.heatmap = torch.inference_mode()(heatmap)
-    pipe.decode = torch.inference_mode()(decode)
-    pipe.arch = seq.stofnet_arch(overrides, int8=int8 is not None)
-    if int8 is not None:
-        @torch.inference_mode()
-        def shard(x, where: seq.Shard) -> torch.Tensor:
-            x = torch.as_tensor(x).to(device).to(torch.float32)
+    arch = seq.stofnet_arch(overrides, int8=int8 is not None)
+    if int8 is None:
+        pipe = _pipeline(heatmap, decode, device, route=route, calls=calls,
+                         arch=arch)
+    else:
+        def shard(x: torch.Tensor, where: seq.Shard) -> torch.Tensor:
             calls["int8"] += 1
             with precision():
-                return seq.own_output(pipe.arch, int8(x, where), where)
+                return seq.own_output(arch, int8(x, where), where)
 
-        pipe.shard, pipe.stages_on = shard, stages_on
+        pipe = _pipeline(heatmap, decode, device, shard=shard, route=route,
+                         calls=calls, arch=arch, stages_on=stages_on)
     return _wrap_input_enc(pipe, input_enc, device)
 
 
@@ -453,39 +536,30 @@ def zoo_pipeline(state: Mapping[str, Any], overrides: Dict[str, Any],
                            threshold=threshold, upsample_factor=up,
                            max_echoes=max_echoes)
 
-    def forward(x, **kw) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device).to(torch.float32)
+    def forward(x: torch.Tensor, **kw) -> torch.Tensor:
         calls["module"] += 1
         with precision():
             return torch.func.functional_call(model, params, (x,), kw)
 
-    @torch.inference_mode()
-    def pipe(x) -> torch.Tensor:
-        return finish(forward(x))
+    arch = seq.model_arch(model)
+    attrs = dict(route=lambda length: "module", calls=calls, arch=arch)
+    if arch["family"] not in seq.JOINED:
+        return _pipeline(forward, finish, device, **attrs)
+    own = []  # the shard form's skeleton
 
-    pipe.route, pipe.calls = (lambda length: "module"), calls
-    pipe.arch, pipe.decode = seq.model_arch(model), torch.inference_mode()(
-        finish)
-    pipe.heatmap = torch.inference_mode()(forward)
-    if pipe.arch["family"] not in seq.JOINED:
-        return pipe
-    arch, own = pipe.arch, []  # own: the shard form's skeleton
-
-    @torch.inference_mode()
-    def shard(x, where: seq.Shard) -> torch.Tensor:
+    def shard(x: torch.Tensor, where: seq.Shard) -> torch.Tensor:
         if not own:
             own.append(copy.deepcopy(model))
-        x = torch.as_tensor(x).to(device).to(torch.float32)
         calls["module"] += 1
         with precision(), batchnorm.positions(where):
             pred = torch.func.functional_call(
                 own[0], params, (x,), seq.forward_kwargs(arch, where))
         return seq.own_output(arch, pred, where)
 
-    pipe.shard = shard
-    pipe.stages_on = lambda weights=None: _bound_stages(
-        model, params if weights is None else weights)
-    return pipe
+    return _pipeline(forward, finish, device, shard=shard,
+                     stages_on=lambda weights=None: _bound_stages(
+                         model, params if weights is None else weights),
+                     **attrs)
 
 
 class _StageCall(torch.nn.Module):
