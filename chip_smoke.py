@@ -37,7 +37,11 @@
    build prints every ptxas line that names ``wgmma`` (a serialized
    ``wgmma`` runs far below its rate) and the line that names each
    function (the streamed kernel's two instantiations, serving and kernel
-   A, share a source).
+   A, share a source). conv1's kernel (conv1 + bias + ReLU as the (B, L,
+   64) rows, ``ops/kernels/conv1.py``) may leave at most CONV1_DIFF of its
+   outputs off its plain version's bits (the order of a 9-term f32 sum)
+   and must give them on exact-sum inputs; its library line is the fused
+   forward's former conv1 through cuDNN.
 3. The probe: ``stofnet_tpu_torch.scripts.dma_probe``'s sweep on the
    card, every point held to its total (rtol 1e-3 of the PyTorch sum), to
    each element of the plain version (64 f32 epsilons of the sum of its
@@ -46,8 +50,9 @@
 4. Serves through ``serve.make_pipeline`` with a seeded random-init
    StofNet (different-armadillo architecture, x4) at two lengths, each
    over one warm-up batch and 2 fresh batches of 128 echo-bearing
-   waveforms: at L=8000 and at L_UNCHUNKED=2000 (L % 800 != 0) the
-   serving SGB kernel and the conv stack must launch once on every batch,
+   waveforms: at L=8000 and at L_UNCHUNKED=2000 (L % 800 != 0) conv1's
+   kernel, the serving SGB kernel and the conv stack must launch once on
+   every batch,
    and no other kernel; the counts are set to 0 before each length and
    read after it. At each length >= 0.99
    of the coords must lie within 1 sample of the plain path's (the same
@@ -86,8 +91,8 @@
    batches: ``try_fused_pipeline`` (the streamed SGB kernel, the conv stack
    as plain convs) must pass its gate against the plain path on the card
    (``stofnet_apply_reference(fused_stack=False)``),
-   launch the streamed kernel on every batch and not the conv-stack
-   kernel, agree with the plain path on >= 0.99 of the coord
+   launch the streamed kernel and conv1's on every batch and not the
+   conv-stack kernel, agree with the plain path on >= 0.99 of the coord
    slots, and move no more rows against it than twice those the plain path
    moves between the card and the CPU, plus 4; its agreement with the f32
    ``StofNet`` module (the bench's own gate) is printed. Then
@@ -400,9 +405,9 @@ From here on the script runs under PyTorch's own TF32 defaults (cuDNN's
    evaluate=True int8=True`` at dp=1, sp=2 on the mesh phase's two gloo
    ranks (run by them) against one process, by
    ``tests/test_cli_e2e.py:241``'s gates. The int8, Zonzini and Kuleshov
-   routes launch none of the seven kernels (JAX's counterparts reach no
+   routes launch none of the eight kernels (JAX's counterparts reach no
    ``pallas_call``): held at 0. Prints the phase's seconds.
-21. Prints one ``{"kernels": [...]}`` line (seven kernels, each with the
+21. Prints one ``{"kernels": [...]}`` line (eight kernels, each with the
    launches of its paths: the serving, bench, training, probe, daemon,
    export, PALA serving, mesh daemon, sp and sp-serving runs, each
    counted from 0,
@@ -462,7 +467,7 @@ from stofnet_tpu_torch.models.int8 import (
 )
 from stofnet_tpu_torch.models.registry import REGRESSION, build_model
 from stofnet_tpu_torch.ops.kernels import (
-    KERNEL_MODULES, SOURCES, _build, conv_stack, dma_probe,
+    KERNEL_MODULES, SOURCES, _build, conv1, conv_stack, dma_probe,
     reset_launch_counts, sgb, sgb_dma,
 )
 from stofnet_tpu_torch.ops.kernels._timing import time_ms, time_once
@@ -511,14 +516,15 @@ B, L, UP = 128, 8000, 4
 L_UNCHUNKED = 2000  # a serving length JAX's dma_supported refuses (L % 800)
 L_MODULE = 1000  # a serving length the fused forward does not take (L % 80)
 # the kernels each served batch launches, by length and counter
-SERVE = {L: {"sgb_dma.launches": 1, "conv_stack.launches": 1},
-         L_UNCHUNKED: {"sgb_dma.launches": 1, "conv_stack.launches": 1}}
+SERVE = {n: {"conv1.launches": 1, "sgb_dma.launches": 1,
+             "conv_stack.launches": 1} for n in (L, L_UNCHUNKED)}
 # the kernels line's row of the serving SGB kernel's launches, by length
 SGB_ROW = {L: "sgb_contract_pool_dma", L_UNCHUNKED: "sgb_contract_pool"}
 DECODE = dict(window_size=20, threshold=None, upsample_factor=UP,
               max_echoes=8)
 SEED = 0
 TOL = 2e-2  # max|kernel - plain| <= TOL * max|plain|: bf16 outputs
+CONV1_DIFF = 1e-3  # conv1's outputs that may differ from the plain bits
 N_BATCHES = 2  # gate batches a serving path
 ROW_NOISE = 4  # rows of counting noise allowed beside the summation witness
 PEAK_BF16 = 989e12  # FLOP/s, H100 SXM dense bf16 (data sheet)
@@ -820,6 +826,54 @@ def kernel_stack(dev, rng, state) -> dict:
                 bound_by=by, library_ms=library_ms)
 
 
+def kernel_conv1(dev, rng, state) -> dict:
+    """conv1 + bias + ReLU as (B, L, 64) rows at the main path's shapes,
+    weights as ``fused_forward`` lays them out: against its plain version
+    (at most CONV1_DIFF of the outputs off its bits, the order of a 9-term
+    f32 sum), bit for bit on exact-sum inputs (frames of small integers,
+    weights and biases on a 1/64 grid); then timed beside its bound, its
+    plain version and the library line, the fused forward's former conv1
+    through cuDNN (channel-major conv, bias broadcast, ReLU, the rows'
+    copy)."""
+    x = torch.from_numpy(rng.standard_normal((B, 1, L), np.float32)).to(dev)
+    w, b = conv1.conv1_weights(state["conv1.weight"], state["conv1.bias"],
+                               torch.bfloat16)
+    got = conv1.conv1_relu_rows(x, w, b)
+    ref = conv1.conv1_relu_rows_reference(x, w, b)
+    err = check_close("conv1_relu_rows", got, ref)
+    differ = float((got != ref).float().mean())
+    xi = torch.from_numpy(rng.integers(-8, 9, (B, 1, L)).astype(
+        np.float32)).to(dev)
+    wi = torch.from_numpy(rng.integers(-64, 65, (64, 1, 9)).astype(
+        np.float32) / 64).to(dev, torch.bfloat16)
+    bi = torch.from_numpy(rng.integers(-64, 65, 64).astype(
+        np.float32) / 64).to(dev, torch.bfloat16)
+    exact = torch.equal(conv1.conv1_relu_rows(xi, wi, bi),
+                        conv1.conv1_relu_rows_reference(xi, wi, bi))
+    log(f"conv1_relu_rows: {differ:.3g} of the outputs off the plain "
+        f"version's bits; exact sums bit for bit: {exact}")
+    if differ > CONV1_DIFF or not exact or not got.is_contiguous():
+        raise AssertionError(f"conv1_relu_rows: {differ} of the outputs "
+                             f"differ (limit {CONV1_DIFF}), exact sums "
+                             f"equal: {exact}")
+
+    xs = [(v,) for v in variants(x)]
+    ms = time_ms(lambda v: conv1.conv1_relu_rows(v, w, b), xs)
+    plain_ms = time_ms(lambda v: conv1.conv1_relu_rows_reference(v, w, b),
+                       xs)
+    library_ms = time_ms(lambda v: F.relu(F.conv1d(
+        v.to(torch.bfloat16), w, padding=4).transpose(1, 2) + b
+    ).contiguous(), xs)
+    t, by = bound(nbytes(x, w, b) + B * L * 64 * 2, f32=2.0 * B * L * 9 * 64)
+    log(f"conv1_relu_rows: {ms:.4f} ms, {t / ms:.3f} of the bound "
+        f"({t:.4f} ms by {by})")
+    return dict(name="conv1_relu_rows", route="cuda",
+                source="stofnet_tpu_torch/csrc/conv1_rows.cu",
+                replaces="none (conv1 was XLA's in the JAX package)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t,
+                bound_by=by, library_ms=library_ms)
+
+
 def canary(dev, rng) -> dict:
     """The canary, right after the build and before any other kernel: 2 x
     must equal x * 2 bit for bit. Its time is the launch's host work."""
@@ -1002,7 +1056,7 @@ def main_path(dev, state, rng) -> dict:
         run(gate_batch(B, length, rng))  # cuDNN's algorithm choice, not timed
         batches[length] = [gate_batch(B, length, rng)
                            for _ in range(N_BATCHES)]
-    served, launches = {}, {"conv_stack_fused": 0}
+    served, launches = {}, {"conv_stack_fused": 0, "conv1_relu_rows": 0}
     for length, per_batch in SERVE.items():
         reset_launch_counts()
         served[length] = serve_timed(f"main path L={length}", run,
@@ -1010,6 +1064,7 @@ def main_path(dev, state, rng) -> dict:
         c = counts()
         launches[SGB_ROW[length]] = c["sgb_dma.launches"]
         launches["conv_stack_fused"] += c["conv_stack.launches"]
+        launches["conv1_relu_rows"] += c["conv1.launches"]
     log(f"main path launches: {json.dumps(launches)}")
     module_route(dev, state, pipe, run, rng)
 
@@ -1104,7 +1159,8 @@ def bench_paths(dev, state, rng) -> dict:
                              "path against the plain path")
     reset_launch_counts()
     got, ms, launches = serve_bench_path("fused", fused, dev, state, batches,
-                                         {"sgb_dma.launches": 1})
+                                         {"sgb_dma.launches": 1,
+                                          "conv1.launches": 1})
     agree = coord_agreement(got, ref)
     rows, moved = row_agreement(got, ref)
     base = row_agreement(ref, ref_cpu)[1]
@@ -1114,7 +1170,8 @@ def bench_paths(dev, state, rng) -> dict:
                                moved=row_agreement(got, c32)[1]),
                ms_per_batch=ms, waveforms_per_s=B / ms * 1e3,
                launches={"sgb_contract_pool_dma": launches[
-                   "sgb_dma.launches"]})
+                   "sgb_dma.launches"],
+                         "conv1_relu_rows": launches["conv1.launches"]})
     log(f"fused path: {json.dumps(out)}")
     if agree < AGREE_MIN:
         raise AssertionError(f"fused path: coord agreement {agree} < "
@@ -1625,11 +1682,14 @@ def daemon_traffic(name, args, state, dev, rows, batch, dtype=None,
     batches = {n: s["batches"] for n, s in per_length.items()}
     fused = c["sgb_dma.launches"] > 0
     if (c["sgb_dma.launches"] != c["conv_stack.launches"]
+            or c["conv1.launches"] != c["conv_stack.launches"]
             or (fused and c["sgb_dma.launches"]
                 != shards * sum(batches.values()))):
         raise AssertionError(f"{name}: launches {c} on {batches} batches, "
-                             f"not both kernels {shards} times a batch")
-    launches = {"conv_stack_fused": c["conv_stack.launches"]}
+                             f"not the three kernels {shards} times a "
+                             f"batch")
+    launches = {"conv_stack_fused": c["conv_stack.launches"],
+                "conv1_relu_rows": c["conv1.launches"]}
     for n, k in batches.items():
         launches[SGB_ROW[n]] = shards * k if fused else 0
 
@@ -1900,7 +1960,8 @@ def export_path(dev, state, keep: Path) -> dict:
     want, direct_ms = serve_timed("export phase direct", run_direct, batches,
                                   SERVE[L])
     out = {"direct_ms_per_batch": float(np.median(direct_ms))}
-    launches = {"sgb_contract_pool_dma": 0, "conv_stack_fused": 0}
+    launches = {"sgb_contract_pool_dma": 0, "conv_stack_fused": 0,
+                "conv1_relu_rows": 0}
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
         for kind, batch in (("b", "b"), ("fixed", B), ("weightless", "b")):
@@ -1930,6 +1991,7 @@ def export_path(dev, state, keep: Path) -> dict:
             c = counts()
             launches["sgb_contract_pool_dma"] += c["sgb_dma.launches"]
             launches["conv_stack_fused"] += c["conv_stack.launches"]
+            launches["conv1_relu_rows"] += c["conv1.launches"]
             out[kind] = dict(
                 export_s=export_s, load_s=load_s,
                 file_mb=path.stat().st_size / 1e6,
@@ -2749,7 +2811,8 @@ def pala_serve(dev, state, cfg) -> dict:
     agree = coord_agreement(got, plain)
     rows, moved = row_agreement(got, plain)
     launches = {SGB_ROW[L_PALA]: c["sgb_dma.launches"],
-                "conv_stack_fused": c["conv_stack.launches"]}
+                "conv_stack_fused": c["conv_stack.launches"],
+                "conv1_relu_rows": c["conv1.launches"]}
     out = dict(route=pipe.route(L_PALA), waveforms=len(frames),
                batches=len(batches), launches=launches,
                coord_agreement=agree, row_agreement=rows, rows_moved=moved,
@@ -3468,7 +3531,7 @@ def sp_serving(dev, state, rng) -> dict:
     def run_single(x):
         return single(x).cpu()
 
-    launches = {"conv_stack_fused": 0}
+    launches = {"conv_stack_fused": 0, "conv1_relu_rows": 0}
     arch = single.arch
     for length, sp in SP_SERVE:
         name = f"sp phase, L={length} sp={sp}"
@@ -3482,11 +3545,13 @@ def sp_serving(dev, state, rng) -> dict:
         reset_launch_counts()
         got, batch_ms = serve_timed(name, run, batches,
                                     {"sgb_dma.launches": sp,
-                                     "conv_stack.launches": sp})
+                                     "conv_stack.launches": sp,
+                                     "conv1.launches": sp})
         c = counts()
         launches[SGB_ROW[length]] = (launches.get(SGB_ROW[length], 0)
                                      + c["sgb_dma.launches"])
         launches["conv_stack_fused"] += c["conv_stack.launches"]
+        launches["conv1_relu_rows"] += c["conv1.launches"]
         equal = bool(torch.equal(got, want))
         rows, moved = row_agreement(got, want)
         out = dict(rows_equal=equal, coord_agreement=coord_agreement(
@@ -3945,7 +4010,7 @@ def sp_artifacts(dev, state, arts: dict, rng) -> dict:
     (:func:`sp_pipeline`), both serving kernels sp times a batch through
     their custom ops, ms a request beside sp=1's. Returns the launches by
     kernels-line row."""
-    launches = {"conv_stack_fused": 0}
+    launches = {"conv_stack_fused": 0, "conv1_relu_rows": 0}
     for length, sps in SP_ARTIFACT:
         rows = gate_batch(B, length, rng)
         one = sp_request({"artifact": str(arts[length])}, rows)
@@ -3953,7 +4018,8 @@ def sp_artifacts(dev, state, arts: dict, rng) -> dict:
             got = sp_request({"artifact": str(arts[length]), "mesh_sp": sp},
                              rows)
             direct = sp_pipeline(dev, state, sp)[0](rows)
-            want = {"sgb_dma.launches": sp, "conv_stack.launches": sp}
+            want = {"sgb_dma.launches": sp, "conv_stack.launches": sp,
+                    "conv1.launches": sp}
             res = dict(equal_sp1=bool(torch.equal(got["coords"],
                                                   one["coords"])),
                        equal_direct=bool(torch.equal(got["coords"], direct)),
@@ -3968,6 +4034,7 @@ def sp_artifacts(dev, state, arts: dict, rng) -> dict:
             launches[SGB_ROW[length]] = (launches.get(SGB_ROW[length], 0)
                                          + sp)
             launches["conv_stack_fused"] += sp
+            launches["conv1_relu_rows"] += sp
     return launches
 
 
@@ -4002,7 +4069,8 @@ def sp_encoded(dev, state, work: Path, stofnet_ckpt: str, rng) -> dict:
         input_enc=SP_ENC_ARTIFACT, **{k: DECODE[k] for k in (
             "window_size", "threshold", "max_echoes")}))
     sources.append((f"artifact {SP_ENC_ARTIFACT}", {"artifact": str(art)}))
-    launches = {"sgb_contract_pool_dma": 0, "conv_stack_fused": 0}
+    launches = {"sgb_contract_pool_dma": 0, "conv_stack_fused": 0,
+                "conv1_relu_rows": 0}
     for name, args in sources:
         one = sp_request(args, rows)
         got = sp_request(dict(args, mesh_sp=2), rows)
@@ -4018,6 +4086,8 @@ def sp_encoded(dev, state, work: Path, stofnet_ckpt: str, rng) -> dict:
                 "sgb_dma.launches", 0)
             launches["conv_stack_fused"] += c["launches"].get(
                 "conv_stack.launches", 0)
+            launches["conv1_relu_rows"] += c["launches"].get(
+                "conv1.launches", 0)
     try:
         with contextlib.redirect_stderr(io.StringIO()):
             serve_cli.build(dict(ckpt, input_enc="s8c6", mesh=True,
@@ -4296,7 +4366,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     kernels = [kernel_sgb(dev, rng, state), kernel_stack(dev, rng, state),
                *kernels_trainable(dev, rng, state),
-               kernel_sgb_dma(dev, rng_new, state)]
+               kernel_sgb_dma(dev, rng_new, state),
+               kernel_conv1(dev, np.random.default_rng(SEED + 12), state)]
     probe_row, probe_launches = probe_path()
     kernels += [probe_row, first]
     for k in kernels:

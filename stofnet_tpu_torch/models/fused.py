@@ -5,9 +5,12 @@
 The same function as ``StofNet(...)(x)``, computed over a state dict, with
 the SemiGlobalBlock's contract conv + 80x max-pool in one SGB kernel
 (the (B, L, 512) pre-pool tensor never reaches device memory) and
-conv2..conv_last in ``ops/kernels/conv_stack.py``. On a CUDA tensor both
-run as CUDA kernels; on a CPU tensor as their plain versions. conv1, the
-expand conv, the upsample, the shuffle and the decode stay plain PyTorch.
+conv2..conv_last in ``ops/kernels/conv_stack.py``. Outside training, a
+conv1 of (64, 1, 9) runs with its bias and ReLU as a third kernel
+(``ops/kernels/conv1.py``), which writes the contiguous (B, L, 64) rows
+the other two read. On a CUDA tensor the three run as CUDA kernels; on a
+CPU tensor as their plain versions. The expand conv, the upsample, the
+shuffle and the decode stay plain PyTorch.
 
 ``trainable=True`` is the training forward: the contract path goes through
 ``sgb_contract_pool_trainable`` (kernel A forward, kernel B backward) and
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from stofnet_tpu_torch.ops.conv import conv1d_same
+from stofnet_tpu_torch.ops.kernels import conv1 as conv1_kernel
 from stofnet_tpu_torch.ops.kernels.conv_stack import (
     NB, conv_stack_fused_prepared, conv_stack_fused_reference, stack_weights,
 )
@@ -110,7 +114,10 @@ def fused_forward(
     kernels): one traced graph for both. Otherwise nothing is laid out, and
     each call runs ``sgb_contract_pool`` on (w, b): the plain version on a
     CPU tensor, and on a CUDA tensor the kernel, which raises for weights
-    it does not take. ``stack_weights`` lays out the conv stack."""
+    it does not take. ``stack_weights`` lays out the conv stack. Where
+    conv1's weight is (64, 1, 9), ``conv1_weights`` rounds it and its bias
+    once and every call runs the conv1 op (plain on the CPU, the kernel on
+    the card, bfloat16 only); any other conv1 stays the plain conv."""
     _check_sgb_impl(sgb_impl)
     _check_scale(semi_global_scale)
     if trainable:
@@ -123,7 +130,13 @@ def fused_forward(
                           num_blocks, semi_global_scale, dtype)
         return forward_train
     dt = torch.float32 if dtype is None else dtype
-    sgb = stack = None
+    sgb = stack = conv1 = None
+    if conv1_kernel.takes(state["conv1.weight"]):
+        w1, b1 = conv1_kernel.conv1_weights(state["conv1.weight"],
+                                            state["conv1.bias"], dt)
+
+        def conv1(x):
+            return conv1_kernel.conv1_relu_rows(x, w1, b1)
     if semi_global_scale != 1:
         kernel, b = _kernel_and_bias(state, CONTRACT)
         image = None
@@ -142,7 +155,7 @@ def fused_forward(
 
     def forward(x: torch.Tensor) -> torch.Tensor:
         return _apply(state, x, sgb, stack, upsample_factor, num_blocks,
-                      semi_global_scale, dtype)
+                      semi_global_scale, dtype, conv1)
     return forward
 
 
@@ -263,17 +276,21 @@ def _kernel_and_bias(state, name):
 
 
 def _apply(state, x, sgb, stack, upsample_factor, num_blocks,
-           semi_global_scale, dtype):
-    """The forward around the two kernel blocks: ``sgb(h)`` (the contract
+           semi_global_scale, dtype, conv1=None):
+    """The forward around the kernel blocks: ``conv1(x)`` (conv1 + ReLU as
+    (B, L, C) rows; the plain conv when None), ``sgb(h)`` (the contract
     conv + pool) and ``stack(h)`` (conv2..conv_last; plain convs when
     None)."""
     def kb(name):
         return _kernel_and_bias(state, name)
 
-    h = x.transpose(1, 2)
-    if dtype is not None:
-        h = h.to(dtype)
-    h = F.relu(conv1d_same(h, *kb("conv1"), dtype))
+    if conv1 is not None:
+        h = conv1(x)
+    else:
+        h = x.transpose(1, 2)
+        if dtype is not None:
+            h = h.to(dtype)
+        h = F.relu(conv1d_same(h, *kb("conv1"), dtype))
 
     if semi_global_scale != 1:
         s = conv1d_same(sgb(h), *kb("semi_global_block.expand_conv"), dtype)

@@ -31,7 +31,7 @@ from stofnet_tpu_torch.cli import export as cli_export
 from stofnet_tpu_torch.cli.serve import build
 from stofnet_tpu_torch.data.synthetic import gate_batch
 from stofnet_tpu_torch.models.torch_import import params_to_state_dict
-from stofnet_tpu_torch.ops.kernels import conv_stack, sgb
+from stofnet_tpu_torch.ops.kernels import conv1, conv_stack, sgb
 from stofnet_tpu_torch.serve import (
     _detect_input_enc, encoded_input_specs, export_pipeline,
     export_pipeline_weightless, load_pipeline, make_input_encoder,
@@ -44,7 +44,8 @@ L, L_MODULE = 800, 1000  # the fused route, and L % 80 != 0: the module's
 OV = {"upsample_factor": 4}
 KW = dict(device="cpu", max_echoes=8)
 OPS = {"stofnet_torch.sgb_contract_pool_prepared.default",
-       "stofnet_torch.conv_stack_fused_prepared.default"}
+       "stofnet_torch.conv_stack_fused_prepared.default",
+       "stofnet_torch.conv1_relu_rows.default"}
 
 
 @pytest.fixture(scope="module")
@@ -78,10 +79,11 @@ def _x(batch, length=L, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("op", ["sgb", "stack"])
+@pytest.mark.parametrize("op", ["sgb", "stack", "conv1"])
 def test_custom_ops_pass_opcheck(weights, op, dtype):
     """Schema, fake implementation (shapes and strides of the CPU
-    implementation's output), and dispatch of both ops at small shapes."""
+    implementation's output), and dispatch of the three ops at small
+    shapes."""
     _, state = weights
     rng = np.random.default_rng(1)
     if op == "sgb":
@@ -92,12 +94,18 @@ def test_custom_ops_pass_opcheck(weights, op, dtype):
             w, state["semi_global_block.contract_conv.bias"], dtype)
         args = (h, image, bias, 0.01)
         target = torch.ops.stofnet_torch.sgb_contract_pool_prepared
-    else:
+    elif op == "stack":
         h = torch.from_numpy(rng.standard_normal((2, 600, 64)).astype(
             np.float32)).to(dtype)
         wts = conv_stack.stack_weights(state, dtype)
         args = (h, wts.mid, wts.mid_bias, wts.last, wts.last_bias, wts.r)
         target = torch.ops.stofnet_torch.conv_stack_fused_prepared
+    else:
+        x = torch.from_numpy(rng.standard_normal((2, 1, 600)).astype(
+            np.float32))
+        args = (x, *conv1.conv1_weights(state["conv1.weight"],
+                                        state["conv1.bias"], dtype))
+        target = torch.ops.stofnet_torch.conv1_relu_rows
     torch.library.opcheck(target, args)
 
 
@@ -186,7 +194,7 @@ def test_fixed_batch_artifact_refuses_another_batch(weights, tmp_path):
 def test_weightless_artifact_equals_baked(weights, poly, tmp_path):
     """The weightless program, with the state as its inputs from the
     ``.weights.npz`` sidecar, gives the baked artifact's coords; its file
-    holds no weights and its graph the same two ops."""
+    holds no weights and its graph the same three ops."""
     _, state = weights
     _, baked, baked_path = poly
     program, sidecar = export_pipeline_weightless(state, OV, "b", L, **KW)
