@@ -11,9 +11,11 @@ rows' gaps (``coord_gap_mean``, ``check.py``) and their widest of:
 
 - ``program``: the serving callable of ``make_pipeline``, the timed path;
 - with ``--controls``, ``fp8``: the reference computed in fp8, serving in
-  the program's place (the control); ``int8`` and ``int8_stack``: the
-  program's own int8 route, calibrated on the first batch, without and
-  with every stack conv in int8; the faults ``half_left_out`` (the second
+  the program's place (the control); ``int8`` and ``int8_stack``, where
+  the program's own int8 route, calibrated on the first batch, without
+  and with every stack conv that the model file names
+  (``int8_stack_layers``) in int8, or ``refused: ...`` where the program
+  or the model file lacks the route; the faults ``half_left_out`` (the second
   half of every batch answered as nothing, as a call that left it out),
   ``answer_moved`` (every served position moved by 7.25 samples where it
   is produced) and ``row_moved`` (one row of each batch, drawn from the
@@ -65,7 +67,8 @@ def readings(cfg, params, seed: int, device, controls: bool) -> dict:
     frames = inputs.frames(int(params["pool"]) * batch, length,
                            inputs.rng(seed, "frames")).reshape(
                                -1, batch, 1, length)[:n]
-    weights = inputs.weights(cfg["architecture"], seed, device)
+    model = harness.model_file(cfg)
+    weights = model.weights(cfg, seed, device)
     dtype = getattr(torch, cfg["dtype"])
 
     def gap(pipe, alter=None) -> dict:
@@ -78,27 +81,29 @@ def readings(cfg, params, seed: int, device, controls: bool) -> dict:
                 for k, v in faults(a, gen).items():
                     kinds.setdefault(k, []).append(v)
         for k, got in kinds.items():
-            out[k] = stats(check.gaps(cfg, weights, list(zip(frames, got)),
-                                      device))
+            out[k] = stats(check.gaps(cfg, model, weights,
+                                      list(zip(frames, got)), device))
         return out
 
-    kw = dict(dtype=dtype, device=device, **cfg["decode"])
+    kw = dict(model_name=cfg["model"], dtype=dtype, device=device,
+              **cfg["decode"])
     pipe = make_pipeline(weights, dict(cfg["overrides"]), **kw)
     row = {"seed": seed, "program": gap(pipe)[""]}
     if controls:
         row.update(gap(pipe, alter=True))
         row["fp8"] = stats(np.concatenate([
-            check.control_gaps(cfg, weights, x, device) for x in frames]))
-        nb = cfg["architecture"]["num_blocks"]
-        for name, stack in (("int8", None),
-                            ("int8_stack", list(range(2, nb)))):
+            check.control_gaps(cfg, model, weights, x, device)
+            for x in frames]))
+        for name in ("int8", "int8_stack"):
             try:
+                stack = (model.int8_stack_layers(cfg)
+                         if name == "int8_stack" else None)
                 q = make_pipeline(weights, dict(cfg["overrides"]),
                                   int8_calib=frames[0],
                                   int8_stack_layers=stack, **kw)
                 row[name] = gap(q)[""]
-            except (ValueError, RuntimeError) as e:  # a route it lacks
-                row[name] = f"refused: {e}"[:200]
+            except (AttributeError, ValueError, RuntimeError) as e:
+                row[name] = f"refused: {e}"[:200]  # a route it lacks
     return row
 
 

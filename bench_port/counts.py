@@ -1,6 +1,7 @@
-"""Operations and bytes of the port's kernels and of its forward, and the
-card's published peaks: the yardstick the roofline and mfu readers divide
-by. Plain arithmetic on shapes; imports nothing.
+"""Operations and bytes of the port's kernels, and the card's published
+peaks: the yardstick the roofline and mfu readers divide by (a model's
+operations a waveform are its model file's, ``reference/<model>.py``).
+Plain arithmetic on shapes; imports nothing.
 
 The counts are those of the kernel phase of ``chip_smoke.py`` (its
 ``bound``, ``sgb_bound`` and the conv stack's ``useful`` operations),
@@ -15,7 +16,7 @@ copied here so that a change to the program cannot move the yardstick:
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Tuple
 
 # NVIDIA H100 SXM data sheet, dense rates without sparsity, at the full
 # 700 W power limit
@@ -34,25 +35,6 @@ def least_s(flops: float, nbytes: float) -> Tuple[float, str]:
     """Least time in seconds at the bf16 and HBM peaks, and which sets it."""
     t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_HBM
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def forward_flops(arch: Mapping, length: int) -> float:
-    """Operations of one waveform's forward at ``length`` samples: conv1,
-    the SemiGlobalBlock's contract and expand convs (where it has one), the
-    stack conv2..conv12 and conv_last. Pools, activations, adds, the
-    upsample and the shuffle are not counted."""
-    c = arch["num_features"]
-    k1, km, kl = arch["kernel_sizes"]
-    nb, r = arch["num_blocks"], arch["upsample_factor"]
-    total = conv_flops(length, arch["in_channels"], c, k1)
-    scale = arch["semi_global_scale"]
-    if scale != 1:
-        feat = max(1, scale // 10) * c
-        total += conv_flops(length, c, feat, 5)
-        total += conv_flops(length // scale, feat, c, 5)
-    total += (nb - 2) * conv_flops(length, c, c, km)
-    total += conv_flops(length, c, r, kl)
-    return total
 
 
 def sgb_dma_call(batch: int, length: int, channels: int = 64,

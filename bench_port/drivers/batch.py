@@ -6,17 +6,19 @@ there.
 Parameters: ``batch`` rows a call; ``pool`` distinct batches made from
 the seed in set-up and sent in turn (each 4 MB at B=128, L=8000: more
 than the card's 50 MB L2 together); ``warmup`` calls in set-up;
-``sample_batches`` the batches checked once the window has closed, drawn
-from the seed among those the window finished.
+``sample_batches`` distinct batches of the pool checked once the window
+has closed, each at one of the window's calls that sent it (``samples``).
 
-Each call is the entry ``pipe(x)`` (the copy to the card, the forward
-and the decode) under the span ``pipe``, then the copy of the coords to
-the host under ``host_leg``; the readers split the span's kernels into
-the forward's and the decode's by name (``trace.Trace.split``). The
-route guard: the
+The pipeline serves the configuration's ``model`` (``make_pipeline``'s
+``model_name``). Each call is the entry ``pipe(x)`` (the copy to the
+card, the forward and the decode) under the span ``pipe``, then the copy
+of the coords to the host under ``host_leg``. The route guard: the
 pipeline's route at the configuration's length is the configuration's,
 and every call launches the configuration's kernels a batch, in set-up
-and over the window.
+and over the window. The span guard, in a traced run: every device op
+launched inside ``pipe`` lies in one of the program's ``h2d``,
+``forward`` and ``decode`` spans (``spans.uncovered``), which the span
+readers split the call's device time by.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import time
 
 import numpy as np
 
-from bench_port import inputs
+from bench_port import inputs, spans
 from bench_port.route import check_launches, expected_launches, launch_counts
 
 
@@ -35,6 +37,7 @@ def build_pipeline(ctx):
 
     cfg = ctx.config
     pipe = make_pipeline(ctx.weights, dict(cfg["overrides"]),
+                         model_name=cfg["model"],
                          dtype=getattr(torch, cfg["dtype"]),
                          device=ctx.device, **cfg["decode"])
     route = pipe.route(cfg["length"])
@@ -93,13 +96,23 @@ def measure(run: Run) -> dict:
             if now >= deadline:
                 break
     check_launches(before, run.per, n, "window")
+    stray = spans.uncovered(run.ctx.tracer.trace, "pipe")
+    if stray:
+        raise RuntimeError(
+            f"span guard: {len(stray)} device ops launched inside pipe "
+            f"outside the program's h2d, forward and decode spans, such as "
+            f"{stray[0].name}: the span readers would miss their time")
     return {"seconds": now - t0, "end": now, "batches": n,
             "waveforms": n * run.batch, "attempted": n, "failed": 0}
 
 
 def samples(run: Run, gen: np.random.Generator):
-    n = len(run.outs)
-    pick = gen.choice(n, size=min(n, int(run.ctx.params["sample_batches"])),
-                      replace=False)
-    pool = len(run.frames)
-    return [(run.frames[i % pool], run.outs[i]) for i in sorted(pick)], 0
+    """Distinct batches of the pool, drawn from the seed alone, each at
+    one of the window's calls that sent it, drawn from the seed: so the
+    same seed checks the same frames whatever the window's length."""
+    n, pool = len(run.outs), len(run.frames)
+    size = min(n, pool, int(run.ctx.params["sample_batches"]))
+    batches = gen.choice(min(n, pool), size=size, replace=False)
+    calls = [j + pool * int(gen.integers((n - 1 - j) // pool + 1))
+             for j in batches]
+    return [(run.frames[i % pool], run.outs[i]) for i in sorted(calls)], 0

@@ -5,15 +5,25 @@ Everything that belongs to one configuration, cell or metric sits in a
 file of its own under ``bench_port/``, found by the name that
 ``BENCHMARK.json`` gives it:
 
-- ``configs/<config>.json``: the architecture, its source, the dtype, the
-  decode, the route and its kernel launches a batch, the limits of the
-  check;
+- ``configs/<config>.json``: the model, its architecture and source, the
+  dtype, the decode, the route and its kernel launches a batch, the
+  limits of the check;
+- ``reference/<model>.py``, the model file of the configuration's
+  ``model`` (a name of the program's model registry): ``weights(cfg,
+  seed, device)``, the state dict drawn from the seed that both sides
+  get; ``heatmap(state, x, cfg, quant=None)``, the plain f32 reference;
+  ``forward_flops(cfg)``, the operations of one waveform's forward;
+  ``upsample_factor(cfg)``, output positions an input sample; and, for
+  ``control.py`` alone, ``int8_stack_layers(cfg)``, the stack convs that
+  the program's int8 route may run in s8 (a file without it reads
+  ``refused`` there);
 - ``workloads/<cell>.json``: the configuration, the traffic, the chips,
   the traffic driver and its parameters;
 - ``drivers/<driver>.py``: ``setup(ctx)``, ``measure(run)`` and
   ``samples(run, gen)`` (below);
 - ``metrics/<metric>.py``: ``read(rec)``, the metric's value from the
-  run's records, or None where it finds nothing to read.
+  run's records (``rec.model`` is the model file), or None where it
+  finds nothing to read.
 
 A driver's ``setup`` builds the program under test from ``ctx`` (the
 seed, the configuration, the parameters, the weights, the device), warms
@@ -41,6 +51,7 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 # top-level module names that no run may load: JAX and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "stofnet_tpu")
+MODEL_FUNCTIONS = ("weights", "heatmap", "forward_flops", "upsample_factor")
 # caches of the libraries the program may use, inside the checkout
 CACHES = {"TORCH_EXTENSIONS_DIR": "torch_extensions",
           "TRITON_CACHE_DIR": "triton", "CUDA_CACHE_PATH": "cuda"}
@@ -58,7 +69,7 @@ def load_json(path: Path) -> Any:
 def _module(kind: str, name: str, here: Path) -> ModuleType:
     path = here / kind / f"{name}.py"
     if not path.is_file():
-        raise Refused(f"no {kind[:-1]} file {path}")
+        raise Refused(f"{name!r}: no file {path}")
     mod_name = f"bench_port_{kind}_" + "".join(
         c if c.isalnum() else "_" for c in name)
     spec = importlib.util.spec_from_file_location(mod_name, path)
@@ -73,6 +84,21 @@ def driver(name: str, here: Path = HERE) -> ModuleType:
 
 def reader(name: str, here: Path = HERE):
     return _module("metrics", name, here).read
+
+
+def model_file(cfg: Mapping, here: Path = HERE) -> ModuleType:
+    """The model file that the configuration's ``model`` names, with the
+    functions the harness calls. A family that answers with positions
+    has no ``heatmap`` to judge them by, and is refused so."""
+    name = cfg.get("model")
+    if name is None:
+        raise Refused(f"configuration {cfg.get('name')!r} names no model")
+    mod = _module("reference", name, here)
+    lacks = [f for f in MODEL_FUNCTIONS
+             if not callable(getattr(mod, f, None))]
+    if lacks:
+        raise Refused(f"model file {name}.py lacks {lacks}")
+    return mod
 
 
 def cell_files(name: str, bench: Mapping, here: Path = HERE):
@@ -130,6 +156,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     size."""
     bench = load_json(root / "BENCHMARK.json")
     entry, cell, cfg = cell_files(name, bench, here)
+    model = model_file(cfg, here)
     for key, sub in CACHES.items():
         os.environ[key] = str(root / "build" / "bench_port" / sub)
 
@@ -159,7 +186,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     ctx = Context(int(seed), float(seconds), device, cfg, params, tracer,
                   log=phase)
     phase("imports")
-    ctx.weights = inputs.weights(cfg["architecture"], seed, device)
+    ctx.weights = model.weights(cfg, seed, device)
     phase("weights")
     drv = driver(cell["driver"], here)
     run = drv.setup(ctx)
@@ -178,13 +205,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     found = loaded_forbidden()
     if found:
         raise Refused(f"modules of JAX or the JAX package loaded: {found}")
-    result = check.checks(cfg, check.gaps(cfg, ctx.weights, samples, device),
-                          missing)
+    result = check.checks(
+        cfg, check.gaps(cfg, model, ctx.weights, samples, device), missing)
     # a CPU run (the tests') has no device trace to read
     on_card = tracer.trace if device.type == "cuda" else None
     rec = SimpleNamespace(window=window, setup_s=setup_s, config=cfg,
-                          params=params, trace=on_card, device=device,
-                          slice_end=tracer.stopped)
+                          params=params, model=model, trace=on_card,
+                          device=device, slice_end=tracer.stopped)
     metrics = {}
     for m in metrics_for(bench, name, trace):
         value = reader(m["name"], here)(rec)

@@ -1,5 +1,6 @@
-"""StofNet's forward and its served-coordinate judgement in plain PyTorch,
-float32 without TF32: the reference that decides ``correct``.
+"""StofNet's model file: its weights, its forward in plain PyTorch, float32
+without TF32 (the reference that decides ``correct``), and its operations
+a waveform. A configuration names it with ``"model": "stofnet"``.
 
 Written from the published description (arXiv:2308.12009 and the
 reference repository's ``stofnet.py``), on (B, C, L) tensors with
@@ -15,40 +16,83 @@ reference repository's ``stofnet.py``), on (B, C, L) tensors with
     conv_last (k3, pad 1) -> r channels, sample shuffle -> (B, L r)
 
 ``quant`` rounds each conv's input and weight before the f32 product: the
-control computes the same forward in fp8 through it (:func:`fp8`).
+control computes the same forward in fp8 through it (``common.fp8``).
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import Callable, Iterator, Mapping, Optional
+import math
+from typing import Dict, List, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
 
-FP8_MAX = 448.0  # largest finite float8_e4m3fn
+from bench_port.reference.common import Quant, no_tf32
+
 SLOPE = 0.01
 
-Quant = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+def layers(arch: Mapping) -> List[Tuple[str, int, int, int]]:
+    """(name, cin, cout, k) of every conv of the architecture, in order."""
+    c = arch["num_features"]
+    k1, km, kl = arch["kernel_sizes"]
+    out = [("conv1", arch["in_channels"], c, k1)]
+    scale = arch["semi_global_scale"]
+    if scale != 1:
+        feat = max(1, scale // 10) * c
+        out += [("semi_global_block.contract_conv", c, feat, 5),
+                ("semi_global_block.expand_conv", feat, c, 5)]
+    out += [(f"conv{i}", c, c, km) for i in range(2, arch["num_blocks"])]
+    out.append(("conv_last", c, arch["upsample_factor"], kl))
+    return out
 
 
-@contextlib.contextmanager
-def no_tf32() -> Iterator[None]:
-    """cuDNN's convs and cuBLAS's products in full f32 inside the block."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+def weights(cfg: Mapping, seed: int, device: torch.device
+            ) -> Dict[str, torch.Tensor]:
+    """The f32 state dict (the reference's torch names and layouts), drawn
+    on ``device`` in one generator call and sliced in layer order: each
+    conv's weight and bias from U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+    PyTorch's Conv1d default."""
+    shapes = []
+    for name, cin, cout, k in layers(cfg["architecture"]):
+        bound = 1.0 / math.sqrt(cin * k)
+        shapes += [(f"{name}.weight", (cout, cin, k), bound),
+                   (f"{name}.bias", (cout,), bound)]
+    total = sum(math.prod(s) for _, s, _ in shapes)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    u = torch.rand(total, generator=gen, device=device, dtype=torch.float32)
+    state, at = {}, 0
+    for name, shape, bound in shapes:
+        n = math.prod(shape)
+        state[name] = ((2.0 * u[at:at + n] - 1.0) * bound).reshape(shape)
+        at += n
+    return state
 
 
-def fp8(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to float8 e4m3 under one scale that maps its largest
-    magnitude to the format's largest value, back in f32."""
-    scale = t.abs().amax().clamp_min(1e-30) / FP8_MAX
-    return (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
+def forward_flops(cfg: Mapping) -> float:
+    """Operations of one waveform's forward at ``cfg["length"]`` samples,
+    ``2 n k cin cout`` a conv over ``n`` positions: every conv at the full
+    length but the SemiGlobalBlock's expand conv, on the pooled positions.
+    Pools, activations, adds, the upsample and the shuffle are not
+    counted."""
+    arch, length = cfg["architecture"], cfg["length"]
+    total = 0.0
+    for name, cin, cout, k in layers(arch):
+        n = (length // arch["semi_global_scale"]
+             if name.endswith("expand_conv") else length)
+        total += 2.0 * n * k * cin * cout
+    return total
+
+
+def upsample_factor(cfg: Mapping) -> int:
+    return int(cfg["architecture"]["upsample_factor"])
+
+
+def int8_stack_layers(cfg: Mapping) -> List[int]:
+    """The stack convs conv2 .. conv{nb-1}, by index: those that the
+    program's int8 route can run in s8 (``bench_port/control.py``)."""
+    return list(range(2, cfg["architecture"]["num_blocks"]))
 
 
 def _conv(state: Mapping[str, torch.Tensor], h: torch.Tensor, name: str,
@@ -60,8 +104,9 @@ def _conv(state: Mapping[str, torch.Tensor], h: torch.Tensor, name: str,
 
 
 def heatmap(state: Mapping[str, torch.Tensor], x: torch.Tensor,
-            arch: Mapping, quant: Quant = None) -> torch.Tensor:
+            cfg: Mapping, quant: Quant = None) -> torch.Tensor:
     """(B, 1, L) f32 frames -> (B, L r) f32 heatmap."""
+    arch = cfg["architecture"]
     with no_tf32(), torch.no_grad():
         def conv(h, name, k):
             return _conv(state, h, name, ((k - 1) // 2, k // 2), quant)
@@ -89,39 +134,3 @@ def heatmap(state: Mapping[str, torch.Tensor], x: torch.Tensor,
         h = res1 + conv(h, f"conv{nb - 1}", km)
         h = conv(h, "conv_last", kl)  # (B, r, L)
         return h.transpose(1, 2).reshape(h.shape[0], -1)
-
-
-def served_gaps(ref: torch.Tensor, coords: torch.Tensor,
-                upsample_factor: int) -> torch.Tensor:
-    """Each row's widest gap by which a served position's reference value
-    lies below the reference row's maximum, in units of the row's standard
-    deviation: 0 where every served position is the reference's best.
-
-    ``coords`` (n, E) are the decode's positions divided by the upsample
-    factor, ascending, 0 for an empty slot. With a threshold of None the
-    decode serves each row's maximum: a row with no position served
-    answers position 0 (the decode cannot tell the two apart), and a
-    position that is not finite or lies outside the row is infinitely
-    wrong."""
-    n, width = ref.shape
-    coords = coords.to(ref.device, torch.float32)
-    pos = coords * upsample_factor
-    finite = torch.isfinite(pos).all(dim=1)
-    idx = torch.round(torch.nan_to_num(pos)).long()
-    inside = ((idx >= 0) & (idx < width)).all(dim=1) & finite
-    served = coords != 0
-    served[:, 0] |= ~served.any(dim=1)  # an empty row answers position 0
-    idx = torch.where(served, idx.clamp(0, width - 1), 0)
-    vals = torch.gather(ref, 1, idx)
-    worst = torch.where(served, vals, torch.full_like(vals, float("inf")))
-    gap = (ref.amax(dim=1) - worst.amin(dim=1)) / ref.std(dim=1)
-    return torch.where(inside, gap, torch.full_like(gap, float("inf")))
-
-
-def argmax_coords(ref: torch.Tensor, upsample_factor: int,
-                  slots: int) -> torch.Tensor:
-    """What a decode with a threshold of None serves from ``ref``: each
-    row's first maximum, in samples, in slot 0 (the control's answers)."""
-    out = torch.zeros((ref.shape[0], slots), device=ref.device)
-    out[:, 0] = ref.argmax(dim=1).float() / upsample_factor
-    return out

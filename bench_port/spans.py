@@ -18,6 +18,7 @@ import bisect
 from typing import List, Optional, Sequence, Tuple
 
 DEVICE_WORK = ("kernel", "gpu_memset")  # what a span's launches count
+CALL_PARTS = ("h2d", "forward", "decode")  # the parts of a serving call
 KERNEL_SPANS = ("kernels.build", "kernels.load")
 
 
@@ -101,6 +102,39 @@ def launched_ms(rec, name: str, skip: Sequence[str] = ()
         if i >= 0 and o.launched <= spans[i][1]:
             total += o.end - o.start
     return 1e3 * total / len(spans)
+
+
+def uncovered(trace, outer: str, inner: Sequence[str] = CALL_PARTS
+              ) -> Optional[list]:
+    """The device ops (kernels, copies, fills) launched inside the
+    benchmark's spans ``outer`` of the traced window (``Trace.spans``) but
+    inside none of the program's spans ``inner``: none, where the span
+    readers of ``inner`` account for all the device work of ``outer``.
+    Only the ``outer`` spans that hold a kept record of ``inner[0]`` are
+    read: the program keeps a bounded number of records and drops the
+    first closed first, so where a call's first part is kept, so are the
+    later ones. An op with no launch record is placed nowhere. None
+    without a trace or records."""
+    found = records()
+    if trace is None or found is None:
+        return None
+    parts = sorted((r.start * 1e-9, r.end * 1e-9) for r in found
+                   if r.name in inner)
+    if not parts:
+        return None
+    firsts = sorted(r.start * 1e-9 for r in found if r.name == inner[0])
+
+    def inside(t: float, spans: List[Tuple[float, float]]) -> bool:
+        i = bisect.bisect_right(spans, (t, float("inf"))) - 1
+        return i >= 0 and t <= spans[i][1]
+
+    calls = sorted((s.start, s.end) for s in trace.spans if s.name == outer)
+    calls = [c for c in calls
+             if bisect.bisect_right(firsts, c[1]) >
+             bisect.bisect_left(firsts, c[0])]
+
+    return [o for o in trace.ops if o.launched is not None
+            and inside(o.launched, calls) and not inside(o.launched, parts)]
 
 
 def setup(rec) -> Optional[list]:

@@ -1,7 +1,7 @@
 """The span metrics (``bench_port/spans.py`` and its seven readers) on a
 synthetic trace and synthetic program records with known idle and
 launched times; None where the program keeps no records or has no
-``recorded()``; and the accepted device readers unmoved by the program's
+``recorded()``; and the device readers unmoved by the program's
 ``stofnet.*`` events: user annotations with their shadows on the card's
 timeline, typed as the profiler types them, and the host ``cpu_op``
 events the program makes, typed and as a profiler that names no kinds
@@ -12,7 +12,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from bench_port import harness
+from bench_port import harness, spans
 from bench_port.tests.test_bench_port_trace import CPU, CUDA, Event, Prof
 from bench_port.trace import Trace
 from stofnet_tpu_torch.utils import profiling
@@ -22,7 +22,7 @@ T = 1_000_000  # us: the window opens 1 s after the set-up's first record
 SPANS = ("host_leg.h2d_idle_ms", "forward.idle_ms", "decode.idle_ms",
          "plain_ops.span_ms", "decode.span_ms")
 SETUP = ("setup.kernels_s", "setup.first_call_s")
-ACCEPTED = ("plain_ops.device_ms", "decode.device_ms", "host_leg.htod_ms",
+ACCEPTED = ("plain_ops.span_ms", "decode.span_ms", "host_leg.htod_ms",
             "device.idle_share.batch", "sgb_dma_roofline",
             "conv_stack_roofline")
 
@@ -120,11 +120,20 @@ def test_the_span_readers_read_known_times(keep):
         "decode.span_ms": pytest.approx(13e-3),
         "setup.kernels_s": pytest.approx(0.31),
         "setup.first_call_s": pytest.approx(0.5)}
-    # by span and by name alike
+    # the forward's kernels and fills less the two kernels, the decode's
+    forward = [o for o in rec.trace.ops if o.kind != "gpu_memcpy"
+               and not o.name.startswith(("conv_stack", "sgb_contract"))
+               and 10e-6 <= o.launched - T * 1e-6 < 40e-6]
+    decode = [o for o in rec.trace.ops
+              if 40e-6 <= o.launched - T * 1e-6 < 59e-6]
+    assert [o.name for o in forward] == ["elementwise_kernel",
+                                         "Memset (Device)"]
+    assert [o.name for o in decode] == ["max_pool_forward_nchw<float>",
+                                        "sort_kernel"]
     assert read["plain_ops.span_ms"] == pytest.approx(
-        harness.reader("plain_ops.device_ms")(rec))
+        1e3 * sum(o.end - o.start for o in forward))
     assert read["decode.span_ms"] == pytest.approx(
-        harness.reader("decode.device_ms")(rec))
+        1e3 * sum(o.end - o.start for o in decode))
 
 
 def test_spans_outside_the_window_and_per_batch(keep):
@@ -166,13 +175,40 @@ def test_no_trace_no_device_reading(keep):
 
 
 @pytest.mark.parametrize("how", ["user_annotation", "cpu_op", "untyped"])
-def test_the_accepted_readers_ignore_the_programs_events(how):
+def test_the_accepted_readers_ignore_the_programs_events(keep, how):
+    keep(program_records())
     plain, annotated = (rec_of(device_events()),
                         rec_of(device_events() + annotations(how)))
     for m in ACCEPTED:
         assert harness.reader(m)(annotated) == harness.reader(m)(plain), m
-    assert harness.reader("plain_ops.device_ms")(plain) == pytest.approx(
+    assert harness.reader("plain_ops.span_ms")(plain) == pytest.approx(
         8e-3)
     assert harness.reader("device.idle_share.batch")(plain) == \
         pytest.approx(61.0)
     assert annotated.trace.breakdown() == plain.trace.breakdown()
+
+
+@pytest.mark.parametrize("case", ["covered", "a kernel past the decode",
+                                  "records of the later calls alone",
+                                  "no records"])
+def test_the_span_guard_places_every_op_of_pipe(keep, case):
+    """``spans.uncovered``: the device ops launched inside ``pipe`` but in
+    none of the program's ``h2d``, ``forward`` and ``decode`` spans."""
+    evs = device_events()
+    recs = program_records()
+    if case == "a kernel past the decode":  # launched at 59.5 us
+        evs += [Event("cudaLaunchKernel", CPU, T + 59.5, 0.2, 18,
+                      "cuda_runtime"),
+                Event("fill_kernel", CUDA, T + 60, 1, 18, "kernel")]
+    elif case == "records of the later calls alone":
+        recs = [Record(n, (T + a + 100) * 1000, (T + b + 100) * 1000,
+                       i + 20, p and p + 20, 21) for n, a, b, i, p in CALL]
+    keep([] if case == "no records" else recs)
+    got = spans.uncovered(Trace.from_profiler(Prof(evs)), "pipe")
+    if case == "no records":
+        assert got is None
+    elif case == "a kernel past the decode":
+        assert [o.name for o in got] == ["fill_kernel"]
+    else:
+        # the pipe call before the first kept record is not read
+        assert got == []

@@ -31,9 +31,6 @@ PREFIX = "bench."
 DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 NAME_CHARS = 96  # kernel names are long templates: keep their heads
 TRACED_S = 10.0  # seconds of a traced run's window that the profiler sees
-# the decode's first kernel in a ``pipe(x)`` call: ``ops/peaks.nms1d``'s
-# max-pool, which the forward on the fused route never launches
-DECODE_FIRST = ("max_pool",)
 
 
 class Op(NamedTuple):
@@ -165,32 +162,6 @@ class Trace:
     def ops_named(self, part: str) -> List[Op]:
         return [o for o in self.ops if part in o.name and
                 self.start <= o.start < self.end]
-
-    def split(self, span: str, first: Tuple[str, ...],
-              kinds=("kernel", "gpu_memset")
-              ) -> Tuple[List[Op], List[Op], int]:
-        """The device activity of ``kinds`` launched inside each ``span``,
-        split at its first launch whose name holds one of ``first``: the
-        ops before it, the ops from it on, and the number of spans in
-        which one was found (spans without one are left out)."""
-        calls: Dict[int, List[Op]] = defaultdict(list)
-        for o in self.ops:
-            if o.kind in kinds and self.start <= o.start < self.end:
-                i = self._at(o.launched)
-                if i is not None and self._inner[i].name == span:
-                    calls[i].append(o)
-        before: List[Op] = []
-        after: List[Op] = []
-        found = 0
-        for ops in calls.values():
-            ops.sort(key=lambda o: o.launched)
-            k = next((j for j, o in enumerate(ops)
-                      if any(f in o.name for f in first)), None)
-            if k is not None:
-                before += ops[:k]
-                after += ops[k:]
-                found += 1
-        return before, after, found
 
     def idle_gaps(self) -> Dict[str, float]:
         """Seconds of the window with nothing on the device, by the span
